@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of ``alphazero_tpu`` (AlphaZero for Breakthrough).
+
+The module layout mirrors the JAX package: ``config``, ``env``,
+``models``, ``search`` and ``train``. The two search-tree kernels are
+hand-written CUDA (``csrc/tree_kernels.cu``). Every entry point takes an
+explicit ``device``, ``"cuda"`` by default, and raises when no card is
+present instead of quietly running on the CPU.
+"""
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device when no
+    card is present (pass ``device="cpu"`` to run on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU explicitly")
+    return dev

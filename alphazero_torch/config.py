@@ -1,0 +1,88 @@
+"""Central configuration of the PyTorch port.
+
+The same fields and defaults as the JAX package's ``Config``, kept as an
+independent copy so this package never imports the JAX one. Board
+geometry, net size, MCTS constants and the training schedule follow the
+reference contract.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    # --- Game (Breakthrough) ---
+    board_size: int = 8
+    num_actions: int = 192          # 64 squares x 3 directions
+    input_planes: int = 3           # mine / theirs / ones
+
+    # --- Model ---
+    num_blocks: int = 20
+    num_filters: int = 128
+    se_ratio: int = 8
+
+    # --- MCTS ---
+    num_simulations: int = 400
+    num_simulations_inference: int = 200
+    c_puct: float = 1.5
+    fpu_reduction: float = 0.0      # FPU disabled: unvisited q = 0
+    dirichlet_alpha: float = 0.35
+    dirichlet_epsilon: float = 0.25
+    temperature_threshold: int = 16  # tau=1 for the first N moves, then 0
+    # Between-move tree reuse in self-play: off by default (fresh searches
+    # per move); on doubles search-tree memory for subtree headroom.
+    tree_reuse: bool = False
+
+    # --- Training ---
+    batch_size: int = 1024
+    learning_rate: float = 1e-3
+    lr_t_max: int = 200              # cosine period in learn() calls
+    lr_eta_min: float = 1e-5
+    weight_decay: float = 1e-4
+    grad_clip_norm: float = 1.0
+    parallel_games: int = 128
+    selfplay_batches: int = 8
+    buffer_size: int = 300_000
+    training_epochs: int = 1
+
+    # --- Self-play loop shape ---
+    max_game_length: int = 512       # hard cap on moves per self-play game
+    continuous_selfplay: bool = True  # auto-reset finished lanes
+
+    # --- Precision ---
+    # Search evaluator dtype; the trained params stay f32 and the bfloat16
+    # evaluator runs a bf16 copy (make_net_evaluator).
+    inference_dtype: str = "bfloat16"
+    train_dtype: str = "float32"
+    # Dtype of the fused search-tree rows. The CUDA tree kernels take
+    # float32 only; "float16" stays for CPU numerics tests (exact for
+    # integers <= 2048, i.e. <= 2047-slot trees).
+    value_dtype: str = "float32"
+
+    # --- Self-play evaluator quantization ("off" | "static" | "dynamic") ---
+    selfplay_quant: str = "off"
+
+    # --- Learn-phase data path ---
+    device_replay: bool = True
+
+    # --- Compile/runtime trade of the JAX package (kept for field parity) ---
+    scan_blocks: bool = False
+
+    # --- Paths ---
+    checkpoint_dir: str = "checkpoints"
+    best_model: str = "model_best"
+    data_file: str = "training_data.npz"
+    arena_state: str = "arena_state.json"
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def tiny_config(**kw) -> Config:
+    """A small config for tests: 2-block/32-filter net, few sims."""
+    base = dict(num_blocks=2, num_filters=32, num_simulations=16,
+                parallel_games=8, batch_size=32, max_game_length=256)
+    base.update(kw)
+    return Config(**base)
