@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of ``alphazero_tpu`` (AlphaZero for Breakthrough).
 
 The module layout mirrors the JAX package: ``config``, ``env``,
-``models``, ``search`` and ``train``. The two search-tree kernels are
-hand-written CUDA (``csrc/tree_kernels.cu``). Every entry point takes an
-explicit ``device``, ``"cuda"`` by default, and raises when no card is
-present instead of quietly running on the CPU.
+``models``, ``search``, ``train`` and ``utils``. The JAX package's three
+Pallas kernels are hand-written CUDA here: the two search-tree kernels
+(``csrc/tree_kernels.cu``) and the fused SE-ResNet tower
+(``csrc/tower_kernel.cu``). Every entry point takes an explicit
+``device``, ``"cuda"`` by default, and raises when no card is present
+instead of quietly running on the CPU.
 """
 
 import torch

@@ -9,6 +9,7 @@ reference contract.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +76,9 @@ class Config:
     best_model: str = "model_best"
     data_file: str = "training_data.npz"
     arena_state: str = "arena_state.json"
+
+    def checkpoint_path(self, filename: str) -> str:
+        return os.path.join(self.checkpoint_dir, filename)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -13,7 +13,9 @@ dict into this port's ``state_dict``:
   loads without error and computes garbage;
 - BN: scale -> weight, bias -> bias, mean/var -> running_mean/var (both
   frameworks use eps 1e-5);
-- every array is upcast to float32.
+- every array is upcast to float32;
+- a scan-stacked archive (``scan_blocks=True``: ``tower/block/<leaf>``
+  with the blocks on a leading axis) is unstacked into ``blocks.<i>``.
 """
 
 from __future__ import annotations
@@ -52,6 +54,20 @@ def _convert_kernel(module: str, kernel: np.ndarray) -> np.ndarray:
     return kernel.T                                       # (in,out)->(out,in)
 
 
+def _unstacked(flat: Dict[str, np.ndarray]):
+    """(key, array) pairs of ``flat`` with every scan-stacked leaf
+    ``<col>/tower/block/<leaf path>`` (leading axis = block) split into
+    ``<col>/block_<i>/<leaf path>``."""
+    for key, value in flat.items():
+        collection, _, path = key.partition("/")
+        if path.startswith("tower/block/"):
+            rest = path[len("tower/block/"):]
+            for i, leaf in enumerate(np.asarray(value)):
+                yield f"{collection}/block_{i}/{rest}", leaf
+        else:
+            yield key, value
+
+
 _LEAF_NAMES = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
@@ -67,15 +83,11 @@ def state_dict_from_flat(flat: Dict[str, np.ndarray]
     (float32, CPU). Keys other than ``params/...`` and ``batch_stats/...``
     are ignored; BN ``num_batches_tracked`` counters are not produced."""
     out = {}
-    for key, value in flat.items():
+    for key, value in _unstacked(flat):
         collection, _, path = key.partition("/")
         if collection not in ("params", "batch_stats"):
             continue
         module_path, _, leaf = path.rpartition("/")
-        if module_path.split("/")[0] == "tower":
-            raise ValueError(
-                "scan-stacked (scan_blocks=True) archives are not supported; "
-                "export the inlined-tower layout")
         name = _LEAF_NAMES.get((collection, leaf))
         if name is None:
             raise ValueError(f"unexpected archive key {key!r}")

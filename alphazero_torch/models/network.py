@@ -1,4 +1,4 @@
-"""SE-ResNet policy/value network, inference only.
+"""SE-ResNet policy/value network.
 
 Port of ``alphazero_tpu/models/network.py``:
 
@@ -15,6 +15,10 @@ a flatten (``policy_fc``, ``value_fc1``) therefore take their inputs in
 (c, h, w) order; ``models/convert.py`` permutes the JAX package's
 (h, w, c)-ordered weights once at load. Convolutions and dense layers are
 ``F.conv2d`` / ``F.linear``, as the JAX package left them to XLA.
+
+In train mode BatchNorm follows Flax's defaults, which the JAX package
+trains with (see ``BatchNorm2d`` below); ``build_network`` and the weight
+loaders return the net in eval mode.
 """
 
 from __future__ import annotations
@@ -27,6 +31,31 @@ from torch import nn
 
 from alphazero_torch import resolve_device
 from alphazero_torch.config import Config
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with Flax's training semantics: the running
+    statistics decay by 0.99 per step (``momentum=0.01`` in PyTorch's
+    convention; PyTorch's default would be 0.1), and the running variance
+    takes the BIASED batch variance, as the normalisation itself does
+    (PyTorch's own update takes the unbiased one, larger by n/(n-1),
+    n = B*64). Eval mode, parameters and buffers are ``nn.BatchNorm2d``'s.
+    """
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
 
 
 class SqueezeExcite(nn.Module):
@@ -50,9 +79,9 @@ class SEResBlock(nn.Module):
     def __init__(self, channels: int, se_ratio: int):
         super().__init__()
         self.conv1 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(channels, eps=1e-5)
+        self.bn1 = BatchNorm2d(channels)
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(channels, eps=1e-5)
+        self.bn2 = BatchNorm2d(channels)
         self.se = SqueezeExcite(channels, se_ratio)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,14 +103,14 @@ class AlphaZeroNet(nn.Module):
         super().__init__()
         C, S = num_filters, board_size * board_size
         self.input_conv = nn.Conv2d(input_planes, C, 3, padding=1, bias=False)
-        self.input_bn = nn.BatchNorm2d(C, eps=1e-5)
+        self.input_bn = BatchNorm2d(C)
         self.blocks = nn.ModuleList(
             SEResBlock(C, se_ratio) for _ in range(num_blocks))
         self.policy_conv = nn.Conv2d(C, C, 3, padding=1, bias=False)
-        self.policy_bn = nn.BatchNorm2d(C, eps=1e-5)
+        self.policy_bn = BatchNorm2d(C)
         self.policy_fc = nn.Linear(C * S, num_actions)
         self.value_conv = nn.Conv2d(C, 32, 1, bias=False)
-        self.value_bn = nn.BatchNorm2d(32, eps=1e-5)
+        self.value_bn = BatchNorm2d(32)
         self.value_fc1 = nn.Linear(32 * S, 128)
         self.value_fc2 = nn.Linear(128, 2)
 

@@ -3,15 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the tree kernels from ``alphazero_torch/csrc`` (into ``build/``),
-holds each against its plain PyTorch version, loads the archived 20x128
-net, runs the self-play search at full width (512 games x 800
-simulations) through ``selfplay_move``, checks the card's search against
-the CPU's, and runs continuous self-play. Each phase prints one line;
-any failure raises and exits non-zero. The second-to-last lines are the
-``kernels`` JSON object and the card's name and power limit; the last
-line is ``{"ok": true, "device": {...}}``. A profile summary of one short
-search goes to ``chiprun_out/chip_smoke_profile_<games>.txt``.
+Builds the CUDA kernels from ``alphazero_torch/csrc`` (into ``build/``)
+and then runs, each phase printing one line and any failure raising and
+exiting non-zero:
+
+- phase 1: the two tree kernels against their plain PyTorch versions
+  (bit-exact) and their times;
+- phase 2: the archived 20x128 net on the card against the CPU;
+- phase 6: the fused tower kernel against its plain version (1, 2 and 20
+  blocks, and every block alone) and against the layer-by-layer net, and
+  its times at 512 positions x 20 blocks beside its bound, its plain
+  version and the bf16 net's tower blocks in eager mode;
+- phase 3: the self-play search at full width (512 games x 800
+  simulations, one timed move) through ``selfplay_move``;
+- phase 4: the card's search against the CPU's;
+- phase 5: continuous self-play (128 lanes x 16 simulations);
+- phase 7: the fused path at full width (512 positions, 800 evaluations
+  in a row) beside the layer-by-layer bf16 net;
+- phase 8: the trainer at full width (20x128 net, 128 lanes x 64
+  simulations, batch 1024): two ``run_iteration``s in a temporary
+  directory, then a second trainer that resumes from disk.
+
+The second-to-last lines are the ``kernels`` JSON object and the card's
+name and power limit; the last line is ``{"ok": true, "device": {...}}``.
+A profile summary of one short search goes to
+``chiprun_out/chip_smoke_profile_<games>.txt``.
 """
 
 import copy
@@ -27,11 +43,15 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARCHIVE = os.path.join(ROOT, "artifacts", "model_r5_latest.npz")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOPS = 989e12                # H100 SXM data sheet, dense bf16
 A = 192
 OFFSETS = (0, 2 * A, 3 * A)
 GAMES, SIMS = 512, 800             # the main path's width
 CPU_GAMES, CPU_SIMS = 32, 64
-CONT_LANES, CONT_SIMS, CONT_GAMES = 128, 64, 128
+CONT_LANES, CONT_SIMS, CONT_GAMES = 128, 16, 128
+TOWER_BLOCKS = 20
+TRAIN_LANES, TRAIN_SIMS, TRAIN_BATCH = 128, 64, 1024
+FUSED_EVALS = 800
 # bf16 forward of the archived net against its f32 forward: max difference
 # in a logit, a probability and the value. The JAX package's own bf16
 # inference stays within half of each (tests/test_torch_network.py).
@@ -55,20 +75,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=50, warmup=10, queued=True):
+def cuda_ms(fn, iters=50, warmup=10, queued=True, sleep_ms=60):
     """Mean time of ``fn(i)`` per call between two CUDA events.
 
-    ``queued``: the stream first sleeps for ~20 ms on the device, so every
-    launch of the ``iters`` calls is queued before the start event runs
-    and the events measure device time alone. Otherwise the events also
-    measure the host's launch cost, which bounds small kernels."""
+    ``queued``: the stream first sleeps for about ``sleep_ms`` on the
+    device, so every launch of the ``iters`` calls is queued before the
+    start event runs and the events measure device time alone (the calls
+    must stay under the stream's queue depth, about a thousand launches).
+    Otherwise the events also measure the host's launch cost, which
+    bounds small kernels."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if queued:
-        torch.cuda._sleep(40_000_000)                     # cycles
+        torch.cuda._sleep(int(sleep_ms * 2_000_000))      # cycles
     t0 = time.time()
     start.record()
     for i in range(iters):
@@ -76,7 +98,7 @@ def cuda_ms(fn, iters=50, warmup=10, queued=True):
     end.record()
     host_s = time.time() - t0
     torch.cuda.synchronize()
-    check(not queued or host_s < 0.015,
+    check(not queued or host_s < 0.75e-3 * sleep_ms,
           f"launches took {host_s} s to queue, past the device's sleep")
     return start.elapsed_time(end) / iters
 
@@ -280,12 +302,12 @@ def phase_search(dev, net, card):
     del tree
     torch.cuda.empty_cache()
 
-    # the main path, counted: 2 moves through selfplay_move
+    # the main path, counted: one move through selfplay_move
     torch.cuda.reset_peak_memory_stats()
     K.fetch_rows.launches = 0
     K.commit_edges.launches = 0
     mcts.STATS.reset()
-    moves, live = 2, 0
+    moves, live = 1, 0
     torch.cuda.synchronize()
     t0 = time.time()
     for _ in range(moves):
@@ -502,39 +524,408 @@ def phase_continuous(dev, net, card):
     profile_search(env.initial_state((CONT_LANES,), device=dev), eval_fn)
 
 
-def main() -> int:
+# -----------------------------------------------------------------------------
+# Phase 6: the fused tower kernel against its plain version, and its times
+# -----------------------------------------------------------------------------
+
+def _heads_deviation(packed, got, want):
+    """Largest difference in a logit, a probability and the value after
+    the heads, between two tower outputs."""
+    from alphazero_torch.models import fused
+    from alphazero_torch.models.network import wl_to_value
+
+    (pg, wg), (pw, ww) = fused.heads(packed, got), fused.heads(packed, want)
+    return (max(float((pg - pw).abs().max()), float((wg - ww).abs().max())),
+            float((torch.softmax(pg, -1) - torch.softmax(pw, -1)).abs().max()),
+            float((wl_to_value(wg) - wl_to_value(ww)).abs().max()))
+
+
+def tower_bound_ms(games, num_blocks, packed):
+    """The least time the card could take for ``tower_forward``: its
+    operations (two 3x3 convs and the three SE products per block, two
+    operations per multiply-add) at the bf16 tensor-core rate, or its
+    bytes (activations in and out, every weight once) at the memory rate,
+    whichever is larger."""
+    C = 128
+    macs = num_blocks * games * (2 * 64 * 9 * C * C + 3 * C * 128)
+    weights = sum(packed[k][:num_blocks].numel() * packed[k].element_size()
+                  for k in ("wconv", "bconv", "wse1", "bse1", "wse2g",
+                            "wse2b", "bse2g", "bse2b"))
+    nbytes = 2 * games * 64 * C * 2 + weights
+    by_ops = 2 * macs / BF16_FLOPS * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                   else "bytes"), 2 * macs, nbytes
+
+
+@phase("phase 6 tower kernel")
+def phase_tower(dev, net):
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import fused
+    from alphazero_torch.models.network import wl_to_value
+
+    packed = fused.pack_weights(net)
+    n = packed["num_blocks"]
+    check(n == TOWER_BLOCKS, f"archive has {n} blocks")
+    planes = env.encoded_state(random_positions(GAMES, 21)).to(dev)
+    x = fused.tower_input(packed, planes)
+    check(x.shape == (GAMES * 64, 128) and x.dtype == torch.bfloat16,
+          "tower input shape")
+    step = 2.0 ** -7                     # one bf16 step, relative
+    worst = 0.0
+    for nb in (1, 2, TOWER_BLOCKS):
+        for games in (fused.TB, GAMES):
+            xin = x[:games * 64]
+            before = xin.clone()
+            got = fused.tower_forward(xin, packed, nb)
+            want = fused._tower_plain(xin, packed, nb)
+            torch.cuda.synchronize()
+            check(torch.equal(xin, before), "tower_forward changed its input")
+            check(got.shape == want.shape and got.dtype == torch.bfloat16
+                  and bool(torch.isfinite(got.float()).all()),
+                  f"tower output malformed ({nb} blocks, {games} games)")
+            g, w = got.float(), want.float()
+            diff = (g - w).abs()
+            steps = float((diff / (step * w.abs().clamp_min(1.0))).max())
+            worst = max(worst, float(diff.max()))
+            dl, dp, dv = _heads_deviation(packed, got, want)
+            print(f"tower kernel vs plain, {nb} blocks x {games} games: "
+                  f"{int((diff > 0).sum())}/{diff.numel()} elements differ, "
+                  f"max |d| {float(diff.max()):.4g} = {steps:.2f} steps, "
+                  f"after the heads |d prob| {dp:.5f} |d value| {dv:.5f}",
+                  flush=True)
+            # the order of the f32 sums differs, so an element may land on
+            # the next bf16 value. One block: at most one bf16 step (2^-7
+            # of max(|x|, 1)); two blocks: at most four. Through 20 blocks
+            # such steps grow like the bf16 net's own rounding against
+            # f32, so there the heads' outputs are held to BF16_LIMITS
+            if nb <= 2:
+                check(steps <= (1.0 if nb == 1 else 4.0),
+                      f"tower kernel differs from its plain version by "
+                      f"{steps} bf16 steps at {nb} blocks, {games} games")
+            check(dl <= BF16_LIMITS[0] and dp <= BF16_LIMITS[1]
+                  and dv <= BF16_LIMITS[2],
+                  f"tower kernel vs plain after the heads at {nb} blocks: "
+                  f"|d logit| {dl}, |d prob| {dp}, |d value| {dv}")
+    # every block's weights on their own: block i of the kernel against
+    # block i of the plain version on the plain version's activations
+    xi, forced = x, 0.0
+    for i in range(n):
+        one = {k: (v[i:i + 1] if torch.is_tensor(v) else v)
+               for k, v in packed.items()}
+        got = fused.tower_forward(xi, one, 1).float()
+        xi = fused._tower_plain(xi, one, 1)
+        w = xi.float()
+        forced = max(forced, float(((got - w).abs()
+                                    / (step * w.abs().clamp_min(1.0))).max()))
+    check(forced <= 1.0, f"a single block of the tower kernel differs from "
+                         f"its plain version by {forced} bf16 steps")
+    print(f"each of the {n} blocks alone, on the plain version's "
+          f"activations: at most {forced:.2f} bf16 steps", flush=True)
+    launches = fused.tower_forward.launches
+    refused = [(x[:3 * 64], ValueError), (x.float(), TypeError),
+               (x[:, :64], ValueError)]
+    if dev.type == "cuda":               # the kernel never copies its input
+        refused.append((x[::2], ValueError))
+    for bad, exc in refused:
+        try:
+            fused.tower_forward(bad, packed, 1)
+        except exc:
+            pass
+        else:
+            raise SmokeFailure(f"tower_forward took {tuple(bad.shape)} "
+                               f"{bad.dtype}")
+    check(fused.tower_forward.launches == launches,
+          "a refused call counted as a launch")
+
+    # fused_apply against the layer-by-layer net on phase 2's 64
+    # positions: within BF16_LIMITS of the f32 net, as the bf16 net is,
+    # and so within twice the limits of the bf16 net
+    net_bf16 = copy.deepcopy(net).to(torch.bfloat16)
+    planes64 = env.encoded_state(random_positions(64, 11)).to(dev)
+    with torch.no_grad():
+        pf, wf = fused.fused_apply(packed, planes64)
+        p16, w16 = net_bf16(planes64.bfloat16())
+        p32, w32 = net(planes64)
+    dev_of = lambda p, w: (
+        max(float((pf - p).abs().max()), float((wf - w).abs().max())),
+        float((torch.softmax(pf, -1) - torch.softmax(p, -1)).abs().max()),
+        float((wl_to_value(wf) - wl_to_value(w)).abs().max()))
+    d16, d32 = dev_of(p16, w16), dev_of(p32, w32)
+    check(all(d <= lim for d, lim in zip(d32, BF16_LIMITS)),
+          f"fused_apply vs the f32 net: {d32}")
+    check(all(d <= 2 * lim for d, lim in zip(d16, BF16_LIMITS)),
+          f"fused_apply vs the bf16 net: {d16}")
+    print(f"fused_apply on 64 positions, max |d logit|, |d prob|, "
+          f"|d value|: vs the f32 net {d32} (limits {BF16_LIMITS}), vs the "
+          f"bf16 net {d16} (twice the limits)", flush=True)
+
+    # times at the path's shape; library: the tower blocks of the bf16
+    # net in eager mode (cuDNN), which the fused path never calls
+    x_nchw = x.view(GAMES, 8, 8, 128).permute(0, 3, 1, 2).contiguous()
+
+    @torch.no_grad()
+    def library(i):
+        y = x_nchw
+        for block in net_bf16.blocks:
+            y = block(y)
+        return y
+
+    t = {"ms": cuda_ms(lambda i: fused.tower_forward(x, packed, n),
+                       iters=20, warmup=3),
+         "call_ms": cuda_ms(lambda i: fused.tower_forward(x, packed, n),
+                            iters=20, warmup=3, queued=False),
+         # the plain version issues thousands of launches per call, more
+         # than a stream queues: its time is per call, host included
+         "plain_ms": cuda_ms(lambda i: fused._tower_plain(x, packed, n),
+                             iters=3, warmup=1, queued=False),
+         # one call: three would pass the stream's queue depth
+         "library_ms": cuda_ms(library, iters=1, warmup=3, sleep_ms=100),
+         "library_call_ms": cuda_ms(library, iters=10, warmup=2,
+                                    queued=False)}
+    bound, bound_by, ops, nbytes = tower_bound_ms(GAMES, n, packed)
+    t["tflops"] = ops / t["ms"] / 1e9
+    # how the time scales: one thread block on each of the 132 SMs (264
+    # games) against two (528), and one or two blocks against twenty
+    x2 = torch.cat([x, x[:16 * 64]])
+    scaling = {f"{g}x{nb}": cuda_ms(
+        lambda i: fused.tower_forward(x2[:g * 64], packed, nb),
+        iters=20, warmup=3)
+        for g, nb in ((264, n), (528, n), (GAMES, 1), (GAMES, 2))}
+    print(f"tower_forward device ms by games x blocks: "
+          f"{json.dumps(scaling)}", flush=True)
+    print(f"tower_forward at {GAMES} positions x {n} blocks: "
+          f"{json.dumps(t)}; bound {bound:.4f} ms by {bound_by} "
+          f"({ops:.4g} operations, {nbytes:.4g} bytes)", flush=True)
+    return worst, t, (bound, bound_by)
+
+
+# -----------------------------------------------------------------------------
+# Phase 7: the fused path at full width
+# -----------------------------------------------------------------------------
+
+@phase("phase 7 fused path")
+def phase_fused(dev, net, card):
+    from alphazero_torch import bench_fused
+    from alphazero_torch.models import fused
+
+    fused.tower_forward.launches = 0
+    out = bench_fused.bench_fused(
+        net, bench_fused.random_planes(GAMES).to(dev), FUSED_EVALS)
+    launches = fused.tower_forward.launches
+    # one evaluation for the numerics line, three to warm up, then the
+    # timed ones
+    check(launches == FUSED_EVALS + 4
+          and out["tower_launches"] + 1 == launches,
+          f"tower_forward launched {launches} times for {FUSED_EVALS} "
+          f"evaluations")
+    # random planes and 512 positions: further from the bf16 net than
+    # phase 6's 64 real positions; a gross-error gate only
+    check(out["max_prob_diff"] <= 0.5 and out["max_value_diff"] <= 0.5,
+          f"fused path vs the bf16 net: {out}")
+    out["card"] = card
+    print("fused path " + json.dumps(out), flush=True)
+    return launches
+
+
+# -----------------------------------------------------------------------------
+# Phase 8: the trainer at full width
+# -----------------------------------------------------------------------------
+
+def profile_train_steps(step, n=3):
+    """``n`` train steps under ``torch.profiler``: the share of the wall
+    time the device is busy (the sum of the kernels' own times over the
+    wall) and the five kernels that took most of it. The whole table
+    goes to ``chiprun_out/chip_smoke_profile_train_step.txt``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        for i in range(n):
+            step(i)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+    kern = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kern) / 1e6
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out",
+                           "chip_smoke_profile_train_step.txt"), "w") as f:
+        f.write(f"{n} train steps: wall {wall:.4f} s, device busy "
+                f"{busy:.4f} s\n")
+        for us, key, count in kern[:40]:
+            f.write(f"{us / 1e3 / n:10.3f} ms/step  {count // n:5d}  "
+                    f"{key}\n")
+    return busy / wall, [f"{k[:48]} {us / 1e3 / n:.2f} ms x{c // n}"
+                         for us, k, c in kern[:5]]
+
+
+@phase("phase 8 trainer")
+def phase_trainer(dev, card):
+    import tempfile
+
+    from alphazero_torch.models.convert import (
+        config_from_archive,
+        load_archive,
+    )
+    from alphazero_torch.search import kernels as K
+    from alphazero_torch.train import Trainer, cosine_lr
+    from alphazero_torch.train import checkpoint as ckpt
+    from alphazero_torch.train.learner import train_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config_from_archive(ARCHIVE).replace(
+            num_simulations=TRAIN_SIMS, parallel_games=TRAIN_LANES,
+            selfplay_batches=1, batch_size=TRAIN_BATCH,
+            checkpoint_dir=os.path.join(tmp, "checkpoints"))
+        tr = Trainer(cfg, seed=0, net=load_archive(ARCHIVE, device=dev),
+                     device=dev)
+        K.fetch_rows.launches = 0
+        K.commit_edges.launches = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        metrics = [tr.run_iteration() for _ in range(2)]
+        launches = {"fetch_rows": K.fetch_rows.launches,
+                    "commit_edges": K.commit_edges.launches}
+        check(all(v > 0 for v in launches.values()),
+              f"the trainer's self-play did not launch both kernels: "
+              f"{launches}")
+        steps = []
+        for i, m in enumerate(metrics):
+            check(m["iteration"] == i + 1 and m["examples_new"] > 0,
+                  f"iteration {i + 1}: {m}")
+            check(all(np.isfinite(m[k]) for k in ("loss", "loss_pi",
+                                                  "loss_wl")),
+                  f"iteration {i + 1}: loss not finite: {m}")
+            check(abs(m["lr"] - cosine_lr(cfg, i)) <= 1e-6 * m["lr"],
+                  f"iteration {i + 1}: lr {m['lr']}, cosine_lr gives "
+                  f"{cosine_lr(cfg, i)}")
+            steps.append(-(-2 * m["buffer"] // cfg.batch_size))
+        check(tr.state.learn_calls == 2, f"learn_calls "
+                                         f"{tr.state.learn_calls}")
+        check(sorted(ckpt.list_checkpoints(cfg)) == ["iteration_1",
+                                                     "iteration_2"]
+              and ckpt.get_latest_iteration(cfg) == 2,
+              f"checkpoints on disk: {ckpt.list_checkpoints(cfg)}")
+        with open(cfg.checkpoint_path("metrics.jsonl")) as f:
+            check([json.loads(line)["iteration"] for line in f] == [1, 2],
+                  "metrics.jsonl does not hold the two iterations")
+
+        # a second trainer, from another seed, resumes from disk
+        tr2 = Trainer(cfg, seed=1, device=dev)
+        check(tr2.resume() == 2 and tr2.iteration == 2
+              and tr2.state.learn_calls == 2, "resume: wrong iteration")
+        check(len(tr2.buffer) == len(tr.buffer) == metrics[1]["buffer"],
+              f"resume: buffer {len(tr2.buffer)} != {len(tr.buffer)}")
+        sa, sb = tr.net.state_dict(), tr2.net.state_dict()
+        check(sa.keys() == sb.keys()
+              and all(torch.equal(sa[k], sb[k]) for k in sa),
+              "resume: weights are not bit-equal")
+        check(not os.path.exists(os.path.join(ROOT, "checkpoints")),
+              "the trainer wrote into the source tree")
+
+        # a train step alone, on one fixed batch of the replay window
+        idx = torch.arange(cfg.batch_size, device=dev) % len(tr.buffer)
+        batch = tuple(t[idx] for t in tr._device_replay())
+        mirror = idx % 2 == 0
+        step = lambda i: train_step(tr2.state, batch, mirror, cfg)
+        step_ms = cuda_ms(step, iters=5, warmup=2, queued=False)
+        busy_share, top = profile_train_steps(step)
+        out = {
+            "lanes": TRAIN_LANES, "sims": TRAIN_SIMS,
+            "batch": cfg.batch_size, "f32_tf32": False,
+            "iterations": [{k: m[k] for k in (
+                "loss", "loss_pi", "loss_wl", "lr", "examples_new",
+                "buffer", "selfplay_seconds", "learn_seconds",
+                "sims_per_sec", "games_per_hour")} for m in metrics],
+            "learn_steps": steps,
+            "learn_ms_per_step": [m["learn_seconds"] * 1e3 / n
+                                  for m, n in zip(metrics, steps)],
+            "train_step_ms": step_ms,
+            "train_step_device_busy_share": busy_share,
+            "train_step_top_kernels": top,
+            "max_memory_allocated_gb": (
+                torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else None),
+            "launches": launches, "card": card}
+        print("trainer " + json.dumps(out), flush=True)
+    return launches
+
+
+def main(argv=None) -> int:
+    """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
+    kernels, search, cpu, continuous, tower, fused, trainer) runs only
+    those, for work on one of them, and then prints no ``kernels`` line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from alphazero_torch import cuda_build
 
+    only = set(sys.argv[1:] if argv is None else argv)
+    want = lambda name: not only or name in only
     dev = torch.device("cuda")
+    # float32 stays float32: no TF32 in cuDNN convs or in matmuls, for the
+    # net's checks and for the trainer's steps alike
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     t0 = time.time()
-    cuda_build.build(["tree_kernels"])
+    libs = cuda_build.build(["tree_kernels", "tower_kernel"])
     build_s = time.time() - t0
     print(f"[phase 0] card: {card}; torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}); kernel build {build_s:.1f} s", flush=True)
+    for lib in libs.values():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[phase 0] {lib.name}: {line.strip()}", flush=True)
 
-    err, times, bounds = phase_kernels(dev)
     net = phase_network(dev)
-    launches, _ = phase_search(dev, net, card)
-    phase_card_vs_cpu(dev)
-    phase_continuous(dev, net, card)
+    launches = {}
+    if want("kernels"):
+        err, times, bounds = phase_kernels(dev)
+    if want("tower"):
+        tower_err, tower_t, tower_bound = phase_tower(dev, net)
+    if want("search"):
+        launches.update(phase_search(dev, net, card)[0])
+    if want("cpu"):
+        phase_card_vs_cpu(dev)
+    if want("continuous"):
+        phase_continuous(dev, net, card)
+    if want("fused"):
+        launches["tower_forward"] = phase_fused(dev, net, card)
+    if want("trainer"):
+        trainer_launches = phase_trainer(dev, card)
 
-    src = "alphazero_torch/csrc/tree_kernels.cu"
-    replaces = {"fetch_rows": "alphazero_tpu/search/kernels.py:50",
-                "commit_edges": "alphazero_tpu/search/kernels.py:127"}
-    kernels = [{
-        "name": name, "route": "cuda", "source": src,
-        "replaces": replaces[name], "launches": launches[name],
-        "max_abs_err": err[name], **times[name],
-        "bound_ms": bounds[name], "bound_by": "bytes",
-    } for name in ("fetch_rows", "commit_edges")]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if not only:
+        check(all(v > 0 for v in launches.values())
+              and all(v > 0 for v in trainer_launches.values()),
+              f"a kernel was not launched: {launches}, {trainer_launches}")
+        src = "alphazero_torch/csrc/tree_kernels.cu"
+        replaces = {"fetch_rows": "alphazero_tpu/search/kernels.py:50",
+                    "commit_edges": "alphazero_tpu/search/kernels.py:127"}
+        kernels = [{
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": err[name], **times[name],
+            "bound_ms": bounds[name], "bound_by": "bytes",
+        } for name in ("fetch_rows", "commit_edges")]
+        kernels.append({
+            "name": "tower_forward", "route": "cuda",
+            "source": "alphazero_torch/csrc/tower_kernel.cu",
+            "replaces": "alphazero_tpu/models/fused.py:178",
+            "launches": launches["tower_forward"],
+            "max_abs_err": tower_err, **tower_t,
+            "bound_ms": tower_bound[0], "bound_by": tower_bound[1]})
+        print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,260 @@
+"""PyTorch port's fused-tower path held against the JAX package's.
+
+On the CPU ``tower_forward`` runs its plain version, which is compared
+with the JAX package's Pallas tower in interpreter mode; ``pack_weights``
+must give the JAX package's arrays bit for bit. Weights travel through
+the archive key scheme, as in ``tests/test_torch_network.py``. The test
+marked ``gpu`` holds the CUDA kernel against the plain version on the
+card and skips without one; it imports no JAX (the JAX imports below are
+made inside the other tests' helpers), so on a machine with a card and
+without JAX it runs with
+``python -m pytest --noconftest -m gpu tests/test_torch_fused.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+torch.set_num_threads(1)
+
+from alphazero_torch.models import convert, fused
+from alphazero_torch.models.network import AlphaZeroNet
+
+BF16_STEP = 2.0 ** -7      # spacing of bf16 values, relative, at most
+
+
+class _Jax:
+    """The JAX side, imported at first use."""
+
+    def __getattr__(self, name):
+        import jax
+        import jax.numpy as jnp
+        from flax import traverse_util
+
+        from alphazero_tpu.config import Config
+        from alphazero_tpu.models import fused as jfused
+        from alphazero_tpu.models.network import init_network
+
+        self.__dict__.update(jax=jax, jnp=jnp, traverse_util=traverse_util,
+                             Config=Config, fused=jfused,
+                             init_network=init_network)
+        return self.__dict__[name]
+
+
+J = _Jax()
+
+
+def _flat(variables):
+    flat = {}
+    for col in ("params", "batch_stats"):
+        for path, leaf in J.traverse_util.flatten_dict(variables[col]).items():
+            flat[col + "/" + "/".join(path)] = np.asarray(leaf)
+    return flat
+
+
+def _nets(blocks, seed, scan=False):
+    """(flax net, variables with non-trivial BN statistics, the port's net
+    loaded from them)."""
+    cfg = J.Config(num_blocks=blocks, num_filters=128, scan_blocks=scan)
+    net, variables = J.init_network(cfg, J.jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+    variables = dict(variables)
+    variables["batch_stats"] = J.jax.tree_util.tree_map(
+        lambda a: J.jnp.asarray(rng.uniform(0.5, 1.5, a.shape), J.jnp.float32),
+        variables["batch_stats"])
+    tnet = convert.load_flat_into(AlphaZeroNet(blocks, 128, 8).eval(),
+                                  _flat(variables))
+    return net, variables, tnet
+
+
+def _planes(rng, b):
+    mine = rng.random((b, 1, 8, 8)) < 0.2
+    theirs = (~mine) & (rng.random((b, 1, 8, 8)) < 0.2)
+    return np.concatenate([mine, theirs, np.ones((b, 1, 8, 8))],
+                          1).astype(np.float32)
+
+
+def _f32(a):
+    return np.asarray(J.jnp.asarray(a, J.jnp.float32))
+
+
+@pytest.mark.parametrize("scan", [False, True], ids=["inlined", "scanned"])
+def test_pack_weights_bit_equal_to_jax(scan):
+    net, variables, tnet = _nets(3, 2, scan)
+    want = J.fused.pack_weights(net, variables)
+    got = fused.pack_weights(tnet)
+    assert set(got) == set(want) | {"f32"}
+    assert got["num_blocks"] == want["num_blocks"] == 3
+    for key, w in want.items():
+        if key == "num_blocks":
+            continue
+        g = got[key]
+        assert str(g.dtype) == f"torch.{w.dtype}", key
+        np.testing.assert_array_equal(g.float().numpy(), _f32(w), key)
+    # the port's own entry: the same rounded values, in torch's layouts
+    for key in ("k_in", "k_pol", "k_val"):
+        np.testing.assert_array_equal(
+            got["f32"][key].numpy(), _f32(want[key]).transpose(3, 2, 0, 1))
+    for key in ("policy_fc", "value_fc1", "value_fc2"):
+        np.testing.assert_array_equal(got["f32"][key].numpy(),
+                                      _f32(want[key]))
+
+
+def test_pack_weights_undoes_the_flatten_permutation():
+    """``convert`` permutes ``policy_fc``/``value_fc1`` to (c, h, w) input
+    order; packing them as they are would load and compute garbage."""
+    _, _, tnet = _nets(1, 4)
+    packed = fused.pack_weights(tnet)
+    raw = tnet.policy_fc.weight.detach().T.to(torch.bfloat16)
+    assert raw.shape == packed["policy_fc"].shape
+    assert not torch.equal(raw, packed["policy_fc"])
+
+
+@pytest.mark.parametrize("blocks", [2, 5])
+def test_tower_plain_matches_pallas_interpret(blocks):
+    net, variables, tnet = _nets(blocks, blocks)
+    pj = J.fused.pack_weights(net, variables)
+    pt = fused.pack_weights(tnet)
+    B = J.fused.TB
+    x = np.random.default_rng(blocks).standard_normal(
+        (B * 64, 128)).astype(np.float32)
+    want = _f32(J.fused.tower_forward(J.jnp.asarray(x, J.jnp.bfloat16), pj,
+                                     num_blocks=blocks, interpret=True))
+    got = fused.tower_forward(torch.from_numpy(x).to(torch.bfloat16), pt,
+                              blocks)
+    assert got.dtype == torch.bfloat16 and got.shape == (B * 64, 128)
+    got = got.float().numpy()
+    # Same operands and rounding points; only the order of the f32 sums
+    # differs (nine K=128 dots added up in XLA, nine f32 matmuls here), so
+    # a few elements land on the neighbouring bf16 value, and such a step
+    # in the first conv's output moves the block's output by less than a
+    # step again: 2 bf16 steps of max(|x|, 1), on under 1% of elements.
+    diff = np.abs(got - want)
+    assert (diff <= 2 * BF16_STEP * np.maximum(np.abs(want), 1.0)).all()
+    assert (diff > 0).mean() < 0.01
+
+
+@pytest.mark.parametrize("blocks,scan", [(2, False), (5, False), (3, True)])
+def test_fused_apply_matches_jax_fused_and_flax(blocks, scan):
+    net, variables, tnet = _nets(blocks, 10 + blocks, scan)
+    pj = J.fused.pack_weights(net, variables)
+    pt = fused.pack_weights(tnet)
+    planes = _planes(np.random.default_rng(1), J.fused.TB)
+    pol, wl = (t.numpy() for t in
+               fused.fused_apply(pt, torch.from_numpy(planes)))
+    assert pol.dtype == np.float32 and pol.shape == (J.fused.TB, 192)
+    assert wl.shape == (J.fused.TB, 2)
+
+    # against the JAX fused path: same rounding points, sums reordered
+    pol_j, wl_j = (np.asarray(a) for a in J.fused.fused_apply(
+        pj, J.jnp.asarray(planes), interpret=True))
+    np.testing.assert_allclose(pol, pol_j, atol=0.02, rtol=0)
+    np.testing.assert_allclose(wl, wl_j, atol=0.02, rtol=0)
+
+    # against Flax bf16 inference, with the tolerances of the JAX
+    # package's own fused test: logits differ by bf16 accumulation order
+    # and BN folding; probabilities and win/loss shares by 0.02
+    pol_r, wl_r = (np.asarray(a) for a in net.clone(
+        dtype=J.jnp.bfloat16).apply(variables, J.jnp.asarray(planes),
+                                    train=False))
+    np.testing.assert_allclose(pol, pol_r, atol=0.15, rtol=0.05)
+    np.testing.assert_allclose(wl, wl_r, atol=0.15, rtol=0.05)
+    sm = lambda a: np.asarray(J.jax.nn.softmax(J.jnp.asarray(a), -1))
+    np.testing.assert_allclose(sm(pol), sm(pol_r), atol=0.02)
+    np.testing.assert_allclose(sm(wl), sm(wl_r), atol=0.02)
+
+
+def test_fused_apply_close_to_the_ports_own_net():
+    _, _, tnet = _nets(2, 7)
+    planes = torch.from_numpy(_planes(np.random.default_rng(3), 8))
+    pol, wl = fused.fused_apply(fused.pack_weights(tnet), planes)
+    with torch.no_grad():
+        pol32, wl32 = tnet(planes)
+    # bf16 activations against the f32 net
+    torch.testing.assert_close(pol, pol32, atol=0.05, rtol=0)
+    torch.testing.assert_close(wl, wl32, atol=0.05, rtol=0)
+
+
+def test_conv_masking_is_exact():
+    """The nine-shift masked-matmul conv equals ``F.conv2d`` in f32: the
+    same taps, so only the order of the sums differs."""
+    rng = np.random.default_rng(5)
+    B = 4
+    x = torch.from_numpy(rng.standard_normal((B, 8, 8, 128))
+                         .astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, 128, 128)) * 0.05)
+                         .astype(np.float32))                     # HWIO
+    ref = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    got = fused._conv9(x.reshape(B * 64, 128), w.reshape(9, 128, 128))
+    np.testing.assert_allclose(
+        got.view(B, 8, 8, 128).permute(0, 3, 1, 2).numpy(), ref.numpy(),
+        atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(fused._MASKS, J.fused._MASKS)
+
+
+def test_tower_forward_refuses_what_the_kernel_does_not_take():
+    _, _, tnet = _nets(1, 0)
+    packed = fused.pack_weights(tnet)
+    ok = torch.zeros((fused.TB * 64, 128), dtype=torch.bfloat16)
+    assert fused.tower_forward(ok, packed, 1).shape == ok.shape
+    with pytest.raises(ValueError, match="C=128"):
+        fused.tower_forward(ok[:, :64], packed, 1)
+    with pytest.raises(ValueError, match="multiple"):
+        fused.tower_forward(
+            torch.zeros(((fused.TB + 1) * 64, 128), dtype=torch.bfloat16),
+            packed, 1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused.tower_forward(ok.float(), packed, 1)
+    with pytest.raises(ValueError, match="num_blocks"):
+        fused.tower_forward(ok, packed, 2)
+    with pytest.raises(ValueError, match="C=128"):
+        fused.pack_weights(AlphaZeroNet(1, 32, 8))
+    assert fused.tower_forward.launches == 0        # the CPU never launches
+
+
+def test_bench_fused_runs_on_the_cpu():
+    from alphazero_torch import bench_fused
+
+    _, _, tnet = _nets(1, 1)
+    out = bench_fused.bench_fused(tnet, bench_fused.random_planes(fused.TB),
+                                  2)
+    assert out["max_prob_diff"] < 0.02 and out["max_value_diff"] < 0.02
+    assert out["fused_ms_per_eval"] > 0 and out["layers_ms_per_eval"] > 0
+    assert out["tower_launches"] == 0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("games,blocks", [(2, 1), (6, 2), (64, 3)])
+def test_cuda_tower_kernel_against_plain(cuda, games, blocks):
+    """Imports no JAX: random weights straight into the port's net."""
+    gen = torch.Generator().manual_seed(games)
+    net = AlphaZeroNet(3, 128, 8).eval()
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+        for name, b in net.named_buffers():
+            if name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
+    packed = fused.pack_weights(net.to(cuda))
+    x = torch.randn((games * 64, 128), generator=gen).to(cuda, torch.bfloat16)
+    launches = fused.tower_forward.launches
+    got = fused.tower_forward(x, packed, blocks).float()
+    want = fused._tower_plain(x, packed, blocks).float()
+    torch.cuda.synchronize()
+    assert fused.tower_forward.launches == launches + 1
+    # sums reordered: one bf16 step per block, as on the CPU
+    assert bool(((got - want).abs()
+                 <= blocks * BF16_STEP * want.abs().clamp_min(1.0)).all())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.tower_forward(x.repeat(2, 1)[::2], packed, 1)
+    with pytest.raises(ValueError, match="multiple"):
+        fused.tower_forward(x[:64], packed, 1)
+    assert fused.tower_forward.launches == launches + 1
