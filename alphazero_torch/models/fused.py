@@ -12,7 +12,9 @@ on ``(B*64, 128)`` bfloat16 activations whose rows are game-major,
 launch of the hand-written kernel in ``csrc/tower_kernel.cu`` when its
 input lies on a CUDA device, and runs the plain version beside it,
 ``_tower_plain``, when its input lies on the CPU. It never falls back: on
-a CUDA tensor it launches the kernel or raises.
+a CUDA tensor it launches the kernel or raises. The kernel's tensor cores
+read the conv weights from shared memory in a layout of their own, so
+``pack_weights`` also makes that image once (``wconv_smem_image``).
 
 Scope: the tower only (C = 128). The input conv (Cin = 3) and the two
 heads stay ``F.conv2d`` / ``torch.matmul`` in ``fused_apply``, as the JAX
@@ -33,9 +35,13 @@ import torch.nn.functional as F
 from alphazero_torch.cuda_build import load_library
 
 # Games per thread block of the CUDA kernel: a batch must be a multiple of
-# it. Two games are 128 activation rows, and 512 positions give 256 thread
-# blocks, two to each of the card's 132 SMs.
-TB = 2
+# it. A game is the 64 rows of one warpgroup's matrix multiply and a thread
+# block has four such warpgroups, so 512 positions give 128 thread blocks,
+# one on each of 128 of the card's 132 SMs.
+TB = 4
+# Input channels per weight chunk of the kernel's shared-memory ring: 64
+# bf16 are one 128-byte row of the swizzled image.
+_CHUNK_K = 64
 _C = 128
 _LIB = "tower_kernel"
 
@@ -81,16 +87,39 @@ def _hwc_dense(fc: torch.nn.Linear) -> np.ndarray:
     ).reshape(n_in, n_out)
 
 
+def wconv_smem_image(wconv: torch.Tensor) -> torch.Tensor:
+    """``wconv[i, j, tap, cin, cout]`` -> the image of it that the CUDA
+    kernel copies into shared memory chunk by chunk and its tensor cores
+    read by descriptor: ``(n, 2, 9, 2, 128, 64)``, any dtype.
+
+    A chunk is one half of a tap's input channels, stored ``[cout][cin]``
+    (K-major) in rows of 64 values, 128 bytes in bf16, with the card's
+    128-byte swizzle applied: the 8-value piece ``j`` of row ``cout`` lies
+    at piece ``j ^ (cout % 8)``. So element ``[i, j, tap, half, cout, p,
+    e]`` of the image (row pieces ``p``, ``e`` within a piece) is
+    ``wconv[i, j, tap, half*64 + (p ^ (cout % 8))*8 + e, cout]``."""
+    n = wconv.shape[0]
+    halves = _C // _CHUNK_K
+    w = wconv.reshape(n, 2, 9, halves, _CHUNK_K // 8, 8, _C)
+    w = w.permute(0, 1, 2, 3, 6, 4, 5)               # [.., cout, piece, e]
+    cout = torch.arange(_C, device=wconv.device)[:, None]
+    piece = torch.arange(_CHUNK_K // 8, device=wconv.device)[None, :]
+    w = w[:, :, :, :, cout, piece ^ (cout % 8)]
+    return w.reshape(n, 2, 9, halves, _C, _CHUNK_K).contiguous()
+
+
 def pack_weights(net) -> Dict[str, Any]:
     """``AlphaZeroNet`` (float32) -> packed, BN-folded tensors for the fused
     forward, on the net's device, in the JAX package's layouts:
     ``wconv[i, j, ky*3+kx, cin, cout]``, ``k_in``/``k_pol``/``k_val`` HWIO,
     ``policy_fc``/``value_fc1`` (in, out) with the input in (h, w, c) order.
 
-    One key is this port's own: ``"f32"`` holds float32 copies of the
+    Two keys are this port's own. ``"f32"`` holds float32 copies of the
     (bf16-rounded) weights outside the tower in the layouts ``F.conv2d``
     and ``torch.matmul`` take (OIHW convs, (in, out) dense), so that
-    ``fused_apply`` converts nothing per call."""
+    ``fused_apply`` converts nothing per call. ``"wconv_smem"`` holds the
+    values of ``"wconv"`` in the CUDA kernel's shared-memory layout
+    (``wconv_smem_image``); the plain version reads ``"wconv"``."""
     n = len(net.blocks)
     C = net.input_conv.out_channels
     if C != _C:
@@ -151,6 +180,7 @@ def pack_weights(net) -> Dict[str, Any]:
         "num_blocks": n,
     }
     oihw = lambda k: packed[k].float().permute(3, 2, 0, 1).contiguous()
+    packed["wconv_smem"] = wconv_smem_image(packed["wconv"])
     packed["f32"] = {
         "k_in": oihw("k_in"), "k_pol": oihw("k_pol"), "k_val": oihw("k_val"),
         "policy_fc": packed["policy_fc"].float(),
@@ -226,7 +256,8 @@ def _tower_plain(x2d: torch.Tensor, packed, num_blocks: int) -> torch.Tensor:
     return x
 
 
-_KERNEL_OPERANDS = (("wconv", torch.bfloat16, (2, 9, _C, _C)),
+_KERNEL_OPERANDS = (("wconv_smem", torch.bfloat16,
+                     (2, 9, _C // _CHUNK_K, _C, _CHUNK_K)),
                     ("bconv", torch.float32, (2, _C)),
                     ("wse1", torch.bfloat16, (_C, 128)),
                     ("bse1", torch.float32, (128,)),
@@ -249,8 +280,12 @@ def _lib() -> ctypes.CDLL:
 def tower_forward(x2d: torch.Tensor, packed, num_blocks: int) -> torch.Tensor:
     """(B*64, 128) bf16 tower input -> (B*64, 128) bf16 tower output after
     ``num_blocks`` blocks; B must be a multiple of ``TB``. On a CUDA tensor
-    one kernel launch computes every block with the activations resident
-    in shared memory; on a CPU tensor the plain version runs."""
+    one kernel launch computes every block: a thread block keeps the
+    activations of ``TB`` games in shared memory, one game to each
+    warpgroup, and streams ``packed["wconv_smem"]`` through a ring there
+    for the tensor cores to read; the other operands are read as the
+    plain version reads them. On a CPU tensor the plain version runs,
+    which reads ``packed["wconv"]``."""
     if x2d.dtype != torch.bfloat16:
         raise TypeError(f"the tower takes bfloat16 activations, got "
                         f"{x2d.dtype}")

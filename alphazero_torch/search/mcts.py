@@ -30,8 +30,9 @@ PLACE (its ``rows`` tensor and its fields) and returns it: the tree is
 
 Host syncs: the descent loop runs while any game is still descending,
 which the host learns with one sync per level. Backprop needs none: it
-walks as many levels as the descent ran (levels past a game's depth
-commit zeros to the trash row), which the host already knows.
+commits as many levels as the descent ran, all in one ``commit_edges``
+call (levels past a game's depth commit zeros to the trash row), and the
+host already knows that count.
 """
 
 from __future__ import annotations
@@ -347,29 +348,29 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec
             tree.parents[:, s] = torch.where(needs_alloc, par,
                                              torch.zeros_like(par))
 
-    # (4) backprop: walk the recorded path top-down; each level commits
-    # [child ptr? | visit += 1 | vsum += signed value] for one edge per
-    # game. Edge d's child accumulates value * (-1)^(L-1-d) (leaf mover's
-    # side at d = L-1, flipping each ply toward the root).
+    # (4) backprop: the recorded path top-down, every level at once; level
+    # d commits [child ptr? | visit += 1 | vsum += signed value] for one
+    # edge per game. Edge d's child accumulates value * (-1)^(L-1-d) (leaf
+    # mover's side at d = L-1, flipping each ply toward the root). Levels
+    # past a game's depth go to the trash row.
     with record_function("mcts.backprop"):
         sign0 = torch.where(depth % 2 == 1, 1.0, -1.0).to(vdt)
         alloc_val = torch.full((), float(s + 1), dtype=vdt, device=dev)
-        flip = 1.0
-        offsets = (0, 2 * A, 3 * A)
-        for d in range(levels):
-            active = d < depth
-            tgt = torch.where(active, path_nodes[:, d],
-                              torch.full((), trash, dtype=torch.int32,
-                                         device=dev))
-            is_alloc_edge = active & needs_alloc & (depth - 1 == d)
-            upd = torch.stack([
-                torch.where(is_alloc_edge, alloc_val, zero),
-                active.to(vdt),
-                torch.where(active, sign0 * flip * value, zero),
-            ], dim=-1)                                            # (B, 3)
-            kernels.commit_edges(rows, tgt, path_actions[:, d].contiguous(),
-                                 upd, offsets, A)
-            flip = -flip
+        lv = torch.arange(levels, dtype=torch.int32, device=dev)[:, None]
+        active = lv < depth[None]                                 # (L, B)
+        tgt = torch.where(active, path_nodes[:, :levels].T,
+                          torch.full((), trash, dtype=torch.int32,
+                                     device=dev)).contiguous()
+        is_alloc_edge = active & needs_alloc[None] & (lv == depth[None] - 1)
+        flip = (1 - 2 * (lv % 2)).to(vdt)                         # (L, 1)
+        upd = torch.stack([
+            torch.where(is_alloc_edge, alloc_val, zero),
+            active.to(vdt),
+            torch.where(active, (sign0 * value)[None] * flip, zero),
+        ], dim=-1)                                                # (L, B, 3)
+        kernels.commit_edges(rows, tgt,
+                             path_actions[:, :levels].T.contiguous(), upd,
+                             (0, 2 * A, 3 * A), A)
 
     # Root stats: the value reaches the root flipped ``depth`` times.
     tree.root_visit += 1

@@ -8,14 +8,18 @@ and then runs, each phase printing one line and any failure raising and
 exiting non-zero:
 
 - phase 1: the two tree kernels against their plain PyTorch versions
-  (bit-exact) and their times;
+  (bit-exact), ``commit_edges`` also on 2 and 5 stacked levels against
+  one call per level, and their times beside the launch floor (a kernel
+  with no body);
 - phase 2: the archived 20x128 net on the card against the CPU;
-- phase 6: the fused tower kernel against its plain version (1, 2 and 20
-  blocks, and every block alone) and against the layer-by-layer net, and
-  its times at 512 positions x 20 blocks beside its bound, its plain
-  version and the bf16 net's tower blocks in eager mode;
+- phase 6: the fused tower kernel (``wgmma`` on a ring of weight chunks
+  in shared memory) against its plain version (1, 2 and 20 blocks, and
+  every block alone) and against the layer-by-layer net, and its times at
+  512 positions x 20 blocks beside its bound, its plain version and the
+  bf16 net's tower blocks in eager mode;
 - phase 3: the self-play search at full width (512 games x 800
-  simulations, one timed move) through ``selfplay_move``;
+  simulations, one timed move) through ``selfplay_move``; a backprop is
+  one ``commit_edges`` launch, so the move launches it 800 times;
 - phase 4: the card's search against the CPU's;
 - phase 5: continuous self-play (128 lanes x 16 simulations);
 - phase 7: the fused path at full width (512 positions, 800 evaluations
@@ -75,7 +79,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=50, warmup=10, queued=True, sleep_ms=60):
+def cuda_ms(fn, iters=50, warmup=10, queued=True, sleep_ms=60, what="fn"):
     """Mean time of ``fn(i)`` per call between two CUDA events.
 
     ``queued``: the stream first sleeps for about ``sleep_ms`` on the
@@ -99,7 +103,8 @@ def cuda_ms(fn, iters=50, warmup=10, queued=True, sleep_ms=60):
     host_s = time.time() - t0
     torch.cuda.synchronize()
     check(not queued or host_s < 0.75e-3 * sleep_ms,
-          f"launches took {host_s} s to queue, past the device's sleep")
+          f"{iters} launches of {what} took {host_s} s to queue, past the "
+          f"device's sleep")
     return start.elapsed_time(end) / iters
 
 
@@ -118,6 +123,9 @@ def phase(name):
 # Phase 1: kernels against their plain versions
 # -----------------------------------------------------------------------------
 
+LEVELS = 5                         # a backprop's stacked levels, as timed
+
+
 @phase("phase 1 kernels")
 def phase_kernels(dev):
     from alphazero_torch.search import kernels as K
@@ -133,86 +141,139 @@ def phase_kernels(dev):
                 if same is not None else
                 torch.randint(0, M, (B,), generator=gen, device=dev,
                               dtype=torch.int32))
-        act = torch.randint(0, A, (B,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        upd = torch.randn((B, 3), generator=gen, device=dev)
-
         got = K.fetch_rows(rows, node)
         want = K._fetch_rows_plain(rows, node)
         torch.cuda.synchronize()
         err["fetch_rows"] = max(err["fetch_rows"],
                                 float((got - want).abs().max()))
         check(torch.equal(got, want), f"fetch_rows differs ({name})")
+        del got, want
 
-        before = rows.clone()
-        want = K._commit_edges_plain(rows.clone(), node, act, upd, OFFSETS)
-        ptr = rows.data_ptr()
-        K.commit_edges(rows, node, act, upd, OFFSETS, A)
-        torch.cuda.synchronize()
-        check(rows.data_ptr() == ptr, f"commit_edges moved the tree ({name})")
-        err["commit_edges"] = max(err["commit_edges"],
-                                  float((rows - want).abs().max()))
-        check(torch.equal(rows, want), f"commit_edges differs ({name})")
-        touched = torch.zeros(rows.numel(), dtype=torch.bool, device=dev)
+        # commit_edges on (B,) operands and on 2 and 5 stacked levels:
+        # against the plain version, and the stack against one
+        # single-level kernel call per level
         R = rows[0, 0].numel()
-        base = (torch.arange(B, device=dev) * M + node.long()) * R
-        for off in OFFSETS:
-            touched[base + off + act.long()] = True
-        check(torch.equal(rows.view(-1)[~touched], before.view(-1)[~touched]),
-              f"commit_edges changed an untouched element ({name})")
-        del rows, before, want, touched
+        for levels in (None, 2, LEVELS):
+            name_l = f"{name}, {levels or 1} levels"
+            lead = () if levels is None else (levels,)
+            node = (torch.full(lead + (B,), same, dtype=torch.int32,
+                               device=dev) if same is not None else
+                    torch.randint(0, M, lead + (B,), generator=gen,
+                                  device=dev, dtype=torch.int32))
+            act = torch.randint(0, A, lead + (B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            upd = torch.randn(lead + (B, 3), generator=gen, device=dev)
+            before = rows.clone()
+            want = K._commit_edges_plain(rows.clone(), node, act, upd,
+                                         OFFSETS)
+            ptr = rows.data_ptr()
+            K.commit_edges(rows, node, act, upd, OFFSETS, A)
+            torch.cuda.synchronize()
+            check(rows.data_ptr() == ptr,
+                  f"commit_edges moved the tree ({name_l})")
+            err["commit_edges"] = max(err["commit_edges"],
+                                      float((rows - want).abs().max()))
+            check(torch.equal(rows, want),
+                  f"commit_edges differs ({name_l})")
+            touched = torch.zeros(rows.numel(), dtype=torch.bool, device=dev)
+            base = (torch.arange(B, device=dev) * M + node.long()) * R
+            for off in OFFSETS:
+                touched[(base + off + act.long()).reshape(-1)] = True
+            check(torch.equal(rows.view(-1)[~touched],
+                              before.view(-1)[~touched])
+                  and int(touched.sum()) <= 3 * B * (levels or 1),
+                  f"commit_edges changed an untouched element ({name_l})")
+            if levels is not None:
+                for l in range(levels):
+                    K.commit_edges(before, node[l], act[l], upd[l], OFFSETS,
+                                   A)
+                check(torch.equal(rows, before),
+                      f"stacked commit_edges differs from one call per "
+                      f"level ({name_l})")
+            del before, want, touched
+        del rows
 
     # timing at the main path's shape; 64 node vectors cycle through 96 MB
     # of rows per fetch round, so rows come from HBM, not the 50 MB L2
     B, M, R = GAMES, SIMS + 2, 6 * 128
     rows = torch.randn((B, M, 6, 128), generator=gen, device=dev)
-    nodes = [torch.randint(0, M, (B,), generator=gen, device=dev,
-                           dtype=torch.int32) for _ in range(64)]
+    nodes5 = [torch.randint(0, M, (LEVELS, B), generator=gen, device=dev,
+                            dtype=torch.int32) for _ in range(64)]
+    nodes = [n[0].contiguous() for n in nodes5]
     nodes_l = [n.long() for n in nodes]
-    act = torch.randint(0, A, (B,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    upd = torch.randn((B, 3), generator=gen, device=dev)
+    act5 = torch.randint(0, A, (LEVELS, B), generator=gen, device=dev,
+                         dtype=torch.int32)
+    upd5 = torch.randn((LEVELS, B, 3), generator=gen, device=dev)
+    act, upd = act5[0].contiguous(), upd5[0].contiguous()
     ar = torch.arange(B, device=dev)
-    offs = torch.tensor(OFFSETS, device=dev)[None, :] + act.long()[:, None]
-    flat_idx = [(((ar * M + n) * R)[:, None] + offs).reshape(-1)
-                for n in nodes_l]
-    upd_flat = upd.reshape(-1)
+    offs = torch.tensor(OFFSETS, device=dev)[None, :] + act5.long()[..., None]
+    flat_idx5 = [(((ar * M + n.long()) * R)[..., None] + offs).reshape(-1)
+                 for n in nodes5]
+    upd5_flat = upd5.reshape(-1)
 
     check(torch.equal(K.fetch_rows(rows, nodes[0]),
                       rows[ar, nodes_l[0]].reshape(B, -1)),
           "fetch_rows differs from rows[arange(B), node]")
     lib_rows = rows.clone()
-    lib_rows.view(-1).index_put_((flat_idx[0],), upd_flat, accumulate=True)
+    lib_rows.view(-1).index_put_((flat_idx5[0][:3 * B],), upd5_flat[:3 * B],
+                                 accumulate=True)
     K.commit_edges(rows, nodes[0], act, upd, OFFSETS, A)
     check(torch.equal(rows, lib_rows), "commit_edges differs from index_put_")
     del lib_rows
+
+    lib = K._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def floor(i):
+        check(lib.launch_floor(stream) == 0, "the empty kernel did not launch")
 
     calls = {
         "fetch_rows": {
             "": lambda i: K.fetch_rows(rows, nodes[i % 64]),
             "plain_": lambda i: K._fetch_rows_plain(rows, nodes[i % 64]),
             "library_": lambda i: rows[ar, nodes_l[i % 64]]},
+        # the main path's call: a backprop of LEVELS stacked levels
         "commit_edges": {
-            "": lambda i: K.commit_edges(rows, nodes[i % 64], act, upd,
+            "": lambda i: K.commit_edges(rows, nodes5[i % 64], act5, upd5,
                                          OFFSETS, A),
+            "single_": lambda i: K.commit_edges(rows, nodes[i % 64], act,
+                                                upd, OFFSETS, A),
             "plain_": lambda i: K._commit_edges_plain(
-                rows, nodes[i % 64], act, upd, OFFSETS),
+                rows, nodes5[i % 64], act5, upd5, OFFSETS),
             "library_": lambda i: rows.view(-1).index_put_(
-                (flat_idx[i % 64],), upd_flat, accumulate=True)},
+                (flat_idx5[i % 64],), upd5_flat, accumulate=True)},
+        "launch_floor": {"": floor},
     }
     # "ms": device time per call; "call_ms": per call with the host's
-    # launch cost, as the search loop pays it
-    t = {name: {f"{pre}{kind}": cuda_ms(fn, queued=(kind == "ms"))
+    # launch cost, as the search loop pays it. The plain version of five
+    # levels is about a hundred launches a call: few calls, so that they
+    # stay under the stream's queue depth behind the device's sleep.
+    # index_put_ over the 7,680 indices of five levels synchronises with
+    # the host (over one level's 1,536 it does not), so it cannot queue
+    # and both of its times are per call
+    syncs = ("commit_edges", "library_")
+    t = {name: {f"{pre}{kind}": cuda_ms(fn, queued=(kind == "ms"
+                                                    and (name, pre) != syncs),
+                                        iters=4 if pre == "plain_" else 50,
+                                        what=f"{name} {pre}{kind}")
                 for pre, fn in fns.items() for kind in ("ms", "call_ms")}
          for name, fns in calls.items()}
+    floor_t = t.pop("launch_floor")
+    for name in t:
+        t[name]["floor_ms"] = floor_t["ms"]
+        t[name]["floor_call_ms"] = floor_t["call_ms"]
     fetch_bytes = 2 * B * R * 4 + B * 4
-    commit_bytes = 2 * B * 4 + B * 3 * 4 + 2 * B * 3 * 4
+    # per level: node and act, the three updates, and each touched element
+    # read and written
+    commit_bytes = LEVELS * (2 * B * 4 + B * 3 * 4 + 2 * B * 3 * 4)
     bounds = {"fetch_rows": fetch_bytes / HBM_BYTES_PER_S * 1e3,
               "commit_edges": commit_bytes / HBM_BYTES_PER_S * 1e3}
     del rows
     torch.cuda.empty_cache()
-    print(f"kernels bit-exact on {len(cases)} shapes; max_abs_err {err}; "
-          f"times {json.dumps(t)}", flush=True)
+    print(f"kernels bit-exact on {len(cases)} shapes x (1, 2, {LEVELS}) "
+          f"levels; max_abs_err {err}; commit_edges timed at {LEVELS} "
+          f"stacked levels (single_: one level); launch floor (an empty "
+          f"kernel) {json.dumps(floor_t)}; times {json.dumps(t)}", flush=True)
     return err, t, bounds
 
 
@@ -326,6 +387,9 @@ def phase_search(dev, net, card):
                 "commit_edges": K.commit_edges.launches}
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
+    check(launches["commit_edges"] == moves * SIMS,
+          f"commit_edges launched {launches['commit_edges']} times for "
+          f"{moves * SIMS} simulations: a backprop is one launch")
     st = mcts.STATS
     depth = float(st.depth_sum) / (st.simulations * GAMES)
     out = {
@@ -501,6 +565,9 @@ def phase_continuous(dev, net, card):
     st = mcts.STATS
     check(K.fetch_rows.launches > 0 and K.commit_edges.launches > 0,
           "continuous self-play did not launch both kernels")
+    check(K.commit_edges.launches == st.simulations,
+          f"commit_edges launched {K.commit_edges.launches} times for "
+          f"{st.simulations} simulations: a backprop is one launch")
     check(stats["games"] >= CONT_GAMES, f"games {stats['games']}")
     check(stats["examples"] == len(examples) > 0, "no examples")
     for planes, probs, wl in examples:
@@ -518,7 +585,11 @@ def phase_continuous(dev, net, card):
            "ms_per_sim": dt / st.simulations * 1e3,
            "mean_edge_depth": float(st.depth_sum) / (st.simulations
                                                      * CONT_LANES),
-           "levels_per_sim": st.levels / st.simulations, "card": card}
+           "levels_per_sim": st.levels / st.simulations,
+           "launches_per_sim": {
+               "fetch_rows": K.fetch_rows.launches / st.simulations,
+               "commit_edges": K.commit_edges.launches / st.simulations},
+           "card": card}
     print("continuous " + json.dumps(out), flush=True)
     from alphazero_torch.env import breakthrough as env
     profile_search(env.initial_state((CONT_LANES,), device=dev), eval_fn)
@@ -685,13 +756,15 @@ def phase_tower(dev, net):
                                     queued=False)}
     bound, bound_by, ops, nbytes = tower_bound_ms(GAMES, n, packed)
     t["tflops"] = ops / t["ms"] / 1e9
-    # how the time scales: one thread block on each of the 132 SMs (264
-    # games) against two (528), and one or two blocks against twenty
-    x2 = torch.cat([x, x[:16 * 64]])
+    # how the time scales: a thread block of four games on half of the
+    # 132 SMs (264 games), on every SM (528), and two in turn on every SM
+    # (1056); and one or two tower blocks against twenty
+    x2 = torch.cat([x, x, x[:32 * 64]])
     scaling = {f"{g}x{nb}": cuda_ms(
         lambda i: fused.tower_forward(x2[:g * 64], packed, nb),
         iters=20, warmup=3)
-        for g, nb in ((264, n), (528, n), (GAMES, 1), (GAMES, 2))}
+        for g, nb in ((264, n), (528, n), (1056, n), (GAMES, 1),
+                      (GAMES, 2))}
     print(f"tower_forward device ms by games x blocks: "
           f"{json.dumps(scaling)}", flush=True)
     print(f"tower_forward at {GAMES} positions x {n} blocks: "
@@ -885,7 +958,7 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}); kernel build {build_s:.1f} s", flush=True)
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "(C7")):
                 print(f"[phase 0] {lib.name}: {line.strip()}", flush=True)
 
     net = phase_network(dev)

@@ -3,12 +3,15 @@
 On the CPU ``tower_forward`` runs its plain version, which is compared
 with the JAX package's Pallas tower in interpreter mode; ``pack_weights``
 must give the JAX package's arrays bit for bit. Weights travel through
-the archive key scheme, as in ``tests/test_torch_network.py``. The test
-marked ``gpu`` holds the CUDA kernel against the plain version on the
-card and skips without one; it imports no JAX (the JAX imports below are
+the archive key scheme, as in ``tests/test_torch_network.py``. The tests
+marked ``gpu`` hold the CUDA kernel against the plain version on the
+card and skip without one; they import no JAX (the JAX imports below are
 made inside the other tests' helpers), so on a machine with a card and
 without JAX it runs with
 ``python -m pytest --noconftest -m gpu tests/test_torch_fused.py``.
+The image of the conv weights that the kernel's tensor cores read
+(``wconv_smem_image``) is a layout made on the host, so it is inverted
+here in numpy.
 """
 
 import numpy as np
@@ -84,7 +87,7 @@ def test_pack_weights_bit_equal_to_jax(scan):
     net, variables, tnet = _nets(3, 2, scan)
     want = J.fused.pack_weights(net, variables)
     got = fused.pack_weights(tnet)
-    assert set(got) == set(want) | {"f32"}
+    assert set(got) == set(want) | {"f32", "wconv_smem"}
     assert got["num_blocks"] == want["num_blocks"] == 3
     for key, w in want.items():
         if key == "num_blocks":
@@ -99,6 +102,54 @@ def test_pack_weights_bit_equal_to_jax(scan):
     for key in ("policy_fc", "value_fc1", "value_fc2"):
         np.testing.assert_array_equal(got["f32"][key].numpy(),
                                       _f32(want[key]))
+
+
+def _smem_image_inverse(image: np.ndarray) -> np.ndarray:
+    """numpy inverse of ``fused.wconv_smem_image``, written out element by
+    element from the kernel's addressing: chunk (tap, half of cin), row
+    cout of 64 values, the 8-value piece ``j`` of a row at ``j ^ (cout %
+    8)``."""
+    n = image.shape[0]
+    out = np.zeros((n, 2, 9, 128, 128), image.dtype)
+    cout = np.arange(128)
+    for half in range(2):
+        for kc in range(64):
+            piece = (kc >> 3) ^ (cout & 7)
+            out[:, :, :, half * 64 + kc, cout] = \
+                image[:, :, :, half, cout, piece * 8 + (kc & 7)]
+    return out
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_wconv_smem_image_is_a_permutation_of_wconv(blocks):
+    # every element once: the image of arange holds each index once
+    count = blocks * 2 * 9 * 128 * 128
+    index = torch.arange(count, dtype=torch.int32).view(blocks, 2, 9, 128,
+                                                        128)
+    image = fused.wconv_smem_image(index)
+    assert image.shape == (blocks, 2, 9, 2, 128, 64) \
+        and image.is_contiguous()
+    np.testing.assert_array_equal(np.sort(image.numpy().ravel()),
+                                  np.arange(count))
+    np.testing.assert_array_equal(_smem_image_inverse(image.numpy()),
+                                  index.numpy())
+    # a chunk is one contiguous 16 KB block of one block's weights
+    assert torch.equal(image[blocks - 1:], fused.wconv_smem_image(
+        index[blocks - 1:]))
+
+    # and the packed entry is that image of the packed weights, which are
+    # still the JAX package's bit for bit
+    net, variables, tnet = _nets(blocks, 20 + blocks)
+    packed = fused.pack_weights(tnet)
+    smem = packed["wconv_smem"]
+    assert smem.dtype == torch.bfloat16 and smem.is_contiguous() \
+        and tuple(smem.shape) == (blocks, 2, 9, 2, 128, 64)
+    np.testing.assert_array_equal(
+        _smem_image_inverse(smem.view(torch.int16).numpy()),
+        packed["wconv"].view(torch.int16).numpy())
+    np.testing.assert_array_equal(
+        packed["wconv"].float().numpy(),
+        _f32(J.fused.pack_weights(net, variables)["wconv"]))
 
 
 def test_pack_weights_undoes_the_flatten_permutation():
@@ -232,11 +283,42 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("games,blocks", [(2, 1), (6, 2), (64, 3)])
+@pytest.mark.parametrize("tap", [0, 4, 8])
+def test_cuda_tower_kernel_reads_its_weight_image(cuda, tap):
+    """One block whose first conv permutes the channels of one tap and
+    whose second conv is the identity, with every other weight zero: the
+    output is ``relu(relu(shifted, permuted x) / 2 + x)``, exactly, unless
+    the kernel's descriptor and the host-made image disagree on where a
+    (cin, cout) pair or a tap lies."""
+    gen = torch.Generator().manual_seed(tap)
+    net = AlphaZeroNet(2, 128, 8).eval()
+    packed = fused.pack_weights(net.to(cuda))
+    for key, t in packed.items():
+        if torch.is_tensor(t) and key not in ("wconv", "wconv_smem"):
+            t.zero_()
+    wconv = torch.zeros((2, 2, 9, 128, 128))
+    rot = (torch.arange(128) * 37 + 5) % 128         # cin -> cout
+    wconv[0, 0, tap, torch.arange(128), rot] = 1.0
+    wconv[0, 1, 4] = torch.eye(128)                   # y = y1
+    packed["wconv"] = wconv.to(cuda, torch.bfloat16)
+    packed["wconv_smem"] = fused.wconv_smem_image(packed["wconv"])
+    x = torch.randn((fused.TB * 64, 128), generator=gen) \
+        .to(cuda, torch.bfloat16)
+    got = fused.tower_forward(x, packed, 1).float()
+    want = fused._tower_plain(x, packed, 1).float()
+    torch.cuda.synchronize()
+    # sigmoid(0) = 1/2 and every product is by 0 or 1: exact
+    assert torch.equal(got, want)
+    assert float(want.abs().max()) > 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("games,blocks", [(4, 1), (8, 2), (64, 3),
+                                          (132, 20)])
 def test_cuda_tower_kernel_against_plain(cuda, games, blocks):
     """Imports no JAX: random weights straight into the port's net."""
     gen = torch.Generator().manual_seed(games)
-    net = AlphaZeroNet(3, 128, 8).eval()
+    net = AlphaZeroNet(max(3, blocks), 128, 8).eval()
     with torch.no_grad():
         for p in net.parameters():
             p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
@@ -250,9 +332,14 @@ def test_cuda_tower_kernel_against_plain(cuda, games, blocks):
     want = fused._tower_plain(x, packed, blocks).float()
     torch.cuda.synchronize()
     assert fused.tower_forward.launches == launches + 1
-    # sums reordered: one bf16 step per block, as on the CPU
-    assert bool(((got - want).abs()
-                 <= blocks * BF16_STEP * want.abs().clamp_min(1.0)).all())
+    # sums reordered: one bf16 step per block, as on the CPU; through 20
+    # blocks single steps grow like the bf16 net's own rounding, so there
+    # the outputs are held to a mean difference of a step
+    diff = (got - want).abs() / (BF16_STEP * want.abs().clamp_min(1.0))
+    if blocks <= 3:
+        assert bool((diff <= blocks).all())
+    else:
+        assert bool(torch.isfinite(got).all()) and float(diff.mean()) < 1.0
     with pytest.raises(ValueError, match="contiguous"):
         fused.tower_forward(x.repeat(2, 1)[::2], packed, 1)
     with pytest.raises(ValueError, match="multiple"):

@@ -112,6 +112,42 @@ def test_visit_counts_and_rows_equal_jax_search(variant):
     assert (tree.root_visit == num_sims).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_backprop_is_one_stacked_commit_per_simulation(monkeypatch, dtype):
+    """A simulation hands every level of its path to ``commit_edges`` in
+    one call, and the tree is the one that a call per level leaves."""
+    games = _games(19, 8)
+    spec = tmcts.SearchSpec(num_simulations=24, value_dtype=dtype)
+    real = tmcts.kernels.commit_edges
+    shapes = []
+
+    def stacked(rows, node, act, upd, offsets, num_actions):
+        shapes.append((tuple(node.shape), tuple(act.shape),
+                       tuple(upd.shape), node.dtype, node.is_contiguous()
+                       and act.is_contiguous()))
+        return real(rows, node, act, upd, offsets, num_actions)
+
+    def per_level(rows, node, act, upd, offsets, num_actions):
+        for l in range(node.shape[0]):
+            real(rows, node[l], act[l], upd[l], offsets, num_actions)
+        return rows
+
+    monkeypatch.setattr(tmcts.kernels, "commit_edges", stacked)
+    tmcts.STATS.reset()
+    tree = tmcts.search(torch_states_from_games(games), fake_eval_torch, spec)
+    assert len(shapes) == 24 == tmcts.STATS.simulations
+    assert sum(s[0][0] for s in shapes) == tmcts.STATS.levels
+    for node_shape, act_shape, upd_shape, node_dtype, contiguous in shapes:
+        assert node_shape == act_shape == (node_shape[0], 8)
+        assert upd_shape == node_shape + (3,)
+        assert node_dtype == torch.int32 and contiguous
+    monkeypatch.setattr(tmcts.kernels, "commit_edges", per_level)
+    tree_l = tmcts.search(torch_states_from_games(games), fake_eval_torch,
+                          spec)
+    assert torch.equal(tree.rows, tree_l.rows)
+    assert torch.equal(tree.root_vsum, tree_l.root_vsum)
+
+
 def test_multi_move_tree_reuse_equals_jax():
     """advance_root parity over 4 argmax moves with per-move noise
     (tests/test_tree_reuse.py protocol)."""
