@@ -2,10 +2,13 @@
 plain PyTorch versions.
 
 Port of ``alphazero_tpu/search/kernels.py``. The tree is one
-(B, M, RS, 128) tensor; each simulation reads one whole row per game at a
-per-game node index on every descent level (``fetch_rows``) and adds three
+(B, M, RS, 128) tensor; each simulation walks one path per game from the
+root, reading and scoring one row per level (``descend``: the whole walk
+of a simulation in one call, board stepping included), and adds three
 scalars into one row per game on every backprop level (``commit_edges``,
-which takes all levels of a backprop in one call).
+which takes all levels of a backprop in one call). ``fetch_rows`` is the
+row read of one level, the gather the JAX package's kernel is; the plain
+per-level descent is built on it.
 
 On a CUDA tensor each public function launches its hand-written kernel
 from ``csrc/tree_kernels.cu`` (float32 trees only) or raises; it never
@@ -20,8 +23,14 @@ import ctypes
 import torch
 
 from alphazero_torch.cuda_build import load_library
+from alphazero_torch.env import breakthrough as env
 
 _LIB = "tree_kernels"
+
+# Child-pointer sentinels (stored as floats; slots <= capacity are exactly
+# representable in every value dtype used).
+ILLEGAL = -2.0       # action illegal at this node
+UNALLOCATED = -1.0   # legal action whose child node does not exist yet
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,6 +42,10 @@ def _lib() -> ctypes.CDLL:
         lib.commit_edges_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                          ll, i, p]
         lib.commit_edges_f32.restype = i
+        f = ctypes.c_float
+        lib.descend_f32.argtypes = ([p, ll, i, i] + [p] * 7 + [f, f, i, i, i]
+                                    + [p] * 10)
+        lib.descend_f32.restype = i
         lib.launch_floor.argtypes = [p]
         lib.launch_floor.restype = i
         lib._argtypes_set = True
@@ -176,3 +189,207 @@ def commit_edges(rows: torch.Tensor, node: torch.Tensor, act: torch.Tensor,
 
 
 commit_edges.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# descend: the PUCT walk of one simulation, root to leaf, for every game
+# -----------------------------------------------------------------------------
+
+def _descend_plain(rows: torch.Tensor, root_state: env.EnvState,
+                   root_visit: torch.Tensor, root_vsum: torch.Tensor,
+                   num_actions: int, c_puct: float, fpu_reduction: float,
+                   out=None):
+    # One level at a time for every game in lockstep: a ``fetch_rows``, the
+    # scoring, an ``env.step`` and a read of "is any game still walking" by
+    # the host. Returns ``descend``'s six results, the last the number of
+    # levels run. Every level writes its column of the path buffers for
+    # every game, so stopped games record garbage at d >= depth. Of ``out``
+    # only the path buffers are recorded into; the rest is made anew.
+    B = root_visit.shape[0]
+    N = rows.shape[1] - 1
+    A = num_actions
+    vdt = rows.dtype
+    dev = rows.device
+    zero = torch.zeros((), dtype=vdt, device=dev)
+    neg_inf = torch.full((), float("-inf"), dtype=vdt, device=dev)
+    bidx = torch.arange(B, device=dev)
+
+    state = root_state
+    cur = torch.zeros((B,), dtype=torch.int32, device=dev)
+    n_cur = root_visit.to(vdt)
+    parent_q = torch.where(root_visit > 0,
+                           root_vsum / root_visit.clamp_min(1).to(vdt), zero)
+    stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
+    needs_alloc = torch.zeros((B,), dtype=torch.bool, device=dev)
+    depth = torch.zeros((B,), dtype=torch.int32, device=dev)
+    path_nodes, path_actions = out[3:5] if out is not None else (
+        torch.zeros((B, N), dtype=torch.int32, device=dev),
+        torch.zeros((B, N), dtype=torch.int32, device=dev))
+
+    d = 0
+    while True:
+        row = fetch_rows(rows, cur)                           # (B, R)
+        child = row[:, :A]
+        prior = row[:, A:2 * A]
+        ev = row[:, 2 * A:3 * A]
+        evs = row[:, 3 * A:4 * A]
+
+        legal = child > (ILLEGAL + 0.5)
+        live = legal.any(-1) & ~stopped
+
+        if fpu_reduction:
+            q_unvisited = (parent_q - fpu_reduction)[:, None]
+        else:
+            q_unvisited = zero
+        q = torch.where(ev > 0, -evs / ev.clamp_min(1), q_unvisited)
+        cs = c_puct * torch.sqrt(n_cur.clamp_min(1))
+        u = prior * cs[:, None] / (1 + ev)
+        score = torch.where(legal, q + u, neg_inf)
+        a = score.argmax(-1)                                  # (B,) int64
+
+        child_a = child[bidx, a]
+        ev_a = ev[bidx, a]
+
+        alloc_here = live & (child_a < (UNALLOCATED + 0.5))
+        descend = live & (child_a > -0.5)
+
+        if fpu_reduction:
+            # The descended-into child becomes next level's parent; its Q
+            # from its own mover's side is +evs/ev.
+            evs_a = evs[bidx, a]
+            child_q = torch.where(ev_a > 0, evs_a / ev_a.clamp_min(1), zero)
+            parent_q = torch.where(descend, child_q, parent_q)
+
+        # Stopped games record garbage here; backprop masks on depth.
+        path_nodes[:, d] = cur
+        path_actions[:, d] = a.int()
+
+        state = env.select_state(live, env.step(state, a), state)
+
+        cur = torch.where(descend, child_a.int(), cur)
+        n_cur = torch.where(descend, ev_a, n_cur)
+        stopped = stopped | ~live | alloc_here
+        needs_alloc = needs_alloc | alloc_here
+        depth = depth + live.int()
+        d += 1
+        if not bool((~stopped).any()):                        # host sync
+            break
+    return state, needs_alloc, depth, path_nodes, path_actions, d
+
+
+_STATE_DTYPES = (("board", torch.int8), ("turn", torch.int8),
+                 ("winner", torch.int8), ("done", torch.bool),
+                 ("move_count", torch.int32))
+
+
+def _check_descend_operands(rows, root_state, root_visit, root_vsum,
+                            num_actions, out) -> None:
+    # dtypes, shapes and contiguity first (they need no card to be told),
+    # then the device
+    if rows.dtype != torch.float32:
+        raise TypeError(f"the CUDA tree kernels take float32 trees, got "
+                        f"{rows.dtype} (other trees are CPU-only)")
+    if rows.dim() != 4 or not rows.is_contiguous():
+        raise ValueError("the tree must be a contiguous (B, M, RS, 128) "
+                         "tensor; it is never copied")
+    B, M, RS, L = rows.shape
+    if not 1 <= num_actions <= env.NUM_ACTIONS or 4 * num_actions > RS * L:
+        raise ValueError(f"num_actions={num_actions} must be in [1, "
+                         f"{env.NUM_ACTIONS}] with four blocks in a row of "
+                         f"{RS * L}")
+    operands = [(f"root_state.{name}", getattr(root_state, name), dtype,
+                 (B, 8, 8) if name == "board" else (B,))
+                for name, dtype in _STATE_DTYPES]
+    operands += [("root_visit", root_visit, torch.int32, (B,)),
+                 ("root_vsum", root_vsum, torch.float32, (B,))]
+    if out is not None:
+        leaf, needs_alloc, depth, path_nodes, path_actions = out[:5]
+        operands += [(f"out leaf_state.{name}", getattr(leaf, name), dtype,
+                      (B, 8, 8) if name == "board" else (B,))
+                     for name, dtype in _STATE_DTYPES]
+        operands += [("out needs_alloc", needs_alloc, torch.bool, (B,)),
+                     ("out depth", depth, torch.int32, (B,)),
+                     ("out path_nodes", path_nodes, torch.int32, (B, M - 1)),
+                     ("out path_actions", path_actions, torch.int32,
+                      (B, M - 1))]
+    for name, t, dtype, shape in operands:
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != rows.device:
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                             f"tensor on the tree's device; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}"
+                             f"{'' if t.is_contiguous() else ', strided'}")
+    if rows.device.type != "cuda":
+        raise ValueError(f"descend takes CPU or CUDA tensors, got a tree on "
+                         f"{rows.device}")
+    if rows.device.index != torch.cuda.current_device():
+        raise ValueError(f"tree on {rows.device}, current CUDA device is "
+                         f"{torch.cuda.current_device()}")
+
+
+def descend(rows: torch.Tensor, root_state: env.EnvState,
+            root_visit: torch.Tensor, root_vsum: torch.Tensor,
+            num_actions: int, c_puct: float, fpu_reduction: float = 0.0,
+            out=None):
+    """The PUCT descent of one simulation for every game of the batch.
+
+    rows: the (B, M, RS, 128) tree; root_state: the games at the root;
+    root_visit (B,) int32, root_vsum (B,) of the tree's dtype. Each game
+    walks from node 0: at a node it scores every legal action
+    (``q + u``, ``q = -vsum/visit`` or, unvisited, ``parent_q -
+    fpu_reduction`` if that is not 0, else 0; ``u = prior * c_puct *
+    sqrt(max(N_node, 1)) / (1 + visit)``), takes the first maximum, steps
+    its board by that action, and goes on to the child; it stops at a node
+    with no legal action, or after an edge whose child does not exist yet.
+
+    Returns ``(leaf_state, needs_alloc, depth, path_nodes, path_actions,
+    levels)``: the walked edges are ``(path_nodes[b, d], path_actions[b,
+    d])`` for ``d < depth[b]`` (entries past that are unspecified),
+    ``needs_alloc`` says that the last edge needs a new child, and
+    ``leaf_state`` is the root state stepped along the path. ``levels`` is
+    the number of levels the per-level loop ran on a CPU tree (the host
+    read one value per level), and None on a CUDA tree: nothing was read,
+    and a caller that needs a count reads ``depth.max()``.
+
+    ``out`` is the result of an earlier call at the same shapes, to be
+    overwritten and returned, so that a search allocates its results once
+    and not every simulation: on a CUDA tree every tensor of it is written
+    in place, on a CPU tree the two path buffers.
+
+    On a CUDA tree this is one kernel launch, one thread block per game,
+    and no host sync; on a CPU tree it is the plain per-level loop.
+    """
+    if rows.device.type == "cpu":
+        return _descend_plain(rows, root_state, root_visit, root_vsum,
+                              num_actions, c_puct, fpu_reduction, out)
+    _check_descend_operands(rows, root_state, root_visit, root_vsum,
+                            num_actions, out)
+    B, M, RS, L = rows.shape
+    N = M - 1
+    dev = rows.device
+    if out is not None:
+        leaf, needs_alloc, depth, path_nodes, path_actions = out[:5]
+    else:
+        # zeros, not empty: entries past a game's depth stay valid indices
+        path_nodes, path_actions = (
+            torch.zeros((B, N), dtype=torch.int32, device=dev),
+            torch.zeros((B, N), dtype=torch.int32, device=dev))
+        depth = torch.empty((B,), dtype=torch.int32, device=dev)
+        needs_alloc = torch.empty((B,), dtype=torch.bool, device=dev)
+        leaf = env.EnvState(*(torch.empty_like(getattr(root_state, name))
+                              for name, _ in _STATE_DTYPES))
+    rc = _lib().descend_f32(
+        rows.data_ptr(), M, RS * L, num_actions,
+        *(getattr(root_state, name).data_ptr() for name, _ in _STATE_DTYPES),
+        root_visit.data_ptr(), root_vsum.data_ptr(),
+        c_puct, fpu_reduction, int(bool(fpu_reduction)), B, N,
+        path_nodes.data_ptr(), path_actions.data_ptr(), depth.data_ptr(),
+        needs_alloc.data_ptr(),
+        *(getattr(leaf, name).data_ptr() for name, _ in _STATE_DTYPES),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on_error(rc, "descend")
+    descend.launches += 1
+    return leaf, needs_alloc, depth, path_nodes, path_actions, None
+
+
+descend.launches = 0

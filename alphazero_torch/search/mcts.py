@@ -8,9 +8,10 @@ that trees compare row for row with the JAX package's:
   batch-uniform row write;
 - per-node data is ONE fused row ``rows[b, n] : (RS, 128)`` whose flat
   view holds the [child ptr | prior | edge visit | edge vsum] blocks of
-  width A. The two per-game varying-index accesses (the descent row read
-  and the backprop edge update) go through ``search/kernels.py``, which
-  launches hand-written CUDA kernels on the card;
+  width A. The two per-game varying-index accesses (the descent's row
+  reads and the backprop's edge updates) go through ``search/kernels.py``,
+  which launches hand-written CUDA kernels on the card: one for the whole
+  descent of a simulation, one for its whole backprop;
 - child pointers are additive: -1 (UNALLOCATED) becomes the slot index
   when the backprop update of the allocating edge adds ``s+1``;
 - the descent path is recorded in (B, N) buffers and backprop walks it;
@@ -28,11 +29,13 @@ Unlike the JAX package, ``search`` updates the ``Tree`` it is given IN
 PLACE (its ``rows`` tensor and its fields) and returns it: the tree is
 1.26 GB at 512 games x 800 simulations and is never copied.
 
-Host syncs: the descent loop runs while any game is still descending,
-which the host learns with one sync per level. Backprop needs none: it
-commits as many levels as the descent ran, all in one ``commit_edges``
-call (levels past a game's depth commit zeros to the trash row), and the
-host already knows that count.
+Host syncs: one per simulation on a CUDA tree, where the descent is one
+kernel launch and the host reads the deepest game's depth after it, the
+number of levels the backprop has to stack. On a CPU tree the descent is
+the plain per-level loop, which runs while any game is still descending
+and reads that once per level. Backprop needs no sync: it commits that
+many levels, all in one ``commit_edges`` call (levels past a game's depth
+commit zeros to the trash row).
 """
 
 from __future__ import annotations
@@ -51,10 +54,10 @@ from alphazero_torch.search import kernels
 Evaluator = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 # eval_fn(planes (B,3,8,8) f32) -> (policy_probs (B,192) f32, value (B,) f32)
 
-# Child-pointer sentinels (stored as floats; slots <= capacity are exactly
-# representable in every value dtype used).
-ILLEGAL = -2.0       # action illegal at this node
-UNALLOCATED = -1.0   # legal action whose child node does not exist yet
+# Child-pointer sentinels: ILLEGAL, an action illegal at this node, and
+# UNALLOCATED, a legal action whose child node does not exist yet.
+ILLEGAL = kernels.ILLEGAL
+UNALLOCATED = kernels.UNALLOCATED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,15 +193,20 @@ def _renorm_priors(policy: torch.Tensor, legal: torch.Tensor,
 @dataclasses.dataclass
 class SearchStats:
     """Counters of the search loop, read by measurement scripts: simulations
-    run, descent levels run (each costs one host sync), and the per-game
-    edge depth summed over games and simulations (a device tensor)."""
+    run, levels stacked into the backprops (on a CPU tree the levels the
+    per-level descent ran), the descents' reads of a device value by the
+    host (one per simulation on a CUDA tree, one per level on a CPU tree),
+    and the per-game edge depth summed over games and simulations (a
+    device tensor)."""
 
     simulations: int = 0
     levels: int = 0
+    host_syncs: int = 0
     depth_sum: torch.Tensor | int = 0
 
     def reset(self) -> None:
-        self.simulations, self.levels, self.depth_sum = 0, 0, 0
+        self.simulations, self.levels, self.host_syncs = 0, 0, 0
+        self.depth_sum = 0
 
 
 STATS = SearchStats()
@@ -210,7 +218,7 @@ STATS = SearchStats()
 
 def _descend(rows: torch.Tensor, root_state: env.EnvState,
              root_visit: torch.Tensor, root_vsum: torch.Tensor,
-             spec: SearchSpec):
+             spec: SearchSpec, out=None):
     """PUCT descent for every game in lockstep.
 
     The game state is stepped alongside the walk, so the final state IS
@@ -219,82 +227,26 @@ def _descend(rows: torch.Tensor, root_state: env.EnvState,
     levels): the walked edges are (path_nodes[:, d], path_actions[:, d])
     for d < depth; when ``needs_alloc`` the last edge is the one that needs
     a new child, otherwise the walk stopped on an existing leaf (terminal
-    node or unexpanded root). ``levels`` is the number of levels run.
+    node or unexpanded root). ``levels`` is the number of levels the
+    backprop stacks: at least one, and no game is deeper. ``out`` is an
+    earlier call's result, overwritten and returned (``kernels.descend``).
     """
-    B = root_visit.shape[0]
-    N = rows.shape[1] - 1
-    A = spec.num_actions
-    vdt = spec.value_dtype
-    dev = rows.device
-    zero = torch.zeros((), dtype=vdt, device=dev)
-    neg_inf = torch.full((), float("-inf"), dtype=vdt, device=dev)
-    bidx = torch.arange(B, device=dev)
-
-    state = root_state
-    cur = torch.zeros((B,), dtype=torch.int32, device=dev)
-    n_cur = root_visit.to(vdt)
-    parent_q = torch.where(root_visit > 0,
-                           root_vsum / root_visit.clamp_min(1).to(vdt), zero)
-    stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
-    needs_alloc = torch.zeros((B,), dtype=torch.bool, device=dev)
-    depth = torch.zeros((B,), dtype=torch.int32, device=dev)
-    path_nodes = torch.zeros((B, N), dtype=torch.int32, device=dev)
-    path_actions = torch.zeros((B, N), dtype=torch.int32, device=dev)
-
-    d = 0
-    while True:
-        row = kernels.fetch_rows(rows, cur)                   # (B, R)
-        child = row[:, :A]
-        prior = row[:, A:2 * A]
-        ev = row[:, 2 * A:3 * A]
-        evs = row[:, 3 * A:4 * A]
-
-        legal = child > (ILLEGAL + 0.5)
-        live = legal.any(-1) & ~stopped
-
-        if spec.fpu_reduction:
-            q_unvisited = (parent_q - spec.fpu_reduction)[:, None]
-        else:
-            q_unvisited = zero
-        q = torch.where(ev > 0, -evs / ev.clamp_min(1), q_unvisited)
-        cs = spec.c_puct * torch.sqrt(n_cur.clamp_min(1))
-        u = prior * cs[:, None] / (1 + ev)
-        score = torch.where(legal, q + u, neg_inf)
-        a = score.argmax(-1)                                  # (B,) int64
-
-        child_a = child[bidx, a]
-        ev_a = ev[bidx, a]
-
-        alloc_here = live & (child_a < (UNALLOCATED + 0.5))
-        descend = live & (child_a > -0.5)
-
-        if spec.fpu_reduction:
-            # The descended-into child becomes next level's parent; its Q
-            # from its own mover's side is +evs/ev.
-            evs_a = evs[bidx, a]
-            child_q = torch.where(ev_a > 0, evs_a / ev_a.clamp_min(1), zero)
-            parent_q = torch.where(descend, child_q, parent_q)
-
-        # Stopped games record garbage here; backprop masks on depth.
-        path_nodes[:, d] = cur
-        path_actions[:, d] = a.int()
-
-        state = env.select_state(live, env.step(state, a), state)
-
-        cur = torch.where(descend, child_a.int(), cur)
-        n_cur = torch.where(descend, ev_a, n_cur)
-        stopped = stopped | ~live | alloc_here
-        needs_alloc = needs_alloc | alloc_here
-        depth = depth + live.int()
-        d += 1
-        if not bool((~stopped).any()):                        # host sync
-            break
-    return state, needs_alloc, depth, path_nodes, path_actions, d
+    *out, levels = kernels.descend(rows, root_state, root_visit, root_vsum,
+                                   spec.num_actions, spec.c_puct,
+                                   spec.fpu_reduction, out)
+    syncs = levels
+    if levels is None:                       # CUDA: the kernel read nothing
+        levels = max(int(out[2].max()), 1)                    # host sync
+        syncs = 1
+    STATS.host_syncs += syncs
+    return (*out, levels)
 
 
-def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec
-                   ) -> Tree:
-    """One simulation for every game; updates ``tree`` in place."""
+def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec,
+                   out=None):
+    """One simulation for every game; updates ``tree`` in place. Returns
+    its descent's results, which the next simulation takes as ``out`` and
+    overwrites (``_descend``)."""
     B = tree.root_visit.shape[0]
     A = spec.num_actions
     vdt = spec.value_dtype
@@ -307,9 +259,9 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec
 
     # (1) selection with in-loop state stepping
     with record_function("mcts.descend"):
-        (leaf_state, needs_alloc, depth, path_nodes, path_actions,
-         levels) = _descend(rows, tree.root_state, tree.root_visit,
-                            tree.root_vsum, spec)
+        out = _descend(rows, tree.root_state, tree.root_visit,
+                       tree.root_vsum, spec, out)
+        leaf_state, needs_alloc, depth, path_nodes, path_actions, levels = out
 
     # (2) one batched network evaluation
     with record_function("mcts.evaluate"):
@@ -381,7 +333,7 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec
     STATS.simulations += 1
     STATS.levels += levels
     STATS.depth_sum = STATS.depth_sum + depth.sum()
-    return tree
+    return out
 
 
 # -----------------------------------------------------------------------------
@@ -410,6 +362,10 @@ def search(
         tree = init_tree(root_states, spec)
     vdt = spec.value_dtype
     A = spec.num_actions
+    # the descent kernel reads the root state where it lies
+    tree.root_state = env.EnvState(*(
+        getattr(tree.root_state, f.name).contiguous()
+        for f in dataclasses.fields(env.EnvState)))
 
     # Root expansion (does not count a visit).
     root_planes = env.encoded_state(tree.root_state)
@@ -433,8 +389,13 @@ def search(
             raise ValueError("add_noise requires a generator")
         _add_root_noise(tree, generator, spec, noise=root_noise)
 
+    # One set of descent results for the whole search: the first
+    # simulation makes them and every later one overwrites them, and what a
+    # simulation leaves in the path past a game's depth is an earlier
+    # simulation's node and action, so still in range.
+    out = None
     for _ in range(spec.num_simulations):
-        _simulate_once(tree, eval_fn, spec)
+        out = _simulate_once(tree, eval_fn, spec, out)
     return tree
 
 

@@ -7,10 +7,12 @@ Builds the CUDA kernels from ``alphazero_torch/csrc`` (into ``build/``)
 and then runs, each phase printing one line and any failure raising and
 exiting non-zero:
 
-- phase 1: the two tree kernels against their plain PyTorch versions
-  (bit-exact), ``commit_edges`` also on 2 and 5 stacked levels against
-  one call per level, and their times beside the launch floor (a kernel
-  with no body);
+- phase 1: the tree kernels against their plain PyTorch versions
+  (bit-exact): ``fetch_rows``; ``commit_edges``, also on 2 and 5 stacked
+  levels against one call per level; ``descend`` against the plain
+  per-level descent on trees that searches grew (512, 13 and 3 games,
+  first-play urgency off and on, finished roots and terminal leaves);
+  and their times beside the launch floor (a kernel with no body);
 - phase 2: the archived 20x128 net on the card against the CPU;
 - phase 6: the fused tower kernel (``wgmma`` on a ring of weight chunks
   in shared memory) against its plain version (1, 2 and 20 blocks, and
@@ -18,8 +20,10 @@ exiting non-zero:
   512 positions x 20 blocks beside its bound, its plain version and the
   bf16 net's tower blocks in eager mode;
 - phase 3: the self-play search at full width (512 games x 800
-  simulations, one timed move) through ``selfplay_move``; a backprop is
-  one ``commit_edges`` launch, so the move launches it 800 times;
+  simulations, one timed move) through ``selfplay_move``; a descent is
+  one ``descend`` launch and a backprop one ``commit_edges`` launch, so
+  the move launches each 800 times and reads the device once per
+  simulation;
 - phase 4: the card's search against the CPU's;
 - phase 5: continuous self-play (128 lanes x 16 simulations);
 - phase 7: the fused path at full width (512 positions, 800 evaluations
@@ -274,7 +278,205 @@ def phase_kernels(dev):
           f"levels; max_abs_err {err}; commit_edges timed at {LEVELS} "
           f"stacked levels (single_: one level); launch floor (an empty "
           f"kernel) {json.dumps(floor_t)}; times {json.dumps(t)}", flush=True)
-    return err, t, bounds
+
+    # descend against the plain per-level descent; the plain version's
+    # row reads are the fetch_rows launches this run counts
+    K.fetch_rows.launches = 0
+    err["descend"], t["descend"], bounds["descend"] = check_descend(dev)
+    t["descend"]["floor_ms"] = floor_t["ms"]
+    t["descend"]["floor_call_ms"] = floor_t["call_ms"]
+    launches = {"fetch_rows": K.fetch_rows.launches}
+    check(launches["fetch_rows"] > 0, "the plain descent did not launch "
+                                      "fetch_rows")
+    return err, t, bounds, launches
+
+
+DESCEND_CHUNKS = (0, 50, 150, 200)  # simulations between two comparisons
+DESCEND_COPIES = 12                # trees cycled through when timing
+
+
+def generic_eval(seed, dev):
+    """Evaluator with generic float32 priors and values (a fixed random
+    linear map of the planes): no two priors equal."""
+    g = torch.Generator().manual_seed(seed)
+    w1 = torch.randn((128, A), generator=g).to(dev)
+    w2 = (torch.randn((128,), generator=g) / 8).to(dev)
+
+    def eval_fn(planes):
+        x = planes.reshape(planes.shape[0], -1)[:, :128]
+        return torch.softmax(x @ w1, -1), torch.tanh(x @ w2)
+
+    return eval_fn
+
+
+def compare_descents(tree, spec, what):
+    """``descend`` (the kernel) and the plain per-level descent on one
+    tree: depth, needs_alloc, every field of the leaf state and the path
+    at d < depth must be equal. Returns the kernel's results."""
+    from alphazero_torch.search import kernels as K
+
+    args = (tree.rows, tree.root_state, tree.root_visit, tree.root_vsum,
+            spec.num_actions, spec.c_puct, spec.fpu_reduction)
+    launches = K.descend.launches
+    got = K.descend(*args)
+    check(K.descend.launches == launches + 1, "descend did not count its "
+                                              "launch")
+    want = K._descend_plain(*args)
+    torch.cuda.synchronize()
+    leaf_g, alloc_g, depth_g, nodes_g, acts_g, _ = got
+    leaf_w, alloc_w, depth_w, nodes_w, acts_w, _ = want
+    check(depth_g.dtype == torch.int32 and alloc_g.dtype == torch.bool
+          and torch.equal(depth_g, depth_w), f"descend: depth differs "
+          f"({what}): {int((depth_g != depth_w).sum())} games")
+    check(torch.equal(alloc_g, alloc_w), f"descend: needs_alloc differs "
+                                         f"({what})")
+    for name in ("board", "turn", "winner", "done", "move_count"):
+        g, w = getattr(leaf_g, name), getattr(leaf_w, name)
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and torch.equal(g, w), f"descend: leaf {name} differs ({what})")
+    walked = (torch.arange(nodes_g.shape[1], device=depth_g.device)[None]
+              < depth_g[:, None])
+    check(torch.equal(nodes_g[walked], nodes_w[walked])
+          and torch.equal(acts_g[walked], acts_w[walked]),
+          f"descend: path differs ({what})")
+    return got
+
+
+def descend_bound_ms(depth, needs_alloc):
+    """The bytes a descent of these depths must move, at the memory rate:
+    one 4A-float row per game and level (a walk that does not end on a new
+    edge reads one more row to find no legal action there), the root
+    state, visit and vsum in, the walked path, depth, needs_alloc and the
+    leaf state out."""
+    B = depth.shape[0]
+    rows_read = int(depth.sum()) + int((~needs_alloc).sum())
+    state = 64 + 1 + 1 + 1 + 4
+    nbytes = (rows_read * 4 * A * 4 + B * (state + 4 + 4)
+              + 2 * 4 * int(depth.sum()) + B * (4 + 1 + state))
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def check_descend(dev):
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.search import kernels as K
+    from alphazero_torch.search import mcts
+
+    on = lambda s: env.EnvState(*(getattr(s, f).to(dev) for f in
+                                  ("board", "turn", "winner", "done",
+                                   "move_count")))
+    evals = {"ties": dyadic_eval, "generic": generic_eval(17, dev)}
+    report, compared = [], 0
+    # (games, simulations between comparisons, evaluator, first-play
+    # urgency); every fifth game is played to its end (finished roots),
+    # and late positions give terminal leaves
+    cases = [(GAMES, (40, 120), "ties", 0.0),
+             (GAMES, (40, 120), "generic", 0.25),
+             (13, (8, 24, 32), "ties", 0.25), (13, (8, 24, 32), "generic", 0.0),
+             (3, (8, 24, 32), "generic", 0.25), (3, (8, 24, 32), "ties", 0.0)]
+    for B, chunks, ev, fpu in cases:
+        states = on(finish_games(
+            random_positions(B, 100 + B, max_plies=60),
+            torch.arange(B) % 5 == 2, B))
+        tree = mcts.init_tree(states,
+                              mcts.SearchSpec(num_simulations=sum(chunks)))
+        finished = int(states.done.sum())
+        terminal = deepest = 0
+        for chunk in chunks:
+            spec = mcts.SearchSpec(num_simulations=chunk, fpu_reduction=fpu)
+            mcts.search(states, evals[ev], spec, tree=tree)
+            before = tree.rows.clone() if B < GAMES else None
+            leaf, _, depth, _, _, _ = compare_descents(
+                tree, spec, f"{B} games, {ev}, fpu {fpu}, "
+                f"{int(tree.root_visit[0])} sims")
+            check(before is None or torch.equal(tree.rows, before),
+                  "descend wrote into the tree")
+            terminal = max(terminal, int((leaf.done & ~states.done).sum()))
+            deepest = max(deepest, int(depth.max()))
+            compared += 1
+        check(B < GAMES or (finished > 0 and terminal > 0),
+              f"descend check at {B} games saw {finished} finished roots "
+              f"and {terminal} terminal leaves")
+        report.append(f"{B} games/{ev}/fpu {fpu}: {finished} finished roots, "
+                      f"up to {terminal} terminal leaves, depth up to "
+                      f"{deepest}")
+        del tree
+    torch.cuda.empty_cache()
+
+    # refused operands: raise, and count no launch
+    states = env.initial_state((4,), device=dev)
+    tree = mcts.init_tree(states, mcts.SearchSpec(num_simulations=8))
+    ok = (tree.rows, states, tree.root_visit, tree.root_vsum, A, 1.5)
+    turned = env.EnvState(states.board.transpose(1, 2), *(
+        getattr(states, f) for f in ("turn", "winner", "done", "move_count")))
+    refused = [((tree.rows.double(),) + ok[1:], TypeError),
+               ((tree.rows[:, ::2],) + ok[1:], ValueError),
+               (ok[:1] + (turned,) + ok[2:], ValueError),
+               (ok[:2] + (tree.root_visit.long(),) + ok[3:], ValueError),
+               (ok[:3] + (tree.root_vsum.double(),) + ok[4:], ValueError),
+               (ok[:4] + (A + 1, 1.5), ValueError)]
+    launches = K.descend.launches
+    for bad, exc in refused:
+        try:
+            K.descend(*bad)
+            took = True
+        except exc:
+            took = False
+        check(not took, "descend took a malformed operand")
+    check(K.descend.launches == launches, "a refused descend counted as a "
+                                          "launch")
+    del tree
+
+    # times at the main path's shape, on a tree grown from early positions
+    # by the kernel's own search, after 0 (every walk is the root's one new
+    # edge), 50, 200 and 400 simulations. The
+    # tree is cycled through DESCEND_COPIES copies, so that a launch finds
+    # its rows in device memory and not in the 50 MB L2, as a simulation
+    # does after the evaluator's traffic; "l2_" times are one tree again
+    # and again. The plain version syncs with the host every level, so its
+    # time is per call.
+    states = on(random_positions(GAMES, 31, max_plies=16))
+    spec = mcts.SearchSpec(num_simulations=SIMS)
+    tree = mcts.init_tree(states, spec)
+    timed = []
+    for chunk in DESCEND_CHUNKS:
+        mcts.search(states, evals["generic"],
+                    mcts.SearchSpec(num_simulations=chunk), tree=tree)
+        # timed as the search calls it: into one set of results
+        out = compare_descents(
+            tree, spec, f"timing tree, {int(tree.root_visit[0])} sims")
+        _, alloc, depth = out[:3]
+        compared += 1
+        bound, nbytes = descend_bound_ms(depth, alloc)
+        copies = [tree.rows] + [tree.rows.clone()
+                                for _ in range(DESCEND_COPIES - 1)]
+        run = lambda rows: K.descend(rows, states, tree.root_visit,
+                                     tree.root_vsum, A, spec.c_puct, 0.0,
+                                     out)
+        cold = lambda i: run(copies[i % DESCEND_COPIES])
+        hot = lambda i: run(tree.rows)
+        plain = lambda i: K._descend_plain(
+            tree.rows, states, tree.root_visit, tree.root_vsum, A,
+            spec.c_puct, 0.0, out)
+        timed.append({
+            "sims": int(tree.root_visit[0]),
+            "mean_depth": float(depth.float().mean()),
+            "max_depth": int(depth.max()),
+            "ms": cuda_ms(cold, iters=48, warmup=12, what="descend"),
+            "call_ms": cuda_ms(cold, iters=48, warmup=12, queued=False),
+            "l2_ms": cuda_ms(hot, what="descend l2"),
+            "plain_ms": cuda_ms(plain, iters=4, warmup=2, queued=False),
+            "bound_ms": bound, "bound_bytes": nbytes})
+        del copies
+        torch.cuda.empty_cache()
+    last = timed[-1]
+    t = {"ms": last["ms"], "call_ms": last["call_ms"],
+         "l2_ms": last["l2_ms"], "plain_ms": last["plain_ms"],
+         "library_ms": None, "mean_depth": last["mean_depth"],
+         "max_depth": last["max_depth"]}
+    print(f"descend equal to the plain per-level descent on {compared} "
+          f"trees ({'; '.join(report)}); at {GAMES} games by simulations "
+          f"searched: {json.dumps(timed)}", flush=True)
+    return 0.0, t, last["bound_ms"]
 
 
 # -----------------------------------------------------------------------------
@@ -294,6 +496,22 @@ def random_positions(n, seed, max_plies=40):
         stepped = env.step(state, torch.from_numpy(acts))
         state = env.select_state(torch.from_numpy(p < plies) & ~stepped.done,
                                  stepped, state)
+    return state
+
+
+def finish_games(state, which, seed):
+    """Plays the games of the mask ``which`` on with random legal moves
+    until they are over (``random_positions`` stops short of the end)."""
+    from alphazero_torch.env import breakthrough as env
+
+    rng = np.random.default_rng(seed)
+    while bool((which & ~state.done).any()):
+        mask = env.legal_action_mask(state).numpy()
+        acts = np.array([rng.choice(np.flatnonzero(m)) if m.any() else 0
+                         for m in mask])
+        state = env.select_state(which & ~state.done,
+                                 env.step(state, torch.from_numpy(acts)),
+                                 state)
     return state
 
 
@@ -366,6 +584,7 @@ def phase_search(dev, net, card):
     # the main path, counted: one move through selfplay_move
     torch.cuda.reset_peak_memory_stats()
     K.fetch_rows.launches = 0
+    K.descend.launches = 0
     K.commit_edges.launches = 0
     mcts.STATS.reset()
     moves, live = 1, 0
@@ -383,14 +602,16 @@ def phase_search(dev, net, card):
         check(bool(torch.isfinite(values).all()), "root values not finite")
     torch.cuda.synchronize()
     dt = time.time() - t0
-    launches = {"fetch_rows": K.fetch_rows.launches,
+    launches = {"descend": K.descend.launches,
+                "fetch_rows": K.fetch_rows.launches,
                 "commit_edges": K.commit_edges.launches}
-    check(all(v > 0 for v in launches.values()),
+    check(launches["descend"] > 0 and launches["commit_edges"] > 0,
           f"a kernel was not launched on the main path: {launches}")
-    check(launches["commit_edges"] == moves * SIMS,
-          f"commit_edges launched {launches['commit_edges']} times for "
-          f"{moves * SIMS} simulations: a backprop is one launch")
     st = mcts.STATS
+    check(launches["descend"] == launches["commit_edges"] == moves * SIMS
+          == st.host_syncs and launches["fetch_rows"] == 0,
+          f"{launches} and {st.host_syncs} host syncs for {moves * SIMS} simulations: a "
+          f"descent is one launch and one sync, a backprop one launch")
     depth = float(st.depth_sum) / (st.simulations * GAMES)
     out = {
         "games": GAMES, "sims": SIMS, "moves": moves,
@@ -398,7 +619,7 @@ def phase_search(dev, net, card):
         "mean_edge_depth": depth,
         "levels_per_sim": st.levels / st.simulations,
         "launches_per_move": {k: v / moves for k, v in launches.items()},
-        "host_syncs_per_sim": st.levels / st.simulations,
+        "host_syncs_per_sim": st.host_syncs / st.simulations,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "card": card,
     }
@@ -555,6 +776,7 @@ def phase_continuous(dev, net, card):
     eval_fn = mcts.make_net_evaluator(net, getattr(torch, cfg.inference_dtype))
     gen = torch.Generator(device=dev).manual_seed(2)
     K.fetch_rows.launches = 0
+    K.descend.launches = 0
     K.commit_edges.launches = 0
     mcts.STATS.reset()
     torch.cuda.synchronize()
@@ -563,11 +785,14 @@ def phase_continuous(dev, net, card):
         eval_fn, cfg, gen, num_games=CONT_GAMES, device=dev)
     dt = time.time() - t0
     st = mcts.STATS
-    check(K.fetch_rows.launches > 0 and K.commit_edges.launches > 0,
+    check(K.descend.launches > 0 and K.commit_edges.launches > 0,
           "continuous self-play did not launch both kernels")
-    check(K.commit_edges.launches == st.simulations,
-          f"commit_edges launched {K.commit_edges.launches} times for "
-          f"{st.simulations} simulations: a backprop is one launch")
+    check(K.descend.launches == K.commit_edges.launches == st.simulations
+          == st.host_syncs and K.fetch_rows.launches == 0,
+          f"{K.descend.launches} descend, {K.commit_edges.launches} "
+          f"commit_edges, {K.fetch_rows.launches} fetch_rows launches and "
+          f"{st.host_syncs} host syncs for {st.simulations} simulations: a "
+          f"descent is one launch and one sync, a backprop one launch")
     check(stats["games"] >= CONT_GAMES, f"games {stats['games']}")
     check(stats["examples"] == len(examples) > 0, "no examples")
     for planes, probs, wl in examples:
@@ -586,8 +811,9 @@ def phase_continuous(dev, net, card):
            "mean_edge_depth": float(st.depth_sum) / (st.simulations
                                                      * CONT_LANES),
            "levels_per_sim": st.levels / st.simulations,
+           "host_syncs_per_sim": st.host_syncs / st.simulations,
            "launches_per_sim": {
-               "fetch_rows": K.fetch_rows.launches / st.simulations,
+               "descend": K.descend.launches / st.simulations,
                "commit_edges": K.commit_edges.launches / st.simulations},
            "card": card}
     print("continuous " + json.dumps(out), flush=True)
@@ -850,6 +1076,7 @@ def phase_trainer(dev, card):
         load_archive,
     )
     from alphazero_torch.search import kernels as K
+    from alphazero_torch.search import mcts
     from alphazero_torch.train import Trainer, cosine_lr
     from alphazero_torch.train import checkpoint as ckpt
     from alphazero_torch.train.learner import train_step
@@ -862,15 +1089,31 @@ def phase_trainer(dev, card):
         tr = Trainer(cfg, seed=0, net=load_archive(ARCHIVE, device=dev),
                      device=dev)
         K.fetch_rows.launches = 0
+        K.descend.launches = 0
         K.commit_edges.launches = 0
+        mcts.STATS.reset()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         metrics = [tr.run_iteration() for _ in range(2)]
-        launches = {"fetch_rows": K.fetch_rows.launches,
+        launches = {"descend": K.descend.launches,
                     "commit_edges": K.commit_edges.launches}
+        st = mcts.STATS
         check(all(v > 0 for v in launches.values()),
               f"the trainer's self-play did not launch both kernels: "
               f"{launches}")
+        check(launches["descend"] == launches["commit_edges"]
+              == st.simulations == st.host_syncs
+              and K.fetch_rows.launches == 0,
+              f"{launches}, {K.fetch_rows.launches} fetch_rows launches "
+              f"and {st.host_syncs} host syncs for {st.simulations} "
+              f"simulations: a descent is one launch and one sync, a "
+              f"backprop one launch")
+        search_stats = {
+            "simulations": st.simulations,
+            "levels_per_sim": st.levels / st.simulations,
+            "host_syncs_per_sim": st.host_syncs / st.simulations,
+            "mean_edge_depth": float(st.depth_sum) / (st.simulations
+                                                      * TRAIN_LANES)}
         steps = []
         for i, m in enumerate(metrics):
             check(m["iteration"] == i + 1 and m["examples_new"] > 0,
@@ -928,7 +1171,7 @@ def phase_trainer(dev, card):
             "max_memory_allocated_gb": (
                 torch.cuda.max_memory_allocated() / 1e9
                 if dev.type == "cuda" else None),
-            "launches": launches, "card": card}
+            "launches": launches, "search": search_stats, "card": card}
         print("trainer " + json.dumps(out), flush=True)
     return launches
 
@@ -964,7 +1207,7 @@ def main(argv=None) -> int:
     net = phase_network(dev)
     launches = {}
     if want("kernels"):
-        err, times, bounds = phase_kernels(dev)
+        err, times, bounds, kernel_launches = phase_kernels(dev)
     if want("tower"):
         tower_err, tower_t, tower_bound = phase_tower(dev, net)
     if want("search"):
@@ -979,18 +1222,24 @@ def main(argv=None) -> int:
         trainer_launches = phase_trainer(dev, card)
 
     if not only:
-        check(all(v > 0 for v in launches.values())
+        # "launches" are the main path's own; fetch_rows is launched by the
+        # plain descent that phase 1 holds descend against ("check_launches")
+        # and nowhere on the search path
+        on_path = ("descend", "commit_edges", "tower_forward")
+        check(all(launches[k] > 0 for k in on_path)
               and all(v > 0 for v in trainer_launches.values()),
               f"a kernel was not launched: {launches}, {trainer_launches}")
         src = "alphazero_torch/csrc/tree_kernels.cu"
-        replaces = {"fetch_rows": "alphazero_tpu/search/kernels.py:50",
+        replaces = {"descend": "alphazero_tpu/search/kernels.py:50",
+                    "fetch_rows": "alphazero_tpu/search/kernels.py:50",
                     "commit_edges": "alphazero_tpu/search/kernels.py:127"}
         kernels = [{
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": err[name], **times[name],
             "bound_ms": bounds[name], "bound_by": "bytes",
-        } for name in ("fetch_rows", "commit_edges")]
+        } for name in ("descend", "fetch_rows", "commit_edges")]
+        kernels[1]["check_launches"] = kernel_launches["fetch_rows"]
         kernels.append({
             "name": "tower_forward", "route": "cuda",
             "source": "alphazero_torch/csrc/tower_kernel.cu",
