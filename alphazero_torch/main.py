@@ -1,0 +1,111 @@
+"""CLI of the PyTorch port: train | arena.
+
+    python -m alphazero_torch train     # restartable self-play training loop
+    python -m alphazero_torch arena     # continuous ELO matchmaking daemon
+
+The flags of the JAX package's ``main.py`` that mean something here; on
+the card by default, on the CPU with ``--cpu``. ``web`` is not ported yet.
+``--scan-blocks``, ``--distributed`` and ``--debug-nans`` belong to JAX
+and are not offered.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from alphazero_torch.config import Config
+
+
+def add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--blocks", type=int, default=None)
+    p.add_argument("--filters", type=int, default=None)
+    p.add_argument("--sims", type=int, default=None)
+    p.add_argument("--games", type=int, default=None)
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (the kernels' plain versions)")
+    p.add_argument("--profile", nargs="?", const="profile", default=None,
+                   metavar="DIR",
+                   help="write one torch.profiler trace per phase "
+                        "(selfplay, learn) into DIR")
+    p.add_argument("--value-dtype", default=None,
+                   choices=["float32", "float16"],
+                   help="dtype of the search tree rows; the CUDA tree "
+                        "kernels take float32 only (float16 is for CPU "
+                        "numerics tests)")
+    p.add_argument("--selfplay-quant", default=None,
+                   choices=["off", "dynamic", "static"],
+                   help="int8 self-play evaluator (static: scales "
+                        "calibrated on replay positions); learning stays "
+                        "float32")
+    p.add_argument("--host-replay", action="store_true",
+                   help="stream learn batches from the host instead of "
+                        "the device-resident replay window")
+    p.add_argument("--seed", type=int, default=0)
+
+
+def build_config(args) -> Config:
+    over = {}
+    if args.blocks is not None:
+        over["num_blocks"] = args.blocks
+    if args.filters is not None:
+        over["num_filters"] = args.filters
+    if args.sims is not None:
+        over["num_simulations"] = args.sims
+        over["num_simulations_inference"] = max(1, args.sims // 2)
+    if args.games is not None:
+        over["parallel_games"] = args.games
+    if getattr(args, "selfplay_batches", None) is not None:
+        over["selfplay_batches"] = args.selfplay_batches
+    if getattr(args, "buffer", None) is not None:
+        over["buffer_size"] = args.buffer
+    if args.value_dtype is not None:
+        over["value_dtype"] = args.value_dtype
+    if args.host_replay:
+        over["device_replay"] = False
+    if args.selfplay_quant is not None:
+        over["selfplay_quant"] = args.selfplay_quant
+    return Config(checkpoint_dir=args.checkpoint_dir, **over)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        prog="python -m alphazero_torch",
+        description="AlphaZero for Breakthrough on PyTorch/CUDA")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p_train = sub.add_parser("train", help="run the training loop")
+    add_common(p_train)
+    p_train.add_argument("--iterations", type=int, default=None,
+                         help="stop after N iterations (default: forever)")
+    p_train.add_argument("--selfplay-batches", type=int, default=None,
+                         help="self-play rounds per iteration (games/iter "
+                              "= batches x games)")
+    p_train.add_argument("--buffer", type=int, default=None,
+                         help="replay buffer capacity")
+
+    p_arena = sub.add_parser("arena", help="continuous ELO matchmaking")
+    add_common(p_arena)
+    p_arena.add_argument("--rounds", type=int, default=None)
+
+    args = parser.parse_args(argv)
+    device = "cpu" if args.cpu else "cuda"
+    cfg = build_config(args)
+
+    from alphazero_torch.utils import setup_logging
+
+    log = setup_logging()
+    if args.command == "train":
+        from alphazero_torch.models.network import count_params
+        from alphazero_torch.train import Trainer
+
+        trainer = Trainer(cfg, seed=args.seed, device=device)
+        trainer.profile_dir = args.profile
+        log.info("model: %d blocks x %d filters, %s params on %s",
+                 cfg.num_blocks, cfg.num_filters,
+                 f"{count_params(trainer.net):,}", trainer.device)
+        trainer.train_forever(max_iterations=args.iterations)
+    elif args.command == "arena":
+        from alphazero_torch.arena import run_arena
+
+        run_arena(cfg, max_rounds=args.rounds, seed=args.seed, device=device)

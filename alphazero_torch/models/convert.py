@@ -129,6 +129,35 @@ def config_from_archive(path: str) -> Config:
                   se_ratio=arch.get("se_ratio", 8))
 
 
+def quant_params_from_numpy(tree, device="cuda"):
+    """The JAX package's QuantParams (``alphazero_tpu.models.quant.
+    quantize_network``'s output with every leaf a numpy array: ``qk`` HWIO
+    int8, per-channel ``scale`` and ``bias``, the folded policy and value
+    convs as (HWIO kernel, bias), SE and FC params as {"kernel" (in, out),
+    "bias"}) -> the port's (``alphazero_torch.models.quant``): the same
+    structure as torch tensors on ``device``, each s8 conv with its weights
+    in the kernel's layout added. The dense kernels keep their (h, w, c)
+    input order: the port's int8 forward flattens NHWC as the JAX one
+    does. So both packages run on the same int8 weights."""
+    from alphazero_torch.models.quant import qconv_entry
+
+    dev = resolve_device(device)
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return {k: leaves(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(leaves(v) for v in t)
+        return torch.from_numpy(np.array(t)).to(dev)
+
+    qp = leaves(tree)
+    qp["input"] = qconv_entry(**qp["input"])
+    for b in qp["blocks"]:
+        b["conv1"] = qconv_entry(**b["conv1"])
+        b["conv2"] = qconv_entry(**b["conv2"])
+    return qp
+
+
 def load_archive(path: str, device="cuda") -> AlphaZeroNet:
     """The archived net (float32, eval mode) on ``device``."""
     dev = resolve_device(device)

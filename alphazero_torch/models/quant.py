@@ -1,0 +1,385 @@
+"""Post-training int8 inference path for the SE-ResNet.
+
+Port of ``alphazero_tpu/models/quant.py``, with its public names and its
+scheme:
+
+- BatchNorm folded into the conv before it (``_fold``);
+- conv weights symmetric per output channel in int8, scale = amax/127
+  (``_quant_weight``);
+- activations symmetric per tensor in int8: DYNAMIC by default (the scale
+  from the live batch's amax, a device scalar: the host never reads it),
+  or STATIC from ``calibrate`` (one device tensor of 2N+1 scales per
+  evaluator);
+- the input conv and the 2N tower 3x3 convs in s8 x s8 -> s32, each ONE
+  launch of the hand-written kernel in ``csrc/qconv_kernel.cu``
+  (``qconv3x3``: quantise on load, exact s32 sums, dequantise, bias and
+  ReLU); everything else in ``dtype`` (bf16 by default): SE, residual
+  adds, the policy 3x3 conv, the value 1x1 conv (``F.conv2d``, as the JAX
+  package left them to XLA) and the dense heads; logits in float32.
+
+Activations are NHWC, as in the JAX package, so the dense heads take the
+JAX package's (h, w, c)-ordered kernels unchanged. ``QuantParams`` has the
+JAX package's structure (``qk`` HWIO int8, ``scale``, ``bias``, the folded
+float convs as (HWIO kernel, bias), SE and FC params as {"kernel" (in,
+out), "bias"}), with torch tensors, plus each s8 conv's weights in the
+kernel's layout under ``"wk"``; ``models/convert.quant_params_from_numpy``
+carries the JAX package's QuantParams across.
+
+``qconv3x3`` launches its kernel on a CUDA tensor or raises; on a CPU
+tensor it runs ``qconv_plain``, which rounds as the kernel does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from alphazero_torch.cuda_build import load_library
+from alphazero_torch.models import fused
+from alphazero_torch.models.network import AlphaZeroNet, wl_to_value
+
+_LIB = "qconv_kernel"
+_KP = 32                        # the kernel's k-step: cin is padded to it
+_MAX_K = 128
+_MAX_COUT = 128
+
+
+# -----------------------------------------------------------------------------
+# Folding and weight quantisation
+# -----------------------------------------------------------------------------
+
+def _fold(kernel: torch.Tensor, bn_p: Dict[str, torch.Tensor],
+          bn_s: Dict[str, torch.Tensor], eps: float = 1e-5
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold an inference-mode BatchNorm into the HWIO conv kernel before
+    it: (kernel * inv, beta - mean * inv), inv = gamma / sqrt(var + eps)."""
+    inv = bn_p["scale"] / torch.sqrt(bn_s["var"] + eps)
+    return kernel * inv, bn_p["bias"] - bn_s["mean"] * inv
+
+
+def _quant_weight(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 of an HWIO kernel: (qk, scale)."""
+    amax = kernel.abs().amax(dim=(0, 1, 2))
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.clamp(torch.round(kernel / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def kernel_weights(qk: torch.Tensor) -> torch.Tensor:
+    """HWIO int8 (3, 3, cin, cout) -> the kernel's (9, cout, kp) int8, tap
+    = ky*3 + kx, input channels padded with zeros to kp, a multiple of
+    32."""
+    H, W, cin, cout = qk.shape
+    kp = -(-cin // _KP) * _KP
+    wk = torch.zeros((H * W, cout, kp), dtype=torch.int8, device=qk.device)
+    wk[:, :, :cin] = qk.reshape(H * W, cin, cout).transpose(1, 2)
+    return wk
+
+
+def qconv_entry(qk: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One s8 conv of a QuantParams: the JAX package's entry plus its
+    weights in the kernel's layout."""
+    return {"qk": qk, "scale": scale, "bias": bias, "wk": kernel_weights(qk)}
+
+
+# -----------------------------------------------------------------------------
+# The s8 conv: plain version and kernel
+# -----------------------------------------------------------------------------
+
+def qconv_plain(x: torch.Tensor, xs: torch.Tensor, entry, relu: bool = False,
+                out_dtype: torch.dtype = torch.bfloat16,
+                sums: bool = False):
+    """What ``qconv3x3`` computes, in plain PyTorch. ``x`` is (B, 8, 8, cin),
+    any strides; returns (B, 8, 8, cout) contiguous in ``out_dtype``, and
+    with ``sums`` also the int32 sums. The sums come from ``F.conv2d`` in
+    float64 on the int8 values: exact, since |sum| <= 9*128*127^2 < 2^53
+    (float32 is not: 2^24 is smaller)."""
+    xq = torch.clamp(torch.round(x.float() / xs), -127, 127)
+    acc = F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                   entry["qk"].permute(3, 2, 0, 1).double(), padding=1)
+    acc = acc.to(torch.int32).permute(0, 2, 3, 1)
+    out = (acc.float() * (xs * entry["scale"]) + entry["bias"]).to(out_dtype)
+    if relu:
+        out = torch.relu(out)
+    out = out.contiguous()
+    return (out, acc.contiguous()) if sums else out
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library(_LIB)
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.qconv3x3_s8.argtypes = [p, i, ll, ll, ll, ll, p, p, p, p, p, i,
+                                    p, i, i, i, i, p]
+        lib.qconv3x3_s8.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def qconv3x3(x: torch.Tensor, xs: torch.Tensor, entry, relu: bool = False,
+             out_dtype: torch.dtype = torch.bfloat16, sums: bool = False):
+    """s8 x s8 -> s32 3x3 SAME conv of ``x`` (B, 8, 8, cin), float32 or
+    bfloat16 with any strides (NCHW planes are read in place through a
+    permuted view), quantised on load with the device scalar ``xs``;
+    dequantised with ``entry``'s weight scales and bias, ReLU if asked.
+    Returns (B, 8, 8, cout) in ``out_dtype`` (bf16 or f32), and with
+    ``sums`` the int32 sums too. On a CUDA tensor one launch of
+    ``qconv3x3_kernel`` (cin <= 128, cout <= 128 and a multiple of 8);
+    on a CPU tensor ``qconv_plain``."""
+    if x.dim() != 4 or tuple(x.shape[1:3]) != (8, 8) \
+            or x.shape[3] != entry["qk"].shape[2]:
+        raise ValueError(f"qconv3x3 takes (B, 8, 8, {entry['qk'].shape[2]}) "
+                         f"activations, got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"qconv3x3 reads float32 or bfloat16 and writes "
+                        f"either, got {x.dtype} -> {out_dtype}")
+    if x.device.type == "cpu":
+        return qconv_plain(x, xs, entry, relu, out_dtype, sums)
+
+    wk, ws, bias = entry["wk"], entry["scale"], entry["bias"]
+    cin, cout = x.shape[3], wk.shape[1]
+    if wk.dtype != torch.int8 or wk.dim() != 3 or wk.shape[0] != 9 \
+            or wk.shape[2] != -(-cin // _KP) * _KP or wk.shape[2] > _MAX_K \
+            or cout > _MAX_COUT or cout % 8 or not wk.is_contiguous() \
+            or wk.data_ptr() % 16:
+        raise ValueError(f"the kernel takes (9, cout, kp) int8 weights with "
+                         f"cin <= kp <= {_MAX_K}, cout <= {_MAX_COUT} and a "
+                         f"multiple of 8, got {tuple(wk.shape)} {wk.dtype} "
+                         f"for cin {cin}")
+    for name, t, shape in (("xs", xs, None), ("scale", ws, (cout,)),
+                           ("bias", bias, (cout,))):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or (t.numel() != 1 if shape is None
+                    else tuple(t.shape) != shape):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{'scalar' if shape is None else shape}")
+    for t in (xs, wk, ws, bias):
+        if t.device != x.device:
+            raise ValueError(f"operand on {t.device}, activations on "
+                             f"{x.device}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"input on {x.device}, current CUDA device is "
+                         f"{torch.cuda.current_device()}")
+    if min(x.stride()) < 0:
+        raise ValueError("negative strides")
+    B = x.shape[0]
+    out = torch.empty((B, 8, 8, cout), dtype=out_dtype, device=x.device)
+    acc = (torch.empty((B, 8, 8, cout), dtype=torch.int32, device=x.device)
+           if sums else None)
+    rc = _lib().qconv3x3_s8(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), *x.stride(),
+        xs.data_ptr(), wk.data_ptr(), ws.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), int(out_dtype == torch.bfloat16),
+        acc.data_ptr() if sums else None, B, cin, cout, int(relu),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qconv3x3 kernel launch failed: CUDA error {rc}")
+    qconv3x3.launches += 1
+    return (out, acc) if sums else out
+
+
+qconv3x3.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# The quantised network
+# -----------------------------------------------------------------------------
+
+def _hwio(conv: torch.nn.Conv2d) -> torch.Tensor:
+    return conv.weight.detach().float().cpu().permute(2, 3, 1, 0)
+
+
+def _bn(bn: torch.nn.BatchNorm2d):
+    t = lambda v: v.detach().float().cpu()
+    return ({"scale": t(bn.weight), "bias": t(bn.bias)},
+            {"mean": t(bn.running_mean), "var": t(bn.running_var)})
+
+
+def _dense(fc: torch.nn.Linear, flattened: bool = False) -> Dict[str, Any]:
+    """{"kernel" (in, out), "bias"} of a dense layer; ``flattened``: its
+    input is a flattened map, put back in the JAX package's (h, w, c)
+    order."""
+    kernel = (torch.from_numpy(fused._hwc_dense(fc)) if flattened
+              else fc.weight.detach().float().cpu().T.contiguous())
+    return {"kernel": kernel, "bias": fc.bias.detach().float().cpu()}
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def quantize_network(net: AlphaZeroNet) -> Dict[str, Any]:
+    """Fold BN and quantise the net's weights into a QuantParams dict on
+    the net's device (folding and rounding run in float32 on the host)."""
+    def entry(conv, bn):
+        folded, bias = _fold(_hwio(conv), *_bn(bn))
+        return qconv_entry(*_quant_weight(folded), bias)
+
+    blocks = [{"conv1": entry(b.conv1, b.bn1), "conv2": entry(b.conv2, b.bn2),
+               "se": {"fc1": _dense(b.se.fc1), "fc2": _dense(b.se.fc2)}}
+              for b in net.blocks]
+    qp = {
+        "input": entry(net.input_conv, net.input_bn),
+        "blocks": blocks,
+        # the policy and value heads stay float, as in the JAX package
+        "policy": _fold(_hwio(net.policy_conv), *_bn(net.policy_bn)),
+        "policy_fc": _dense(net.policy_fc, flattened=True),
+        "value_conv": _fold(_hwio(net.value_conv), *_bn(net.value_bn)),
+        "value_fc1": _dense(net.value_fc1, flattened=True),
+        "value_fc2": _dense(net.value_fc2),
+    }
+    return _to(qp, next(net.parameters()).device)
+
+
+def scale_points(num_blocks: int) -> List[str]:
+    """The quantisation points in forward order: ``input``, ``b{i}c1``,
+    ``b{i}c2``."""
+    return ["input"] + [f"b{i}c{j}" for i in range(num_blocks)
+                        for j in (1, 2)]
+
+
+def _prepare(qp: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+    """The float weights cast to ``dtype`` once (the float convs OIHW), so
+    a forward converts nothing."""
+    dense = lambda p: (p["kernel"].to(dtype), p["bias"].to(dtype))
+    conv = lambda kb: (kb[0].permute(3, 2, 0, 1).to(dtype).contiguous(),
+                       kb[1].to(dtype)[:, None, None])
+    return {
+        "dtype": dtype, "input": qp["input"],
+        "blocks": [(b["conv1"], b["conv2"], dense(b["se"]["fc1"]),
+                    dense(b["se"]["fc2"])) for b in qp["blocks"]],
+        "policy": conv(qp["policy"]), "policy_fc": dense(qp["policy_fc"]),
+        "value_conv": conv(qp["value_conv"]),
+        "value_fc1": dense(qp["value_fc1"]),
+        "value_fc2": dense(qp["value_fc2"]),
+    }
+
+
+def _amax(x: torch.Tensor) -> torch.Tensor:
+    return x.abs().amax().float()
+
+
+def _qconv(x: torch.Tensor, e: Dict[str, torch.Tensor], dtype: torch.dtype,
+           xs: torch.Tensor | None = None, relu: bool = False
+           ) -> torch.Tensor:
+    """s8 conv of ``x`` with input scale ``xs``: None computes it from the
+    live batch on the device, max(amax(|x|), 1e-6) / 127."""
+    if xs is None:
+        xs = torch.clamp_min(_amax(x), 1e-6) / 127.0
+    return qconv3x3(x, xs, e, relu=relu, out_dtype=dtype)
+
+
+def _se(x: torch.Tensor, fc1, fc2) -> torch.Tensor:
+    """LC0 scale-and-shift SE on NHWC ``x``, in its dtype."""
+    h = torch.relu(x.mean(dim=(1, 2)) @ fc1[0] + fc1[1])
+    h = h @ fc2[0] + fc2[1]
+    gate, bias = h.chunk(2, dim=-1)
+    return x * torch.sigmoid(gate)[:, None, None, :] + bias[:, None, None, :]
+
+
+def _float_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=w.shape[-1] // 2)
+    return torch.relu(y + b).permute(0, 2, 3, 1)
+
+
+def _forward(prep: Dict[str, Any], planes: torch.Tensor,
+             scales: torch.Tensor | None = None,
+             collect: list | None = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    dtype = prep["dtype"]
+
+    def xs(x, i, key):
+        if collect is not None:
+            collect.append((key, _amax(x)))
+        return None if scales is None else scales[i]
+
+    x = planes.permute(0, 2, 3, 1)                     # NHWC view, no copy
+    x = _qconv(x, prep["input"], dtype, xs(x, 0, "input"), relu=True)
+    for i, (c1, c2, fc1, fc2) in enumerate(prep["blocks"]):
+        y = _qconv(x, c1, dtype, xs(x, 2 * i + 1, f"b{i}c1"), relu=True)
+        y = _qconv(y, c2, dtype, xs(y, 2 * i + 2, f"b{i}c2"))
+        x = torch.relu(_se(y, fc1, fc2) + x)
+
+    B = x.shape[0]
+    p = _float_conv(x, *prep["policy"]).reshape(B, -1)
+    policy_logits = p @ prep["policy_fc"][0] + prep["policy_fc"][1]
+    v = _float_conv(x, *prep["value_conv"]).reshape(B, -1)
+    v = torch.relu(v @ prep["value_fc1"][0] + prep["value_fc1"][1])
+    wl_logits = v @ prep["value_fc2"][0] + prep["value_fc2"][1]
+    return policy_logits.float(), wl_logits.float()
+
+
+def _scale_vector(qp: Dict[str, Any], act_scales) -> torch.Tensor | None:
+    """``calibrate``'s {point: scale} as one float32 device tensor in
+    forward order."""
+    if act_scales is None:
+        return None
+    dev = qp["input"]["wk"].device
+    return torch.stack([torch.as_tensor(act_scales[k], dtype=torch.float32)
+                        .to(dev).reshape(())
+                        for k in scale_points(len(qp["blocks"]))])
+
+
+@torch.no_grad()
+def quant_apply(qp: Dict[str, Any], planes: torch.Tensor,
+                dtype: torch.dtype = torch.bfloat16,
+                act_scales: Dict[str, Any] | None = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 forward: (B, 3, 8, 8) planes -> (policy_logits, wl_logits),
+    float32. ``act_scales`` (from ``calibrate``) switches activation
+    quantisation from dynamic to static."""
+    return _forward(_prepare(qp, dtype), planes,
+                    _scale_vector(qp, act_scales))
+
+
+@torch.no_grad()
+def calibrate(qp: Dict[str, Any], planes_batches: List[torch.Tensor],
+              margin: float = 1.0) -> Dict[str, torch.Tensor]:
+    """Static per-tensor activation scales from calibration data.
+
+    Runs the dynamic int8 forward (in bf16, as the JAX package does) over
+    ``planes_batches`` recording each quantisation point's input amax;
+    returns {point: scale}, scale = margin * max(max over batches of amax,
+    1e-6) / 127, each a device scalar."""
+    prep = _prepare(qp, torch.bfloat16)
+    dev = qp["input"]["wk"].device
+    maxes: Dict[str, torch.Tensor] = {}
+    for planes in planes_batches:
+        rec: list = []
+        _forward(prep, torch.as_tensor(planes).to(dev), None, rec)
+        for k, v in rec:
+            maxes[k] = torch.maximum(maxes[k], v) if k in maxes else v
+    return {k: margin * torch.clamp_min(v, 1e-6) / 127.0
+            for k, v in maxes.items()}
+
+
+def make_quant_evaluator(net: AlphaZeroNet | None,
+                         dtype: torch.dtype = torch.bfloat16,
+                         act_scales: Dict[str, Any] | None = None,
+                         qp: Dict[str, Any] | None = None):
+    """Search evaluator (the contract of ``search.make_net_evaluator``)
+    over the int8-quantised net: eval_fn(planes) -> (policy_probs, value),
+    float32. Pass a precomputed ``qp`` to skip folding and quantising
+    again. The float weights are cast and the static scales stacked once,
+    here."""
+    if qp is None:
+        qp = quantize_network(net)
+    prep = _prepare(qp, dtype)
+    scales = _scale_vector(qp, act_scales)
+
+    @torch.no_grad()
+    def eval_fn(planes: torch.Tensor):
+        policy_logits, wl_logits = _forward(prep, planes, scales)
+        return torch.softmax(policy_logits, dim=-1), wl_to_value(wl_logits)
+
+    return eval_fn

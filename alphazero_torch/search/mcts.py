@@ -243,10 +243,11 @@ def _descend(rows: torch.Tensor, root_state: env.EnvState,
 
 
 def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec,
-                   out=None):
+                   out=None, eval_ctx=None):
     """One simulation for every game; updates ``tree`` in place. Returns
     its descent's results, which the next simulation takes as ``out`` and
-    overwrites (``_descend``)."""
+    overwrites (``_descend``). ``eval_ctx``, if given, is passed to
+    ``eval_fn`` as its second argument."""
     B = tree.root_visit.shape[0]
     A = spec.num_actions
     vdt = spec.value_dtype
@@ -266,7 +267,8 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec,
     # (2) one batched network evaluation
     with record_function("mcts.evaluate"):
         planes = env.encoded_state(leaf_state)
-        policy, value = eval_fn(planes)
+        policy, value = (eval_fn(planes) if eval_ctx is None
+                         else eval_fn(planes, eval_ctx))
         is_term = leaf_state.done
         value = torch.where(
             is_term, env.terminal_value_for_player_to_move(leaf_state),
@@ -348,6 +350,7 @@ def search(
     add_noise: bool = False,
     tree: Tree | None = None,
     root_noise: torch.Tensor | None = None,
+    eval_ctx=None,
 ) -> Tree:
     """Run ``spec.num_simulations`` simulations for a batch of games.
 
@@ -356,6 +359,8 @@ def search(
     into the root priors; ``root_noise`` (B, A) overrides the draw
     (tests). Passing an existing ``tree`` (rooted at ``root_states``)
     continues it; it must have capacity for the total simulation count.
+    ``eval_ctx`` (e.g. the arena's per-game "player A to move" flags) is
+    passed to every ``eval_fn`` call as ``eval_fn(planes, eval_ctx)``.
     The tree is updated in place and returned.
     """
     if tree is None:
@@ -369,7 +374,8 @@ def search(
 
     # Root expansion (does not count a visit).
     root_planes = env.encoded_state(tree.root_state)
-    policy, _ = eval_fn(root_planes)
+    policy, _ = (eval_fn(root_planes) if eval_ctx is None
+                 else eval_fn(root_planes, eval_ctx))
     legal = env.legal_action_mask(tree.root_state)
     root_flat = _root_flat(tree)
     root_child = root_flat[:, :A]
@@ -395,7 +401,7 @@ def search(
     # simulation's node and action, so still in range.
     out = None
     for _ in range(spec.num_simulations):
-        out = _simulate_once(tree, eval_fn, spec, out)
+        out = _simulate_once(tree, eval_fn, spec, out, eval_ctx)
     return tree
 
 

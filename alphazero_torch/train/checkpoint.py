@@ -89,6 +89,16 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     return state
 
 
+def load_net_weights(path: str, net: torch.nn.Module) -> torch.nn.Module:
+    """Load only the net's weights of checkpoint ``path`` into ``net``
+    (which must have the checkpoint's architecture) and return it."""
+    device = next(net.parameters()).device
+    payload = torch.load(os.path.join(os.path.abspath(path), _PAYLOAD),
+                         map_location=device, weights_only=True)
+    net.load_state_dict(payload["net"])
+    return net
+
+
 def get_latest_iteration(cfg: Config) -> int:
     """Highest iteration number among checkpoints, 0 if none."""
     best = 0

@@ -52,11 +52,9 @@ class Trainer:
     def __init__(self, cfg: Config, seed: int = 0,
                  net: Optional[AlphaZeroNet] = None,
                  state: Optional[TrainState] = None, device="cuda"):
-        if cfg.selfplay_quant != "off":
-            raise NotImplementedError(
-                f"selfplay_quant={cfg.selfplay_quant!r}: the int8 self-play "
-                "evaluator is not ported yet (ROADMAP.md queue 1 item 7); "
-                "the trainer will not quietly play with the bf16 net")
+        if cfg.selfplay_quant not in ("off", "dynamic", "static"):
+            raise ValueError(f"selfplay_quant={cfg.selfplay_quant!r}: "
+                             "expected 'off', 'dynamic' or 'static'")
         self.cfg = cfg
         self.device = resolve_device(device)
         if state is None:
@@ -94,12 +92,35 @@ class Trainer:
         return contextlib.nullcontext()
 
     # -- self-play ---------------------------------------------------------
+    # calibration draw of the static int8 evaluator: a fixed number of
+    # rows WITH replacement, in batches of a fixed size, as the JAX package
+    # draws them (the same np_rng stream, in the same order)
+    _CALIBRATION_ROWS = 4096
+    _CALIBRATION_BATCH = 1024
+
     def _selfplay_evaluator(self):
-        """The search evaluator for self-play: a copy of the float32
-        training net in ``cfg.inference_dtype`` (bf16 by default), in eval
-        mode, made anew from the current weights at every call."""
-        return make_net_evaluator(self.net,
-                                  getattr(torch, self.cfg.inference_dtype))
+        """The search evaluator for self-play, made anew from the current
+        weights at every call: with ``cfg.selfplay_quant`` "off" a copy of
+        the float32 training net in ``cfg.inference_dtype`` (bf16 by
+        default); "dynamic" or "static" the int8 net (``models/quant.py``).
+        Static scales are calibrated on replay positions; with an empty
+        buffer the scales stay dynamic, as in the JAX package."""
+        if self.cfg.selfplay_quant == "off":
+            return make_net_evaluator(self.net,
+                                      getattr(torch, self.cfg.inference_dtype))
+        from alphazero_torch.models import quant
+
+        qp = quant.quantize_network(self.net)
+        act_scales = None
+        if self.cfg.selfplay_quant == "static" and len(self.buffer) > 0:
+            n, bs = self._CALIBRATION_ROWS, self._CALIBRATION_BATCH
+            idx = self.np_rng.integers(0, len(self.buffer), size=n)
+            planes = torch.from_numpy(
+                self.buffer.states[idx].astype(np.float32)).to(self.device)
+            act_scales = quant.calibrate(
+                qp, [planes[i:i + bs] for i in range(0, n, bs)])
+        return quant.make_quant_evaluator(self.net, act_scales=act_scales,
+                                          qp=qp)
 
     def execute_selfplay(self, num_games: Optional[int] = None):
         eval_fn = self._selfplay_evaluator()

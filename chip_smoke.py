@@ -28,9 +28,28 @@ exiting non-zero:
 - phase 5: continuous self-play (128 lanes x 16 simulations);
 - phase 7: the fused path at full width (512 positions, 800 evaluations
   in a row) beside the layer-by-layer bf16 net;
-- phase 8: the trainer at full width (20x128 net, 128 lanes x 64
+- phase 8: the trainer at full width (20x128 net, 128 lanes x 32
   simulations, batch 1024): two ``run_iteration``s in a temporary
-  directory, then a second trainer that resumes from disk.
+  directory, then a second trainer that resumes from disk, then one more
+  iteration of the first with the int8-static self-play evaluator
+  (``selfplay_quant="static"``, calibrated on the replay buffer; 16
+  simulations, a reduced depth);
+- phase 9: the s8 conv kernel (``qconv3x3``, ``csrc/qconv_kernel.cu``)
+  against ``qconv_plain`` on every conv of the archived net at 512
+  positions, with static and dynamic scales, ReLU on and off (the input
+  conv reads the float32 planes, cin 3): sums and outputs bit-equal; its
+  times beside its bound and cuDNN's bf16 conv of the same shape;
+- phase 10: the int8-static evaluator (scales calibrated on positions from
+  ``random_positions``) through ``selfplay_move`` at 512 games x 800
+  simulations beside the bf16 evaluator: a warm-up move with each, then
+  timed moves in turns (int8, bf16, bf16, int8); launches per forward,
+  the evaluate span; the
+  card's int8 forward against the CPU's plain one and against the f32 net;
+- phase 11: the arena, ``play_paired_matches`` with int8 static against
+  bf16 on the archived weights, 16 openings x 2 games at 32 simulations (a
+  reduced depth), until every game ends;
+- phase 12: ``python3 -m alphazero_torch.bench`` at 128 games x 64
+  simulations (a reduced size): stdout is exactly one JSON line.
 
 The second-to-last lines are the ``kernels`` JSON object and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -57,13 +76,29 @@ OFFSETS = (0, 2 * A, 3 * A)
 GAMES, SIMS = 512, 800             # the main path's width
 CPU_GAMES, CPU_SIMS = 32, 64
 CONT_LANES, CONT_SIMS, CONT_GAMES = 128, 16, 128
+STATIC_TRAIN_SIMS = 16             # phase 8's int8-static iteration
+ARENA_OPENINGS, ARENA_SIMS = 16, 32
+BENCH_ENV = {"AZTPU_BENCH_GAMES": "128", "AZTPU_BENCH_SIMS": "64",
+             "AZTPU_BENCH_REPS": "1"}
+INT8_OPS_PER_S = 1979e12           # H100 SXM data sheet, dense int8
 TOWER_BLOCKS = 20
-TRAIN_LANES, TRAIN_SIMS, TRAIN_BATCH = 128, 64, 1024
+TRAIN_LANES, TRAIN_SIMS, TRAIN_BATCH = 128, 32, 1024
 FUSED_EVALS = 800
 # bf16 forward of the archived net against its f32 forward: max difference
 # in a logit, a probability and the value. The JAX package's own bf16
 # inference stays within half of each (tests/test_torch_network.py).
 BF16_LIMITS = (0.6, 0.1, 0.12)
+# the int8 forward on the card against the same forward on the CPU (plain
+# s8 convs; bf16 SE, heads and residuals in another summation order): max
+# difference in a logit, a probability and the value
+INT8_LIMITS = (0.6, 0.1, 0.12)
+# the int8-static forward against the f32 net on random-play positions:
+# mean policy TV, argmax agreement, value MAE. On such positions the JAX
+# package's own int8-static forward of the archived net is at TV 0.031,
+# agreement 0.92, value MAE 0.055 on the CPU, the port's at 0.033, 0.93,
+# 0.060 (scripts/int8_accuracy_torch_vs_jax.py); on replay positions both
+# are nearer 0.015 (docs/quant-int8.md)
+INT8_VS_F32 = (0.045, 0.88, 0.08)
 
 
 class SmokeFailure(RuntimeError):
@@ -631,7 +666,7 @@ def phase_search(dev, net, card):
 STAGES = ("mcts.descend", "mcts.evaluate", "mcts.expand", "mcts.backprop")
 
 
-def profile_search(states, eval_fn, sims=16):
+def profile_search(states, eval_fn, sims=16, tag=None):
     """One ``sims``-simulation search under ``torch.profiler``: wall time,
     device busy time (the sum of the kernels' own times; one stream, so
     they do not overlap), host and device time per simulation stage (the
@@ -639,7 +674,9 @@ def profile_search(states, eval_fn, sims=16):
     and the host time spent blocked in them (``aten::_local_scalar_dense``,
     the device-to-host read behind every ``bool()``/``int()`` of a CUDA
     tensor), and the kernels that took most device time. The whole table goes to
-    ``chiprun_out/chip_smoke_profile_<games>.txt``."""
+    ``chiprun_out/chip_smoke_profile_<tag or games>.txt``. Returns the
+    wall and busy seconds and the stages' host and device ms per
+    simulation."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -674,7 +711,7 @@ def profile_search(states, eval_fn, sims=16):
     sync_ms = sum(e.cpu_time_total for e in syncs) / 1e3 / sims
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out",
-                           f"chip_smoke_profile_{B}.txt"), "w") as f:
+                           f"chip_smoke_profile_{tag or B}.txt"), "w") as f:
         f.write(f"one search, {B} games x {sims} sims: wall {wall:.4f} s, "
                 f"device busy {busy:.4f} s\n")
         f.write(f"host syncs: {n_sync:.3f} per sim, host blocked in them "
@@ -689,11 +726,14 @@ def profile_search(states, eval_fn, sims=16):
                     for us, k, c in kern[:5])
     split = ", ".join(f"{k[5:]} {h:.2f}/{d:.2f}"
                       for k, (h, d) in stage.items())
-    print(f"profile {B} games x {sims} sims: wall {wall * 1e3:.1f} ms, "
+    print(f"profile {tag or ''} {B} games x {sims} sims: wall "
+          f"{wall * 1e3:.1f} ms, "
           f"device busy {busy * 1e3:.1f} ms (idle share "
           f"{1 - busy / wall:.3f}); per sim host/device-span ms: {split}; "
           f"host syncs per sim {n_sync:.3f}, host blocked in them "
           f"{sync_ms:.3f} ms/sim; top kernels: {top}", flush=True)
+    return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
+            "stages_host_device_ms_per_sim": stage}
 
 
 # -----------------------------------------------------------------------------
@@ -1173,13 +1213,332 @@ def phase_trainer(dev, card):
                 if dev.type == "cuda" else None),
             "launches": launches, "search": search_stats, "card": card}
         print("trainer " + json.dumps(out), flush=True)
+
+        # one more iteration of the first trainer with the int8-static
+        # self-play evaluator: its calibration draws from the replay
+        # buffer the first two iterations filled
+        from alphazero_torch.models import quant
+
+        tr.cfg = tr.cfg.replace(selfplay_quant="static",
+                                num_simulations=STATIC_TRAIN_SIMS)
+        quant.qconv3x3.launches = 0
+        K.descend.launches = 0
+        mcts.STATS.reset()
+        m = tr.run_iteration()
+        n_conv = 2 * cfg.num_blocks + 1
+        check(m["iteration"] == 3 and m["examples_new"] > 0
+              and all(np.isfinite(m[k]) for k in ("loss", "loss_pi",
+                                                  "loss_wl")),
+              f"int8-static iteration: {m}")
+        # every simulation and every search's root expansion is one
+        # forward of n_conv s8 convs; calibration adds four more forwards
+        searches = mcts.STATS.simulations // STATIC_TRAIN_SIMS
+        check(quant.qconv3x3.launches == n_conv * (
+            mcts.STATS.simulations + searches + 4)
+              and K.descend.launches == mcts.STATS.simulations > 0,
+              f"int8-static iteration: {quant.qconv3x3.launches} qconv3x3 "
+              f"launches for {mcts.STATS.simulations} simulations")
+        print("trainer int8-static iteration " + json.dumps({
+            "lanes": TRAIN_LANES, "sims": STATIC_TRAIN_SIMS,
+            "qconv3x3_launches": quant.qconv3x3.launches,
+            **{k: m[k] for k in ("loss", "examples_new", "buffer",
+                                 "selfplay_seconds", "learn_seconds",
+                                 "sims_per_sec", "games_per_hour")},
+            "card": card}), flush=True)
     return launches
+
+
+# -----------------------------------------------------------------------------
+# Phase 9: the s8 conv kernel against its plain version, and its times
+# -----------------------------------------------------------------------------
+
+def qconv_bound_ms(positions, cin, cout, in_bytes, out_bytes):
+    """The least time the card could take for one ``qconv3x3``: its bytes
+    (activations in and out once, the int8 weights, scales and biases) at
+    the memory rate, or its int8 operations (two per multiply-add) at the
+    dense int8 rate, whichever is larger."""
+    nbytes = (positions * 64 * (cin * in_bytes + cout * out_bytes)
+              + 9 * cin * cout + 8 * cout + 4)
+    ops = 2 * positions * 64 * 9 * cin * cout
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT8_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations"), nbytes, ops
+
+
+def calibration_planes(dev, n=2, seed=51):
+    """``n`` batches of 512 positions from ``random_positions``."""
+    from alphazero_torch.env import breakthrough as env
+
+    return [env.encoded_state(random_positions(GAMES, seed + i)).to(dev)
+            for i in range(n)]
+
+
+@phase("phase 9 qconv kernel")
+def phase_qconv(dev, net):
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import quant
+
+    qp = quant.quantize_network(net)
+    act = quant.calibrate(qp, calibration_planes(dev))
+    planes = env.encoded_state(random_positions(GAMES, 61)).to(dev)
+    # the inputs every conv of the archived net sees in one static forward
+    calls, real = [], quant._qconv
+
+    def record(x, e, dtype, xs=None, relu=False):
+        calls.append((x, xs, e, relu))
+        return real(x, e, dtype, xs, relu)
+
+    quant._qconv = record
+    try:
+        quant.make_quant_evaluator(net, act_scales=act, qp=qp)(planes)
+    finally:
+        quant._qconv = real
+    n_conv = 2 * len(qp["blocks"]) + 1
+    check(len(calls) == n_conv, f"{len(calls)} s8 convs in a forward")
+    compared, differing, err = 0, 0, 0.0
+    for x, xs_static, entry, _ in calls:
+        xs_dyn = torch.clamp_min(x.float().abs().amax(), 1e-6) / 127.0
+        for xs in (xs_static, xs_dyn):
+            for relu in (False, True):
+                got, gsum = quant.qconv3x3(x, xs, entry, relu, sums=True)
+                want, wsum = quant.qconv_plain(x, xs, entry, relu, sums=True)
+                torch.cuda.synchronize()
+                err = max(err, float((got.float() - want.float()).abs()
+                                     .max()))
+                differing += int((gsum != wsum).sum()) + int(
+                    (got != want).sum())
+                compared += 1
+    check(differing == 0, f"qconv3x3 differs from qconv_plain in "
+                          f"{differing} sums and outputs")
+    check(calls[0][0].dtype == torch.float32 and calls[0][0].shape[3] == 3
+          and calls[1][0].dtype == torch.bfloat16, "conv inputs' types")
+    print(f"qconv3x3 bit-equal to qconv_plain (s32 sums and outputs) on "
+          f"{compared} cases: {n_conv} convs of the archived net at {GAMES} "
+          f"positions x static/dynamic scales x ReLU off/on (cin 3: f32 "
+          f"NCHW planes read in place; cin 128: bf16 NHWC)", flush=True)
+
+    # times of a 128 -> 128 tower conv at the path's shape, and of the
+    # input conv; library: the same conv in bf16 through F.conv2d (cuDNN),
+    # channels-last, which the path never calls
+    x, xs, entry, _ = calls[3]
+    x_in, xs_in, entry_in, _ = calls[0]
+    w_bf = entry["qk"].permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+    x_cl = x.permute(0, 3, 1, 2)
+    library = lambda i: torch.nn.functional.conv2d(x_cl, w_bf, padding=1)
+    t = {"ms": cuda_ms(lambda i: quant.qconv3x3(x, xs, entry, True),
+                       what="qconv3x3"),
+         "call_ms": cuda_ms(lambda i: quant.qconv3x3(x, xs, entry, True),
+                            queued=False),
+         "plain_ms": cuda_ms(lambda i: quant.qconv_plain(x, xs, entry, True),
+                             iters=10, warmup=2, queued=False),
+         "library_ms": cuda_ms(library, what="cuDNN bf16 conv"),
+         "library_call_ms": cuda_ms(library, queued=False),
+         "input_conv_ms": cuda_ms(
+             lambda i: quant.qconv3x3(x_in, xs_in, entry_in, True),
+             what="qconv3x3 input conv")}
+    bound, bound_by, nbytes, ops = qconv_bound_ms(GAMES, 128, 128, 2, 2)
+    t["tops"] = ops / t["ms"] / 1e9
+    print(f"qconv3x3 at {GAMES} positions, 128 -> 128, bf16 in and out: "
+          f"{json.dumps(t)}; bound {bound:.7f} ms by {bound_by} ({nbytes} "
+          f"bytes, {ops:.4g} int8 operations); the input conv's bound "
+          f"{qconv_bound_ms(GAMES, 3, 128, 4, 2)[0]:.7f} ms", flush=True)
+    return err, t, (bound, bound_by), qp, act
+
+
+# -----------------------------------------------------------------------------
+# Phase 10: the int8-static evaluator on the main path
+# -----------------------------------------------------------------------------
+
+def launches_per_forward(eval_fn, planes):
+    """Device kernels one evaluation launches (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eval_fn(planes)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eval_fn(planes)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+@phase("phase 10 int8 search")
+def phase_quant_search(dev, net, card, qp, act):
+    from alphazero_torch.config import Config
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import quant
+    from alphazero_torch.models.network import wl_to_value
+    from alphazero_torch.search import kernels as K
+    from alphazero_torch.search import mcts
+    from alphazero_torch.train import selfplay
+
+    cfg = Config(num_simulations=SIMS, parallel_games=GAMES)
+    evals = {"int8": quant.make_quant_evaluator(net, act_scales=act, qp=qp),
+             "bf16": mcts.make_net_evaluator(net, torch.bfloat16)}
+    spec = selfplay.search_spec(cfg)
+    states = env.initial_state((GAMES,), device=dev)
+    # a warm-up move with each evaluator
+    for name, fn in evals.items():
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tree, _, probs, _, _ = selfplay._searched_move(
+            states, None, gen, fn, spec, cfg.temperature_threshold)
+        torch.cuda.synchronize()
+        check(bool((tree.root_visit == SIMS).all())
+              and bool((mcts.root_child_visits(tree).sum(-1) == SIMS).all()),
+              f"{name} search: root visits != sims")
+        check(bool(((probs.sum(-1) - 1).abs() < 1e-5).all()), "probs sum")
+        del tree
+        torch.cuda.empty_cache()
+
+    # the main path, counted, and timed in turns (int8, bf16, bf16, int8:
+    # the host's speed drifts within a call), each move from the same
+    # position and generator state
+    n_conv = 2 * len(qp["blocks"]) + 1
+    out = {"games": GAMES, "sims": SIMS, "card": card,
+           "int8_sims_per_s": [], "bf16_sims_per_s": []}
+    for name in ("int8", "bf16", "bf16", "int8"):
+        quant.qconv3x3.launches = 0
+        K.descend.launches = 0
+        K.commit_edges.launches = 0
+        mcts.STATS.reset()
+        gen = torch.Generator(device=dev).manual_seed(2)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        values = selfplay.selfplay_move(
+            states, gen, evals[name], spec, cfg.temperature_threshold)[4]
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        check(bool(torch.isfinite(values).all()), "root values not finite")
+        out[f"{name}_sims_per_s"].append(GAMES * SIMS / dt)
+        if name == "int8":
+            launches = {"qconv3x3": quant.qconv3x3.launches,
+                        "descend": K.descend.launches,
+                        "commit_edges": K.commit_edges.launches}
+            check(launches["qconv3x3"] == n_conv * (SIMS + 1)
+                  and launches["descend"] == launches["commit_edges"]
+                  == SIMS == mcts.STATS.host_syncs,
+                  f"int8 move: {launches}, {mcts.STATS.host_syncs} syncs")
+        else:
+            check(quant.qconv3x3.launches == 0, "bf16 move ran an s8 conv")
+    out["int8_over_bf16"] = (sum(out["int8_sims_per_s"])
+                             / sum(out["bf16_sims_per_s"]))
+    out["launches_per_move"] = launches
+    planes = env.encoded_state(random_positions(GAMES, 71)).to(dev)
+    out["launches_per_forward"] = {
+        name: launches_per_forward(fn, planes) for name, fn in evals.items()}
+    for name, fn in evals.items():
+        p = profile_search(states, fn, tag=f"{name}_{GAMES}")
+        out[f"{name}_evaluate_host_ms_per_sim"] = \
+            p["stages_host_device_ms_per_sim"]["mcts.evaluate"][0]
+        out[f"{name}_idle_share"] = p["idle_share"]
+    print("int8 search " + json.dumps(out), flush=True)
+
+    # the card's int8 forward against the CPU's plain one (same static
+    # scales) and against the f32 net, on 512 positions
+    net_cpu = copy.deepcopy(net).cpu()
+    qp_cpu = quant.quantize_network(net_cpu)
+    act_cpu = {k: v.cpu() for k, v in act.items()}
+    pl_g, wl_g = quant.quant_apply(qp, planes, act_scales=act)
+    pl_c, wl_c = quant.quant_apply(qp_cpu, planes.cpu(), act_scales=act_cpu)
+    with torch.no_grad():
+        pl_f, wl_f = net(planes)
+    pl_g, wl_g, pl_f, wl_f = (t.cpu() for t in (pl_g, wl_g, pl_f, wl_f))
+    sm = lambda t: torch.softmax(t, -1)
+    d_cpu = (max(float((pl_g - pl_c).abs().max()),
+                 float((wl_g - wl_c).abs().max())),
+             float((sm(pl_g) - sm(pl_c)).abs().max()),
+             float((wl_to_value(wl_g) - wl_to_value(wl_c)).abs().max()))
+    tv = 0.5 * (sm(pl_g) - sm(pl_f)).abs().sum(-1)
+    d_f32 = (float(tv.mean()),
+             float((pl_g.argmax(-1) == pl_f.argmax(-1)).float().mean()),
+             float((wl_to_value(wl_g) - wl_to_value(wl_f)).abs().mean()))
+    check(all(d <= lim for d, lim in zip(d_cpu, INT8_LIMITS)),
+          f"int8 forward, card vs CPU: {d_cpu}")
+    check(d_f32[0] < INT8_VS_F32[0] and d_f32[1] >= INT8_VS_F32[1]
+          and d_f32[2] < INT8_VS_F32[2], f"int8 forward vs f32: {d_f32}")
+    print(f"int8-static forward on {GAMES} positions: card vs CPU plain "
+          f"max |d logit|, |d prob|, |d value| {d_cpu} (limits "
+          f"{INT8_LIMITS}); vs the f32 net policy TV mean, argmax "
+          f"agreement, value MAE {d_f32} (limits {INT8_VS_F32})",
+          flush=True)
+    return launches, evals, out
+
+
+# -----------------------------------------------------------------------------
+# Phase 11: the arena, int8 static against bf16 on the same weights
+# -----------------------------------------------------------------------------
+
+@phase("phase 11 arena")
+def phase_arena(dev, evals, card):
+    import random
+
+    from alphazero_torch.arena import match
+    from alphazero_torch.config import Config
+
+    def pair_eval_fn(planes, a_to_move):
+        pa, va = evals["int8"](planes)
+        pb, vb = evals["bf16"](planes)
+        return (torch.where(a_to_move[:, None], pa, pb),
+                torch.where(a_to_move, va, vb))
+
+    rng = random.Random(0)
+    openings = [match.random_opening(rng) for _ in range(ARENA_OPENINGS)]
+    moves, real = [0], match._match_move
+
+    def counted(*a):
+        moves[0] += 1
+        return real(*a)
+
+    match._match_move = counted
+    try:
+        t0 = time.time()
+        wins = match.play_paired_matches(
+            None, None, openings, Config(), num_simulations=ARENA_SIMS,
+            pair_eval_fn=pair_eval_fn, device=dev)
+        dt = time.time() - t0
+    finally:
+        match._match_move = real
+    check(sum(wins) == 2 * ARENA_OPENINGS,
+          f"arena: {wins} wins in {2 * ARENA_OPENINGS} games (a game did "
+          f"not end within max_game_length)")
+    print("arena " + json.dumps({
+        "openings": ARENA_OPENINGS, "games": 2 * ARENA_OPENINGS,
+        "sims": ARENA_SIMS, "wins_int8_static": wins[0], "wins_bf16": wins[1],
+        "lockstep_moves": moves[0], "seconds": dt, "card": card}),
+          flush=True)
+
+
+# -----------------------------------------------------------------------------
+# Phase 12: the bench, once at a reduced size
+# -----------------------------------------------------------------------------
+
+@phase("phase 12 bench")
+def phase_bench(card):
+    run = subprocess.run(
+        [sys.executable, "-m", "alphazero_torch.bench"], cwd=ROOT,
+        env=dict(os.environ, **BENCH_ENV), capture_output=True, text=True,
+        timeout=300)
+    check(run.returncode == 0, f"bench exit {run.returncode}: "
+                               f"{run.stderr[-2000:]}")
+    lines = run.stdout.splitlines()
+    check(len(lines) == 1, f"bench printed {len(lines)} lines on stdout")
+    out = json.loads(lines[0])
+    check(out["metric"] == "mcts_sims_per_sec_per_chip" and out["value"] > 0,
+          f"bench: {out}")
+    print(f"bench {json.dumps(BENCH_ENV)}: {lines[0]}; stderr: "
+          f"{' | '.join(run.stderr.strip().splitlines()[-6:])}; card {card}",
+          flush=True)
 
 
 def main(argv=None) -> int:
     """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
-    kernels, search, cpu, continuous, tower, fused, trainer) runs only
-    those, for work on one of them, and then prints no ``kernels`` line."""
+    kernels, search, cpu, continuous, tower, fused, trainer, qconv, quant,
+    arena, bench) runs only those, for work on one of them, and then prints
+    no ``kernels`` line (quant and arena run the qconv phase first, arena
+    the quant phase)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1195,7 +1554,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     t0 = time.time()
-    libs = cuda_build.build(["tree_kernels", "tower_kernel"])
+    libs = cuda_build.build(["tree_kernels", "tower_kernel", "qconv_kernel"])
     build_s = time.time() - t0
     print(f"[phase 0] card: {card}; torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}); kernel build {build_s:.1f} s", flush=True)
@@ -1220,12 +1579,21 @@ def main(argv=None) -> int:
         launches["tower_forward"] = phase_fused(dev, net, card)
     if want("trainer"):
         trainer_launches = phase_trainer(dev, card)
+    if want("qconv") or want("quant") or want("arena"):
+        qconv_err, qconv_t, qconv_bound, qp, act = phase_qconv(dev, net)
+    if want("quant") or want("arena"):
+        quant_launches, evals, _ = phase_quant_search(dev, net, card, qp, act)
+        launches["qconv3x3"] = quant_launches["qconv3x3"]
+    if want("arena"):
+        phase_arena(dev, evals, card)
+    if want("bench"):
+        phase_bench(card)
 
     if not only:
         # "launches" are the main path's own; fetch_rows is launched by the
         # plain descent that phase 1 holds descend against ("check_launches")
         # and nowhere on the search path
-        on_path = ("descend", "commit_edges", "tower_forward")
+        on_path = ("descend", "commit_edges", "tower_forward", "qconv3x3")
         check(all(launches[k] > 0 for k in on_path)
               and all(v > 0 for v in trainer_launches.values()),
               f"a kernel was not launched: {launches}, {trainer_launches}")
@@ -1247,6 +1615,15 @@ def main(argv=None) -> int:
             "launches": launches["tower_forward"],
             "max_abs_err": tower_err, **tower_t,
             "bound_ms": tower_bound[0], "bound_by": tower_bound[1]})
+        # an XLA conv of the JAX package's int8 evaluator, not a Pallas
+        # kernel; its path is phase 10's int8-static search
+        kernels.append({
+            "name": "qconv3x3", "route": "cuda",
+            "source": "alphazero_torch/csrc/qconv_kernel.cu",
+            "replaces": "alphazero_tpu/models/quant.py:84",
+            "launches": launches["qconv3x3"], "max_abs_err": qconv_err,
+            **qconv_t, "bound_ms": qconv_bound[0],
+            "bound_by": qconv_bound[1]})
         print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

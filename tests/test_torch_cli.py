@@ -1,0 +1,129 @@
+"""The PyTorch port's CLI (``python -m alphazero_torch``) and bench
+(``alphazero_torch/bench.py``) on the CPU at a tiny size, and the port's
+import boundary: no module of it, and not ``chip_smoke.py``, imports JAX,
+Flax or the JAX package."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from alphazero_torch import bench
+from alphazero_torch.config import tiny_config
+from alphazero_torch.main import main
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "alphazero_tpu")
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_the_port_imports_nothing_of_jax():
+    files = sorted((ROOT / "alphazero_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_train_then_arena_through_the_cli(tmp_path):
+    """``python -m alphazero_torch train --cpu ... --selfplay-quant static``
+    writes two checkpoints and two metrics lines (the second iteration's
+    self-play calibrates on the first one's data); ``arena --cpu --rounds
+    1`` on them writes the ratings file."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    cmd = [sys.executable, "-m", "alphazero_torch", "train", "--cpu",
+           "--blocks", "2", "--filters", "8", "--sims", "8", "--games", "4",
+           "--iterations", "2", "--selfplay-quant", "static",
+           "--selfplay-batches", "1", "--buffer", "4096"]
+    run = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    ck = tmp_path / "checkpoints"
+    with open(ck / "metrics.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert [m["iteration"] for m in lines] == [1, 2]
+    assert (ck / "iteration_1").is_dir() and (ck / "iteration_2").is_dir()
+    assert json.loads((ck / "iteration_2" / "alphazero_meta.json")
+                      .read_text())["arch"]["num_filters"] == 8
+
+    main(["arena", "--cpu", "--rounds", "1", "--sims", "4",
+          "--checkpoint-dir", str(ck)])
+    state = json.loads((ck / "arena_state.json").read_text())
+    assert set(state["ratings"]) == {"iteration_1", "iteration_2"}
+    assert len(state["matches"]) == 1 and (ck / "model_best").is_dir()
+
+
+def test_cli_refuses_web_and_jax_only_flags(capsys):
+    for argv in (["web"], ["train", "--scan-blocks"],
+                 ["train", "--distributed"], ["arena", "--debug-nans"]):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code == 2
+    capsys.readouterr()
+
+
+def _tiny_bench(**kw):
+    cfg = tiny_config(num_blocks=1, num_filters=8)
+    return bench.run_bench(**dict(dict(num_games=4, num_sims=4, reps=1,
+                                       device="cpu", archive=None, cfg=cfg),
+                                  **kw))
+
+
+@pytest.mark.parametrize("quant", ["static", "dynamic", "off"])
+def test_bench_move_mode(quant, capsys):
+    out = _tiny_bench(quant=quant)
+    assert out["metric"] == "mcts_sims_per_sec_per_chip"
+    assert out["unit"] == "sims/s" and out["value"] > 0
+    assert out["vs_baseline"] == round(out["value"] / 100_000.0, 4)
+    err = capsys.readouterr().err
+    assert {"static": "static-calibrated", "dynamic": "dynamic-amax",
+            "off": "bf16 net"}[quant] in err
+    assert "random init" in err
+
+
+def test_bench_selfplay_mode_and_one_json_line(monkeypatch, capsys):
+    out = _tiny_bench(mode="selfplay", num_sims=2, quant="static")
+    assert out["metric"] == "selfplay_games_per_hour_per_chip"
+    assert out["unit"] == "games/hour" and out["value"] > 0
+    capsys.readouterr()
+
+    # main(): the knobs from the environment, one JSON line on stdout
+    real = bench.run_bench
+    seen = {}
+
+    def tiny(**kw):
+        seen.update(kw)
+        return real(**dict(kw, device="cpu", archive=None,
+                           cfg=tiny_config(num_blocks=1, num_filters=8)))
+
+    monkeypatch.setattr(bench, "run_bench", tiny)
+    for k, v in (("GAMES", "2"), ("SIMS", "3"), ("REPS", "2"),
+                 ("MODE", "move"), ("QUANT", "dynamic"),
+                 ("VALUE_DTYPE", "float32")):
+        monkeypatch.setenv(f"AZTPU_BENCH_{k}", v)
+    assert bench.main() == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    assert json.loads(lines[0])["metric"] == "mcts_sims_per_sec_per_chip"
+    assert seen == dict(num_games=2, num_sims=3, reps=2, mode="move",
+                        quant="dynamic", value_dtype="float32")
+    assert bench.ARCHIVE.endswith("artifacts/model_r5_latest.npz")
+    assert os.path.exists(bench.ARCHIVE)

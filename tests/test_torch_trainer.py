@@ -46,9 +46,15 @@ def test_trainer_raises_without_a_card_and_for_quant(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(tiny_config(checkpoint_dir=str(tmp_path)))
+    # the int8 self-play evaluator is ported: both flavours build one, an
+    # unknown flavour is refused
     for flavor in ("static", "dynamic"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            make_tiny_trainer(tmp_path, selfplay_quant=flavor)
+        eval_fn = make_tiny_trainer(
+            tmp_path, selfplay_quant=flavor)._selfplay_evaluator()
+        policy, value = eval_fn(torch.zeros((2, 3, 8, 8)))
+        assert policy.shape == (2, 192) and value.shape == (2,)
+    with pytest.raises(ValueError, match="selfplay_quant"):
+        make_tiny_trainer(tmp_path, selfplay_quant="int4")
 
 
 def test_selfplay_produces_valid_examples(tmp_path):
