@@ -22,8 +22,9 @@ JAX package's (h, w, c)-ordered kernels unchanged. ``QuantParams`` has the
 JAX package's structure (``qk`` HWIO int8, ``scale``, ``bias``, the folded
 float convs as (HWIO kernel, bias), SE and FC params as {"kernel" (in,
 out), "bias"}), with torch tensors, plus each s8 conv's weights in the
-kernel's layout under ``"wk"``; ``models/convert.quant_params_from_numpy``
-carries the JAX package's QuantParams across.
+kernel's shared-memory image under ``"wk"`` (``wk_smem_image``);
+``models/convert.quant_params_from_numpy`` carries the JAX package's
+QuantParams across.
 
 ``qconv3x3`` launches its kernel on a CUDA tensor or raises; on a CPU
 tensor it runs ``qconv_plain``, which rounds as the kernel does.
@@ -42,9 +43,13 @@ from alphazero_torch.models import fused
 from alphazero_torch.models.network import AlphaZeroNet, wl_to_value
 
 _LIB = "qconv_kernel"
-_KP = 32                        # the kernel's k-step: cin is padded to it
-_MAX_K = 128
-_MAX_COUT = 128
+# K bytes in a row of the kernel's weight image: at cin 128 one tap, and
+# one row of the card's 128-byte shared-memory swizzle
+_CHUNK = 128
+# what the kernel takes: input channels (3: the input conv, as im2col rows)
+# and output channels (the N of its wgmma)
+_CINS = (3, 32, 128)
+_COUTS = (32, 128)
 
 
 # -----------------------------------------------------------------------------
@@ -69,21 +74,39 @@ def _quant_weight(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def kernel_weights(qk: torch.Tensor) -> torch.Tensor:
-    """HWIO int8 (3, 3, cin, cout) -> the kernel's (9, cout, kp) int8, tap
-    = ky*3 + kx, input channels padded with zeros to kp, a multiple of
-    32."""
+    """HWIO int8 (3, 3, cin, cout) -> (cout, K) int8, K-major in the order
+    of the kernel's products: k = tap*cin + ci, tap = ky*3 + kx (for cin 3
+    the im2col row), zero-padded to a multiple of 128."""
     H, W, cin, cout = qk.shape
-    kp = -(-cin // _KP) * _KP
-    wk = torch.zeros((H * W, cout, kp), dtype=torch.int8, device=qk.device)
-    wk[:, :, :cin] = qk.reshape(H * W, cin, cout).transpose(1, 2)
+    K = H * W * cin
+    wk = torch.zeros((cout, -(-K // _CHUNK) * _CHUNK), dtype=torch.int8,
+                     device=qk.device)
+    wk[:, :K] = qk.reshape(K, cout).T
     return wk
+
+
+def wk_smem_image(wk: torch.Tensor) -> torch.Tensor:
+    """``kernel_weights``' (cout, K) -> the image that the CUDA kernel
+    copies into shared memory chunk by chunk and its tensor cores read by
+    descriptor: (K/128, cout, 128). A chunk is 128 bytes of K for every
+    output channel, stored [cout][128] with the card's 128-byte swizzle:
+    the 16-byte piece ``j`` of row ``n`` lies at piece ``j ^ (n % 8)``. So
+    element ``[i, n, p*16 + e]`` of the image is ``wk[n, 128*i + (p ^ (n %
+    8))*16 + e]``."""
+    cout, K = wk.shape
+    w = wk.reshape(cout, K // _CHUNK, 8, 16).permute(1, 0, 2, 3)
+    n = torch.arange(cout, device=wk.device)[:, None]
+    piece = torch.arange(8, device=wk.device)[None, :]
+    return w[:, n, piece ^ (n % 8)].reshape(K // _CHUNK, cout,
+                                             _CHUNK).contiguous()
 
 
 def qconv_entry(qk: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor) -> Dict[str, torch.Tensor]:
     """One s8 conv of a QuantParams: the JAX package's entry plus its
     weights in the kernel's layout."""
-    return {"qk": qk, "scale": scale, "bias": bias, "wk": kernel_weights(qk)}
+    return {"qk": qk, "scale": scale, "bias": bias,
+            "wk": wk_smem_image(kernel_weights(qk))}
 
 
 # -----------------------------------------------------------------------------
@@ -128,8 +151,9 @@ def qconv3x3(x: torch.Tensor, xs: torch.Tensor, entry, relu: bool = False,
     dequantised with ``entry``'s weight scales and bias, ReLU if asked.
     Returns (B, 8, 8, cout) in ``out_dtype`` (bf16 or f32), and with
     ``sums`` the int32 sums too. On a CUDA tensor one launch of
-    ``qconv3x3_kernel`` (cin <= 128, cout <= 128 and a multiple of 8);
-    on a CPU tensor ``qconv_plain``."""
+    ``qconv3x3_kernel``, which takes cin 3, 32 or 128, cout 32 or 128 and
+    any B >= 1, with ``entry["wk"]`` in ``wk_smem_image``'s form; on a CPU
+    tensor ``qconv_plain``."""
     if x.dim() != 4 or tuple(x.shape[1:3]) != (8, 8) \
             or x.shape[3] != entry["qk"].shape[2]:
         raise ValueError(f"qconv3x3 takes (B, 8, 8, {entry['qk'].shape[2]}) "
@@ -142,15 +166,15 @@ def qconv3x3(x: torch.Tensor, xs: torch.Tensor, entry, relu: bool = False,
         return qconv_plain(x, xs, entry, relu, out_dtype, sums)
 
     wk, ws, bias = entry["wk"], entry["scale"], entry["bias"]
-    cin, cout = x.shape[3], wk.shape[1]
-    if wk.dtype != torch.int8 or wk.dim() != 3 or wk.shape[0] != 9 \
-            or wk.shape[2] != -(-cin // _KP) * _KP or wk.shape[2] > _MAX_K \
-            or cout > _MAX_COUT or cout % 8 or not wk.is_contiguous() \
-            or wk.data_ptr() % 16:
-        raise ValueError(f"the kernel takes (9, cout, kp) int8 weights with "
-                         f"cin <= kp <= {_MAX_K}, cout <= {_MAX_COUT} and a "
-                         f"multiple of 8, got {tuple(wk.shape)} {wk.dtype} "
-                         f"for cin {cin}")
+    cin, cout = x.shape[3], wk.shape[1] if wk.dim() == 3 else -1
+    if cin not in _CINS or cout not in _COUTS or wk.dtype != torch.int8 \
+            or tuple(wk.shape) != (-(-9 * cin // _CHUNK), cout, _CHUNK) \
+            or not wk.is_contiguous() or wk.data_ptr() % 16:
+        raise ValueError(f"the kernel takes cin in {_CINS} and cout in "
+                         f"{_COUTS}, with int8 weights in wk_smem_image's "
+                         f"(ceil(9*cin/128), cout, 128) form, 16-byte "
+                         f"aligned; got {tuple(wk.shape)} {wk.dtype} for "
+                         f"cin {cin}")
     for name, t, shape in (("xs", xs, None), ("scale", ws, (cout,)),
                            ("bias", bias, (cout,))):
         if t.dtype != torch.float32 or not t.is_contiguous() \

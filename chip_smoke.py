@@ -37,13 +37,15 @@ exiting non-zero:
 - phase 9: the s8 conv kernel (``qconv3x3``, ``csrc/qconv_kernel.cu``)
   against ``qconv_plain`` on every conv of the archived net at 512
   positions, with static and dynamic scales, ReLU on and off (the input
-  conv reads the float32 planes, cin 3): sums and outputs bit-equal; its
-  times beside its bound and cuDNN's bf16 conv of the same shape;
+  conv reads the float32 planes, cin 3): sums and outputs bit-equal; the
+  kernel's ptxas report; its times, in turns with cuDNN's bf16 conv of the
+  same shape, beside its bound and ``torch._int_mm`` of the prebuilt s8
+  im2col matrix (the s8 product alone), and the input conv's;
 - phase 10: the int8-static evaluator (scales calibrated on positions from
   ``random_positions``) through ``selfplay_move`` at 512 games x 800
   simulations beside the bf16 evaluator: a warm-up move with each, then
   timed moves in turns (int8, bf16, bf16, int8); launches per forward,
-  the evaluate span; the
+  the evaluate span, ``qconv3x3``'s device total in the profile; the
   card's int8 forward against the CPU's plain one and against the f32 net;
 - phase 11: the arena, ``play_paired_matches`` with int8 static against
   bf16 on the archived weights, 16 openings x 2 games at 32 simulations (a
@@ -733,7 +735,8 @@ def profile_search(states, eval_fn, sims=16, tag=None):
           f"host syncs per sim {n_sync:.3f}, host blocked in them "
           f"{sync_ms:.3f} ms/sim; top kernels: {top}", flush=True)
     return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
-            "stages_host_device_ms_per_sim": stage}
+            "stages_host_device_ms_per_sim": stage,
+            "kernels_ms": {key: us / 1e3 for us, key, _ in kern}}
 
 
 # -----------------------------------------------------------------------------
@@ -1266,6 +1269,38 @@ def qconv_bound_ms(positions, cin, cout, in_bytes, out_bytes):
                                    else "operations"), nbytes, ops
 
 
+def ptxas_lines(stem, kernel):
+    """What ``nvcc -Xptxas -v`` said of ``kernel``'s instantiations in
+    ``csrc/<stem>.cu``: registers, barriers, stack and spills (the shared
+    memory is dynamic and shows in none of them)."""
+    from alphazero_torch import cuda_build
+
+    log = cuda_build.library_path(stem).with_suffix(".log")
+    lines, inside = [], False
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            inside = kernel in line
+        if inside or "(C7" in line:
+            lines.append(line.strip())
+    return lines
+
+
+def im2col_s8(x, xs, entry):
+    """The s8 product inside ``qconv3x3``, laid out for one matrix
+    multiply: (B*64, 9*cin) quantised im2col rows, k = tap*cin + ci, and
+    the (9*cin, cout) weights (a column-major view)."""
+    from alphazero_torch.models import quant
+
+    B, cin = x.shape[0], x.shape[3]
+    xq = torch.clamp(torch.round(x.float() / xs), -127, 127)
+    xp = torch.nn.functional.pad(xq, (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, t // 3:t // 3 + 8, t % 3:t % 3 + 8]
+                        for t in range(9)], dim=3)
+    cols = cols.reshape(B * 64, 9 * cin).to(torch.int8).contiguous()
+    w = quant.kernel_weights(entry["qk"])[:, :9 * cin]
+    return cols, w.contiguous().t()
+
+
 def calibration_planes(dev, n=2, seed=51):
     """``n`` batches of 512 positions from ``random_positions``."""
     from alphazero_torch.env import breakthrough as env
@@ -1318,22 +1353,35 @@ def phase_qconv(dev, net):
           f"positions x static/dynamic scales x ReLU off/on (cin 3: f32 "
           f"NCHW planes read in place; cin 128: bf16 NHWC)", flush=True)
 
+    for line in ptxas_lines("qconv_kernel", "qconv3x3_kernel"):
+        print(f"[phase 9] ptxas: {line}", flush=True)
+
     # times of a 128 -> 128 tower conv at the path's shape, and of the
-    # input conv; library: the same conv in bf16 through F.conv2d (cuDNN),
-    # channels-last, which the path never calls
+    # input conv. Yardsticks the path never calls: the same conv in bf16
+    # through F.conv2d (cuDNN), channels-last, timed in turns with the
+    # kernel; and torch._int_mm, the s8 product alone, of the conv's
+    # prebuilt (B*64, 9*cin) s8 im2col matrix by the (9*cin, cout) weights
     x, xs, entry, _ = calls[3]
     x_in, xs_in, entry_in, _ = calls[0]
     w_bf = entry["qk"].permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
     x_cl = x.permute(0, 3, 1, 2)
     library = lambda i: torch.nn.functional.conv2d(x_cl, w_bf, padding=1)
-    t = {"ms": cuda_ms(lambda i: quant.qconv3x3(x, xs, entry, True),
-                       what="qconv3x3"),
-         "call_ms": cuda_ms(lambda i: quant.qconv3x3(x, xs, entry, True),
-                            queued=False),
+    kernel = lambda i: quant.qconv3x3(x, xs, entry, True)
+    turns = [cuda_ms(kernel, what="qconv3x3"),
+             cuda_ms(library, what="cuDNN bf16 conv"),
+             cuda_ms(kernel, what="qconv3x3")]
+    cols, w_cols = im2col_s8(x, xs, entry)
+    check(torch.equal(torch._int_mm(cols, w_cols).reshape(GAMES, 8, 8, -1),
+                      quant.qconv3x3(x, xs, entry, sums=True)[1]),
+          "torch._int_mm of the im2col matrix differs from the kernel's sums")
+    t = {"ms": (turns[0] + turns[2]) / 2, "ms_turns": turns,
+         "call_ms": cuda_ms(kernel, queued=False),
          "plain_ms": cuda_ms(lambda i: quant.qconv_plain(x, xs, entry, True),
                              iters=10, warmup=2, queued=False),
-         "library_ms": cuda_ms(library, what="cuDNN bf16 conv"),
+         "library_ms": turns[1],
          "library_call_ms": cuda_ms(library, queued=False),
+         "int_mm_ms": cuda_ms(lambda i: torch._int_mm(cols, w_cols),
+                              what="torch._int_mm"),
          "input_conv_ms": cuda_ms(
              lambda i: quant.qconv3x3(x_in, xs_in, entry_in, True),
              what="qconv3x3 input conv")}
@@ -1431,9 +1479,14 @@ def phase_quant_search(dev, net, card, qp, act):
         name: launches_per_forward(fn, planes) for name, fn in evals.items()}
     for name, fn in evals.items():
         p = profile_search(states, fn, tag=f"{name}_{GAMES}")
+        if name == "int8":
+            p_int8 = p
         out[f"{name}_evaluate_host_ms_per_sim"] = \
             p["stages_host_device_ms_per_sim"]["mcts.evaluate"][0]
         out[f"{name}_idle_share"] = p["idle_share"]
+        out[f"{name}_busy_ms"] = p["busy_s"] * 1e3
+    out["int8_qconv3x3_device_ms"] = sum(
+        ms for key, ms in p_int8["kernels_ms"].items() if "qconv3x3" in key)
     print("int8 search " + json.dumps(out), flush=True)
 
     # the card's int8 forward against the CPU's plain one (same static

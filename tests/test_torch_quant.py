@@ -115,9 +115,8 @@ def test_quantize_network_matches_jax(scan):
         assert _ulps(g["scale"], w["scale"]).max() <= 2, name
         assert _ulps(g["bias"], w["bias"]).max() <= 2, name
         np.testing.assert_array_equal(
-            g["wk"][:, :, :g["qk"].shape[2]].numpy(),
-            g["qk"].numpy().reshape(9, -1, g["qk"].shape[3])
-            .transpose(0, 2, 1))
+            _image_to_hwio(g["wk"].numpy(), g["qk"].shape[2]),
+            g["qk"].numpy())
     assert off <= 1e-3 * n, (off, n)
     for key in ("policy", "value_conv"):
         for g, w in zip(got[key], want[key]):
@@ -340,6 +339,89 @@ def test_trainer_runs_int8_selfplay(tmp_path, monkeypatch, flavor):
 # The kernel's wrapper
 # -----------------------------------------------------------------------------
 
+def _image_to_kmajor(img):
+    """numpy inverse of ``wk_smem_image``: (chunks, cout, 128) -> (cout,
+    chunks*128). Stored piece p of row n holds piece p ^ (n % 8), and the
+    swizzle is its own inverse."""
+    chunks, cout, _ = img.shape
+    n = np.arange(cout)[:, None]
+    pieces = img.reshape(chunks, cout, 8, 16)[:, n, np.arange(8) ^ (n % 8)]
+    return pieces.transpose(1, 0, 2, 3).reshape(cout, chunks * 128)
+
+
+def _image_to_hwio(img, cin):
+    """The HWIO kernel back from the image; the padding past 9*cin is 0."""
+    kmajor = _image_to_kmajor(img)
+    assert not kmajor[:, 9 * cin:].any()
+    return kmajor[:, :9 * cin].T.reshape(3, 3, cin, -1)
+
+
+def _b_tile(img, step):
+    """The 32 x cout s8 tile that the kernel's descriptor reads at k-step
+    ``step``: chunk step // 4, logical pieces 2*(step % 4) and the next,
+    found where the swizzle put them."""
+    cout = img.shape[1]
+    n = np.arange(cout)[:, None]
+    logical = 2 * (step % 4) + np.arange(2)
+    return img[step // 4].reshape(cout, 8, 16)[n, logical ^ (n % 8)] \
+        .reshape(cout, 32)
+
+
+def _kernel_sums(xq, img):
+    """A numpy emulation of the kernel's products on quantised ``xq`` (B,
+    8, 8, cin): the A rows built as the producer builds them (cin 3:
+    im2col rows of k = tap*cin + ci from a padded board, zero from 27 to
+    32; otherwise the square's s8 row, shifted by the tap as the
+    consumer's ldmatrix addresses shift it, zero off the board) times the
+    image's tiles, k-step by k-step in the kernel's order."""
+    B, _, _, cin = xq.shape
+    board = np.pad(xq.astype(np.int64), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    shifted = [board[:, t // 3:t // 3 + 8, t % 3:t % 3 + 8].reshape(B, 64,
+                                                                    cin)
+               for t in range(9)]
+    acc = np.zeros((B, 64, img.shape[1]), np.int64)
+    if cin < 32:
+        rows = np.zeros((B, 64, 32), np.int64)
+        for k in range(9 * cin):
+            rows[:, :, k] = shifted[k // cin][:, :, k % cin]
+        return acc + rows @ _b_tile(img, 0).T.astype(np.int64)
+    step = 0
+    for tap in range(9):
+        for j in range(cin // 32):
+            acc += shifted[tap][:, :, 32 * j:32 * j + 32] \
+                @ _b_tile(img, step).T.astype(np.int64)
+            step += 1
+    return acc
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 128), (128, 128), (32, 32)])
+def test_weight_image_inverts_to_qk(cin, cout):
+    """``qconv_entry``'s image, un-swizzled and un-padded, is ``qk``
+    exactly; its shape is what the kernel copies: ceil(9*cin/128) chunks
+    of cout rows of 128 bytes."""
+    qk = _random_entry(cin, cout, cin)["qk"]
+    img = tq.qconv_entry(qk, torch.ones(cout), torch.zeros(cout))["wk"]
+    assert img.dtype == torch.int8 and img.is_contiguous()
+    assert tuple(img.shape) == (-(-9 * cin // 128), cout, 128)
+    np.testing.assert_array_equal(_image_to_hwio(img.numpy(), cin),
+                                  qk.numpy())
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 128), (128, 128), (32, 32)])
+def test_kernel_k_order_sums_equal_plain(cin, cout):
+    """The kernel's order of products (im2col rows at cin 3, shifted rows
+    and k-steps of 32 otherwise, against the swizzled image) gives the
+    s32 sums of ``qconv_plain`` exactly, at the board edges too."""
+    e = _random_entry(cin, cout, 7 + cin)
+    g = torch.Generator().manual_seed(cin)
+    x = torch.randn((3, 8, 8, cin), generator=g) * 2
+    xs = x.abs().amax() / 127.0
+    _, want = tq.qconv_plain(x, xs, e, sums=True)
+    xq = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+    got = _kernel_sums(xq.numpy(), e["wk"].numpy())
+    np.testing.assert_array_equal(got.reshape(want.shape), want.numpy())
+
+
 def _random_entry(cin, cout, seed, device="cpu"):
     g = torch.Generator().manual_seed(seed)
     folded = torch.randn((3, 3, cin, cout), generator=g) * 0.1
@@ -388,14 +470,20 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cin,positions", [(3, 512), (128, 512), (128, 7),
-                                           (32, 5)])
+@pytest.mark.parametrize("cin,cout,positions", [
+    (3, 128, 512), (128, 128, 512), (128, 128, 7), (32, 128, 5),
+    # ragged, and past one wave of 132 blocks x 4 positions
+    (128, 128, 1), (128, 128, 3), (128, 128, 129), (128, 128, 513),
+    (128, 128, 2048), (3, 128, 2048),
+    # the test configurations' widths
+    (3, 32, 33), (32, 32, 130)])
 @pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
 @pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
-def test_cuda_qconv_against_plain(cuda, cin, positions, static, relu):
+def test_cuda_qconv_against_plain(cuda, cin, cout, positions, static, relu):
     """The kernel's sums and outputs bit-equal to ``qconv_plain`` on the
-    card; cin 3 reads f32 NCHW planes in place, the others bf16 NHWC."""
-    e = _random_entry(cin, 128, cin + positions, cuda)
+    card, bf16 and f32 out; cin 3 reads f32 NCHW planes in place, the
+    others bf16 NHWC."""
+    e = _random_entry(cin, cout, cin + positions, cuda)
     g = torch.Generator().manual_seed(positions)
     if cin == 3:
         x = (torch.rand((positions, 3, 8, 8), generator=g) < 0.3).float()
@@ -417,6 +505,54 @@ def test_cuda_qconv_against_plain(cuda, cin, positions, static, relu):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("xs", [1e-3, 1.0 / 127, 0.0137, 3.1, 2.0 ** -20])
+def test_cuda_qconv_quantises_every_bf16_as_plain(cuda, xs):
+    """Every finite bf16 value (65,280 of the 65,536 bit patterns; NaN and
+    infinities become 0) as the input of eight positions: the kernel's
+    quantise (its division without __fdiv_rn's slow-path branch) gives
+    sums and outputs bit-equal to ``qconv_plain``'s at several scales."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16).float()
+    x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    x = x.to(torch.bfloat16).reshape(8, 8, 8, 128)
+    perm = torch.randperm(x.numel(), generator=torch.Generator()
+                          .manual_seed(3))       # mix magnitudes on a board
+    x = x.reshape(-1)[perm].reshape(8, 8, 8, 128).to(cuda)
+    e = _random_entry(128, 128, 11, cuda)
+    xs_t = torch.tensor(xs, dtype=torch.float32, device=cuda)
+    got, gsum = tq.qconv3x3(x, xs_t, e, sums=True)
+    want, wsum = tq.qconv_plain(x, xs_t, e, sums=True)
+    assert torch.equal(gsum, wsum) and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,cin", [
+    ("f32_nhwc", 32), ("bf16_nchw", 128),      # element by element
+    ("f32_nhwc_strided", 3),                    # element by element
+    ("bf16_nhwc", 3)])                          # staged, rows not planes
+def test_cuda_qconv_reads_other_layouts(cuda, layout, cin):
+    """Input other than the path's (bf16 NHWC rows at cin >= 32, f32 NCHW
+    planes at cin 3): the producer reads element by element where a
+    position is not contiguous, and stages it by bulk copy where it is;
+    bit-equal to ``qconv_plain`` all the same."""
+    e = _random_entry(cin, 128, 4 + cin, cuda)
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((130, 8, 8, cin + 1), generator=g) * 2
+    if layout == "f32_nhwc_strided":
+        x = x.to(cuda)[..., :cin]               # a channel stride of cin + 1
+    elif layout == "bf16_nchw":
+        x = x[..., :cin].permute(0, 3, 1, 2).contiguous() \
+            .to(cuda, torch.bfloat16).permute(0, 2, 3, 1)
+    else:
+        x = x[..., :cin].contiguous().to(
+            cuda, torch.float32 if layout == "f32_nhwc" else torch.bfloat16)
+    xs = x.float().abs().amax() / 127.0
+    got, gsum = tq.qconv3x3(x, xs, e, True, torch.float32, sums=True)
+    want, wsum = tq.qconv_plain(x, xs, e, True, torch.float32, sums=True)
+    assert torch.equal(gsum, wsum) and torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_cuda_qconv_refuses_what_the_kernel_does_not_take(cuda):
     e = _random_entry(128, 128, 1, cuda)
     x = torch.randn((4, 8, 8, 128), device=cuda, dtype=torch.bfloat16)
@@ -425,6 +561,15 @@ def test_cuda_qconv_refuses_what_the_kernel_does_not_take(cuda):
     bad = dict(e, wk=e["wk"][:, :120])
     with pytest.raises(ValueError, match="int8 weights"):
         tq.qconv3x3(x, xs, bad)
+    e32 = _random_entry(32, 128, 3, cuda)  # (9, cout, cin), not the image
+    old_form = dict(e32, wk=e32["qk"].reshape(9, 32, 128).transpose(1, 2)
+                    .contiguous())
+    with pytest.raises(ValueError, match="wk_smem_image"):
+        tq.qconv3x3(x[..., :32].contiguous(), xs, old_form)
+    for cin, cout in ((16, 128), (64, 128), (128, 64)):  # not in the domain
+        narrow = _random_entry(cin, cout, 2, cuda)
+        with pytest.raises(ValueError, match=r"cin in \(3, 32"):
+            tq.qconv3x3(x[..., :cin].contiguous(), xs, narrow)
     with pytest.raises(ValueError, match="xs"):
         tq.qconv3x3(x, xs.double(), e)
     with pytest.raises(ValueError, match="operand"):
