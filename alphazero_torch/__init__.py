@@ -1,14 +1,16 @@
 """PyTorch/CUDA port of ``alphazero_tpu`` (AlphaZero for Breakthrough).
 
 The module layout mirrors the JAX package: ``config``, ``env``,
-``models``, ``search``, ``train``, ``arena`` and ``utils``, with the CLI
-in ``main`` (``python -m alphazero_torch train|arena``) and the bench in
-``bench``. The JAX package's three Pallas kernels are hand-written CUDA
-here: the two search-tree kernels (``csrc/tree_kernels.cu``) and the
-fused SE-ResNet tower (``csrc/tower_kernel.cu``); the int8 evaluator's s8
-conv, an XLA op there, is one too (``csrc/qconv_kernel.cu``). Every entry
-point takes an explicit ``device``, ``"cuda"`` by default, and raises
-when no card is present instead of quietly running on the CPU.
+``models``, ``search``, ``train``, ``arena``, ``baseline``, ``web`` and
+``utils``, with the CLI in ``main`` (``python -m alphazero_torch
+train|web|arena``), the bench in ``bench`` and the JAX package's
+strength-gate scripts as ``strength``. The JAX package's three Pallas
+kernels are hand-written CUDA here: the two search-tree kernels
+(``csrc/tree_kernels.cu``) and the fused SE-ResNet tower
+(``csrc/tower_kernel.cu``); the int8 evaluator's s8 conv, an XLA op
+there, is one too (``csrc/qconv_kernel.cu``). Every entry point takes an
+explicit ``device``, ``"cuda"`` by default, and raises when no card is
+present instead of quietly running on the CPU.
 """
 
 import torch

@@ -24,6 +24,7 @@ from alphazero_torch import resolve_device
 from alphazero_torch.config import Config
 from alphazero_torch.env import OracleGame
 from alphazero_torch.env import breakthrough as env
+from alphazero_torch.env.oracle import live_states
 from alphazero_torch.search import (
     SearchSpec,
     make_net_evaluator,
@@ -48,12 +49,9 @@ def random_opening(rng: random.Random,
     return g
 
 
-def make_pair_evaluator(net_a, net_b, dtype):
-    """eval_fn(planes, a_to_move (B,) bool): both nets (their evaluators in
-    ``dtype``) on the whole batch, rows selected by ``a_to_move``. The two
-    nets may differ in architecture."""
-    eval_a = make_net_evaluator(net_a, dtype)
-    eval_b = make_net_evaluator(net_b, dtype)
+def select_evaluator(eval_a, eval_b):
+    """eval_fn(planes, a_to_move (B,) bool): both evaluators on the whole
+    batch, rows selected by ``a_to_move``."""
 
     def eval_fn(planes, a_to_move):
         pa, va = eval_a(planes)
@@ -62,6 +60,32 @@ def make_pair_evaluator(net_a, net_b, dtype):
                 torch.where(a_to_move, va, vb))
 
     return eval_fn
+
+
+def make_pair_evaluator(net_a, net_b, dtype):
+    """``select_evaluator`` over the two nets' evaluators in ``dtype``.
+    The two nets may differ in architecture."""
+    return select_evaluator(make_net_evaluator(net_a, dtype),
+                            make_net_evaluator(net_b, dtype))
+
+
+def paired_states(openings: List[OracleGame], device) -> env.EnvState:
+    """Each opening twice in a row (games 2k and 2k+1), move counts from
+    zero, on ``device``."""
+    states = live_states([g for g in openings for _ in range(2)],
+                         resolve_device(device))
+    states.move_count.zero_()
+    return states
+
+
+def wins(states: env.EnvState, a_is_white: torch.Tensor) -> Tuple[int, int]:
+    """(wins_a, wins_b) over the batch; unfinished games count for
+    neither."""
+    winners = states.winner.cpu().numpy()
+    a_white = a_is_white.cpu().numpy()
+    a_won = np.where(a_white, winners == env.WHITE, winners == env.BLACK)
+    b_won = np.where(a_white, winners == env.BLACK, winners == env.WHITE)
+    return int(a_won.sum()), int(b_won.sum())
 
 
 def _match_move(states: env.EnvState, a_is_white: torch.Tensor, eval_fn,
@@ -98,17 +122,8 @@ def play_paired_matches(
                       fpu_reduction=cfg.fpu_reduction)
     max_moves = max_moves or cfg.max_game_length
 
-    B = 2 * len(openings)
-    boards = np.stack([g.board for g in openings for _ in range(2)])
-    turns = np.asarray([g.turn for g in openings for _ in range(2)], np.int8)
-    states = env.EnvState(
-        board=torch.from_numpy(boards.astype(np.int8)).to(dev),
-        turn=torch.from_numpy(turns).to(dev),
-        winner=torch.zeros((B,), dtype=torch.int8, device=dev),
-        done=torch.zeros((B,), dtype=torch.bool, device=dev),
-        move_count=torch.zeros((B,), dtype=torch.int32, device=dev),
-    )
-    a_is_white = torch.arange(B, device=dev) % 2 == 0
+    states = paired_states(openings, dev)
+    a_is_white = torch.arange(states.turn.shape[0], device=dev) % 2 == 0
 
     eval_fn = pair_eval_fn or make_pair_evaluator(
         net_a, net_b, getattr(torch, cfg.inference_dtype))
@@ -116,9 +131,4 @@ def play_paired_matches(
         if bool(states.done.all()):
             break
         states = _match_move(states, a_is_white, eval_fn, spec)
-
-    winners = states.winner.cpu().numpy()
-    a_white = a_is_white.cpu().numpy()
-    a_won = np.where(a_white, winners == env.WHITE, winners == env.BLACK)
-    b_won = np.where(a_white, winners == env.BLACK, winners == env.WHITE)
-    return int(a_won.sum()), int(b_won.sum())
+    return wins(states, a_is_white)

@@ -34,9 +34,7 @@ import torch
 
 from alphazero_torch import resolve_device
 from alphazero_torch.config import Config
-
-ARCHIVE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "artifacts", "model_r5_latest.npz")
+from alphazero_torch.models.convert import ARCHIVE
 TARGET = 100_000.0
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from alphazero_torch.env.breakthrough import (
     BLACK,
@@ -19,6 +20,7 @@ from alphazero_torch.env.breakthrough import (
     EMPTY,
     NUM_ACTIONS,
     WHITE,
+    EnvState,
     decode_action_to_move,
     encode_move_to_action,
 )
@@ -158,3 +160,19 @@ class OracleGame:
             rows.append(f"{r + 1} " + " ".join(sym[int(v)] for v in self.board[r]))
         rows.append(f"Turn: {'White' if self.turn == WHITE else 'Black'}")
         return "\n".join(rows)
+
+
+def live_states(games: List[OracleGame], device) -> EnvState:
+    """The env's batched state of live oracle games on ``device``: their
+    boards, sides to move and move counts, no winner yet."""
+    B = len(games)
+    return EnvState(
+        board=torch.from_numpy(np.stack([g.board for g in games])
+                               .astype(np.int8)).to(device),
+        turn=torch.tensor([g.turn for g in games], dtype=torch.int8,
+                          device=device),
+        winner=torch.zeros((B,), dtype=torch.int8, device=device),
+        done=torch.zeros((B,), dtype=torch.bool, device=device),
+        move_count=torch.tensor([g.move_count for g in games],
+                                dtype=torch.int32, device=device),
+    )

@@ -1,12 +1,12 @@
-"""CLI of the PyTorch port: train | arena.
+"""CLI of the PyTorch port: train | web | arena.
 
     python -m alphazero_torch train     # restartable self-play training loop
+    python -m alphazero_torch web       # human-vs-bot web UI + JSON API
     python -m alphazero_torch arena     # continuous ELO matchmaking daemon
 
 The flags of the JAX package's ``main.py`` that mean something here; on
-the card by default, on the CPU with ``--cpu``. ``web`` is not ported yet.
-``--scan-blocks``, ``--distributed`` and ``--debug-nans`` belong to JAX
-and are not offered.
+the card by default, on the CPU with ``--cpu``. ``--scan-blocks``,
+``--distributed`` and ``--debug-nans`` belong to JAX and are not offered.
 """
 
 from __future__ import annotations
@@ -84,6 +84,11 @@ def main(argv=None) -> None:
     p_train.add_argument("--buffer", type=int, default=None,
                          help="replay buffer capacity")
 
+    p_web = sub.add_parser("web", help="web UI / JSON API server")
+    add_common(p_web)
+    p_web.add_argument("--host", default="0.0.0.0")
+    p_web.add_argument("--port", type=int, default=5051)
+
     p_arena = sub.add_parser("arena", help="continuous ELO matchmaking")
     add_common(p_arena)
     p_arena.add_argument("--rounds", type=int, default=None)
@@ -105,6 +110,10 @@ def main(argv=None) -> None:
                  cfg.num_blocks, cfg.num_filters,
                  f"{count_params(trainer.net):,}", trainer.device)
         trainer.train_forever(max_iterations=args.iterations)
+    elif args.command == "web":
+        from alphazero_torch.web import serve
+
+        serve(cfg, host=args.host, port=args.port, device=device)
     elif args.command == "arena":
         from alphazero_torch.arena import run_arena
 

@@ -21,6 +21,7 @@ dict into this port's ``state_dict``:
 from __future__ import annotations
 
 import json
+import os
 from typing import Dict
 
 import numpy as np
@@ -29,6 +30,11 @@ import torch
 from alphazero_torch import resolve_device
 from alphazero_torch.config import Config
 from alphazero_torch.models.network import AlphaZeroNet
+
+# the trained 20x128 archive in the repo, the default weights of the bench
+# and the strength gates
+ARCHIVE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "artifacts", "model_r5_latest.npz")
 
 # dense layers whose input is a flattened (h, w, c) map in the JAX net
 _FLATTENED_INPUT = ("policy_fc", "value_fc1")

@@ -11,7 +11,8 @@ exiting non-zero:
   (bit-exact): ``fetch_rows``; ``commit_edges``, also on 2 and 5 stacked
   levels against one call per level; ``descend`` against the plain
   per-level descent on trees that searches grew (512, 13 and 3 games,
-  first-play urgency off and on, finished roots and terminal leaves);
+  and 1 and 2 games at the web bot's 200 simulations; first-play urgency
+  off and on, finished roots and terminal leaves);
   and their times beside the launch floor (a kernel with no body);
 - phase 2: the archived 20x128 net on the card against the CPU;
 - phase 6: the fused tower kernel (``wgmma`` on a ring of weight chunks
@@ -51,7 +52,15 @@ exiting non-zero:
   bf16 on the archived weights, 16 openings x 2 games at 32 simulations (a
   reduced depth), until every game ends;
 - phase 12: ``python3 -m alphazero_torch.bench`` at 128 games x 64
-  simulations (a reduced size): stdout is exactly one JSON line.
+  simulations (a reduced size): stdout is exactly one JSON line;
+- phase 13: the web server (``alphazero_torch/web``) with the archive as
+  its ``model_best``, on 127.0.0.1 in a thread, driven over HTTP: the
+  bot (batch 1, 200 simulations, 20x128 bf16) as White against the
+  baseline engine (its budget cut to 150 ms a move, from 2000) for at
+  most 40 plies; every move legal, ``/api/state`` equal to the last
+  answer, each AlphaZero move 200 ``descend`` and 200 ``commit_edges``
+  launches (their sums go into the ``kernels`` line as
+  ``web_launches``); the seconds of both players' moves.
 
 The second-to-last lines are the ``kernels`` JSON object and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -80,6 +89,10 @@ CPU_GAMES, CPU_SIMS = 32, 64
 CONT_LANES, CONT_SIMS, CONT_GAMES = 128, 16, 128
 STATIC_TRAIN_SIMS = 16             # phase 8's int8-static iteration
 ARENA_OPENINGS, ARENA_SIMS = 16, 32
+# phase 13: plies of its game at most, and the baseline's budget a move,
+# cut from the server's 2000 ms for this phase only
+WEB_PLIES, WEB_BASELINE_MS = 40, 150
+WEB_SIMS = 200                     # the bot's num_simulations_inference
 BENCH_ENV = {"AZTPU_BENCH_GAMES": "128", "AZTPU_BENCH_SIMS": "64",
              "AZTPU_BENCH_REPS": "1"}
 INT8_OPS_PER_S = 1979e12           # H100 SXM data sheet, dense int8
@@ -110,14 +123,6 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters=50, warmup=10, queued=True, sleep_ms=60, what="fn"):
@@ -172,7 +177,9 @@ def phase_kernels(dev):
     from alphazero_torch.search import kernels as K
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [("main", GAMES, SIMS + 2, None), ("B3", 3, 9, None),
+    # B1 and B2: the web bot's tree, one game at WEB_SIMS simulations
+    cases = [("main", GAMES, SIMS + 2, None), ("B1", 1, WEB_SIMS + 2, None),
+             ("B2", 2, WEB_SIMS + 2, None), ("B3", 3, 9, None),
              ("B12", 12, 9, None), ("B13", 13, 17, None),
              ("same-node", 64, 33, 5), ("trash-row", 64, 33, 32)]
     err = {"fetch_rows": 0.0, "commit_edges": 0.0}
@@ -405,11 +412,15 @@ def check_descend(dev):
     report, compared = [], 0
     # (games, simulations between comparisons, evaluator, first-play
     # urgency); every fifth game is played to its end (finished roots),
-    # and late positions give terminal leaves
+    # and late positions give terminal leaves. One and two games at
+    # WEB_SIMS simulations in all are the web bot's search
+    web = (8, 24, 32, WEB_SIMS - 64)
     cases = [(GAMES, (40, 120), "ties", 0.0),
              (GAMES, (40, 120), "generic", 0.25),
              (13, (8, 24, 32), "ties", 0.25), (13, (8, 24, 32), "generic", 0.0),
-             (3, (8, 24, 32), "generic", 0.25), (3, (8, 24, 32), "ties", 0.0)]
+             (3, (8, 24, 32), "generic", 0.25), (3, (8, 24, 32), "ties", 0.0),
+             (1, web, "generic", 0.0), (1, web, "ties", 0.25),
+             (2, web, "generic", 0.25), (2, web, "ties", 0.0)]
     for B, chunks, ev, fpu in cases:
         states = on(finish_games(
             random_positions(B, 100 + B, max_plies=60),
@@ -521,19 +532,12 @@ def check_descend(dev):
 # -----------------------------------------------------------------------------
 
 def random_positions(n, seed, max_plies=40):
-    from alphazero_torch.env import breakthrough as env
+    """``alphazero_torch.strength.common.random_positions``, kept under
+    this name for ``tests/test_torch_network.py`` and
+    ``scripts/int8_accuracy_torch_vs_jax.py``, which import it from here."""
+    from alphazero_torch.strength.common import random_positions as made
 
-    rng = np.random.default_rng(seed)
-    state = env.initial_state((n,), device="cpu")
-    plies = rng.integers(0, max_plies, n)
-    for p in range(max_plies):
-        mask = env.legal_action_mask(state).numpy()
-        acts = np.array([rng.choice(np.flatnonzero(m)) if m.any() else 0
-                         for m in mask])
-        stepped = env.step(state, torch.from_numpy(acts))
-        state = env.select_state(torch.from_numpy(p < plies) & ~stepped.done,
-                                 stepped, state)
-    return state
+    return made(n, seed, max_plies)
 
 
 def finish_games(state, which, seed):
@@ -1301,21 +1305,14 @@ def im2col_s8(x, xs, entry):
     return cols, w.contiguous().t()
 
 
-def calibration_planes(dev, n=2, seed=51):
-    """``n`` batches of 512 positions from ``random_positions``."""
-    from alphazero_torch.env import breakthrough as env
-
-    return [env.encoded_state(random_positions(GAMES, seed + i)).to(dev)
-            for i in range(n)]
-
-
 @phase("phase 9 qconv kernel")
 def phase_qconv(dev, net):
     from alphazero_torch.env import breakthrough as env
     from alphazero_torch.models import quant
+    from alphazero_torch.strength.common import calibration_batches
 
     qp = quant.quantize_network(net)
-    act = quant.calibrate(qp, calibration_planes(dev))
+    act = quant.calibrate(qp, calibration_batches(ARCHIVE, dev)[0])
     planes = env.encoded_state(random_positions(GAMES, 61)).to(dev)
     # the inputs every conv of the archived net sees in one static forward
     calls, real = [], quant._qconv
@@ -1531,12 +1528,7 @@ def phase_arena(dev, evals, card):
     from alphazero_torch.arena import match
     from alphazero_torch.config import Config
 
-    def pair_eval_fn(planes, a_to_move):
-        pa, va = evals["int8"](planes)
-        pb, vb = evals["bf16"](planes)
-        return (torch.where(a_to_move[:, None], pa, pb),
-                torch.where(a_to_move, va, vb))
-
+    pair_eval_fn = match.select_evaluator(evals["int8"], evals["bf16"])
     rng = random.Random(0)
     openings = [match.random_opening(rng) for _ in range(ARENA_OPENINGS)]
     moves, real = [0], match._match_move
@@ -1586,12 +1578,125 @@ def phase_bench(card):
           flush=True)
 
 
+# -----------------------------------------------------------------------------
+# Phase 13: the web server, its bot on the card, against the baseline
+# -----------------------------------------------------------------------------
+
+def http_json(base, path, body=None):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, headers={
+        "Content-Type": "application/json"}, method="GET" if body is None
+        else "POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+@phase("phase 13 web server")
+def phase_web(dev, net, card):
+    import tempfile
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from alphazero_torch.env import OracleGame
+    from alphazero_torch.models.convert import config_from_archive
+    from alphazero_torch.search import kernels as K
+    from alphazero_torch.train import checkpoint as ckpt
+    from alphazero_torch.train.learner import TrainState, make_optimizer
+    from alphazero_torch.web import server
+
+    sims = WEB_SIMS
+    with tempfile.TemporaryDirectory() as tmp:
+        # the archive as the port's model_best, which the bot loads first
+        cfg = config_from_archive(ARCHIVE).replace(checkpoint_dir=tmp)
+        check(cfg.num_simulations_inference == sims, "inference sims")
+        ckpt.save_iteration_checkpoint(
+            cfg, TrainState(net, make_optimizer(cfg, net)), 0,
+            name=cfg.best_model)
+        session = server.GameSession(cfg, device=dev)
+        check(session.bot.model_name == cfg.best_model,
+              f"the bot loaded {session.bot.model_name}")
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                    server.make_handler(session, cfg))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        real_ms, server.BASELINE_TIME_MS = (server.BASELINE_TIME_MS,
+                                            WEB_BASELINE_MS)
+        az_s, base_s, base_nodes, evals = [], [], [], []
+        total = {"descend": 0, "commit_edges": 0}
+        try:
+            check(http_json(base, "/api/models")["current"]
+                  == cfg.best_model, "/api/models")
+            legal = [list(m) for m in OracleGame().get_legal_moves()]
+            request = ("/api/new", {"white_type": "alphazero",
+                                    "black_type": "baseline"})
+            plies = 0
+            while plies < WEB_PLIES:
+                az_turn = plies % 2 == 0          # AlphaZero plays White
+                K.descend.launches = K.commit_edges.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.time()
+                r = http_json(base, *request)
+                dt = time.time() - t0
+                check(r["bot_move"] in legal,
+                      f"ply {plies}: {r['bot_move']} not in the legal "
+                      f"moves {legal}")
+                check(-1.0 <= r["evaluation"] <= 1.0, f"evaluation {r}")
+                launches = (K.descend.launches, K.commit_edges.launches)
+                total["descend"] += launches[0]
+                total["commit_edges"] += launches[1]
+                if az_turn:
+                    check(launches == (sims, sims) and "engine" not in r,
+                          f"AlphaZero move {plies}: {launches} launches")
+                    az_s.append(dt)
+                    evals.append(r["evaluation"])
+                else:
+                    check(launches == (0, 0) and r["engine"]["nodes"] > 0,
+                          f"baseline move {plies}: {launches}, {r}")
+                    base_s.append(dt)
+                    base_nodes.append(r["engine"]["nodes"])
+                plies += 1
+                legal = r["legal_moves"]
+                if r["game_over"]:
+                    break
+                request = ("/api/bot_move", {})
+            state = http_json(base, "/api/state")
+            for key in ("board", "turn", "game_over", "result",
+                        "legal_moves"):
+                check(state[key] == r[key],
+                      f"/api/state {key} {state[key]} != {r[key]}")
+        finally:
+            server.BASELINE_TIME_MS = real_ms
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+    check(not thread.is_alive(), "the server thread did not stop")
+    print("web " + json.dumps({
+        "plies": plies, "game_over": r["game_over"], "result": r["result"],
+        "alphazero": {"batch": 1, "sims": sims, "net": "20x128 bf16",
+                      "moves": len(az_s),
+                      "first_move_s": az_s[0],
+                      "s_per_move_after_first": (sum(az_s[1:])
+                                                 / max(len(az_s) - 1, 1)),
+                      "min_s": min(az_s), "max_s": max(az_s),
+                      "evaluations": evals},
+        "baseline": {"ms": WEB_BASELINE_MS, "cut_from_ms": real_ms,
+                     "moves": len(base_s),
+                     "s_per_move": sum(base_s) / max(len(base_s), 1),
+                     "nodes_per_s": sum(base_nodes) / max(sum(base_s),
+                                                          1e-9)},
+        "launches": total, "card": card}), flush=True)
+    return total
+
+
 def main(argv=None) -> int:
     """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
     kernels, search, cpu, continuous, tower, fused, trainer, qconv, quant,
-    arena, bench) runs only those, for work on one of them, and then prints
-    no ``kernels`` line (quant and arena run the qconv phase first, arena
-    the quant phase)."""
+    arena, bench, web) runs only those, for work on one of them, and then
+    prints no ``kernels`` line (quant and arena run the qconv phase first,
+    arena the quant phase)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1605,7 +1710,9 @@ def main(argv=None) -> int:
     # net's checks and for the trainer's steps alike
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line()
+    from alphazero_torch.strength.common import device_line
+
+    card = device_line(dev)
     t0 = time.time()
     libs = cuda_build.build(["tree_kernels", "tower_kernel", "qconv_kernel"])
     build_s = time.time() - t0
@@ -1641,6 +1748,8 @@ def main(argv=None) -> int:
         phase_arena(dev, evals, card)
     if want("bench"):
         phase_bench(card)
+    if want("web"):
+        web_launches = phase_web(dev, net, card)
 
     if not only:
         # "launches" are the main path's own; fetch_rows is launched by the
@@ -1648,8 +1757,10 @@ def main(argv=None) -> int:
         # and nowhere on the search path
         on_path = ("descend", "commit_edges", "tower_forward", "qconv3x3")
         check(all(launches[k] > 0 for k in on_path)
-              and all(v > 0 for v in trainer_launches.values()),
-              f"a kernel was not launched: {launches}, {trainer_launches}")
+              and all(v > 0 for v in trainer_launches.values())
+              and all(v > 0 for v in web_launches.values()),
+              f"a kernel was not launched: {launches}, {trainer_launches}, "
+              f"{web_launches}")
         src = "alphazero_torch/csrc/tree_kernels.cu"
         replaces = {"descend": "alphazero_tpu/search/kernels.py:50",
                     "fetch_rows": "alphazero_tpu/search/kernels.py:50",
@@ -1661,6 +1772,9 @@ def main(argv=None) -> int:
             "bound_ms": bounds[name], "bound_by": "bytes",
         } for name in ("descend", "fetch_rows", "commit_edges")]
         kernels[1]["check_launches"] = kernel_launches["fetch_rows"]
+        # the web bot's path (phase 13), batch 1
+        kernels[0]["web_launches"] = web_launches["descend"]
+        kernels[2]["web_launches"] = web_launches["commit_edges"]
         kernels.append({
             "name": "tower_forward", "route": "cuda",
             "source": "alphazero_torch/csrc/tower_kernel.cu",

@@ -35,6 +35,8 @@ def test_the_port_imports_nothing_of_jax():
     files = sorted((ROOT / "alphazero_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    for sub in ("baseline", "web", "strength"):
+        assert ROOT / "alphazero_torch" / sub / "__init__.py" in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -72,12 +74,49 @@ def test_train_then_arena_through_the_cli(tmp_path):
 
 
 def test_cli_refuses_web_and_jax_only_flags(capsys):
-    for argv in (["web"], ["train", "--scan-blocks"],
-                 ["train", "--distributed"], ["arena", "--debug-nans"]):
+    for argv in (["web", "--scan-blocks"], ["train", "--scan-blocks"],
+                 ["train", "--distributed"], ["arena", "--debug-nans"],
+                 ["web", "--debug-nans"]):
         with pytest.raises(SystemExit) as e:
             main(argv)
         assert e.value.code == 2
     capsys.readouterr()
+
+
+def test_web_through_the_cli(monkeypatch, tmp_path):
+    """``python -m alphazero_torch web --cpu --port 0`` serves from a thread,
+    answers ``/api/config`` and shuts down."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from alphazero_torch.web import server
+
+    started = []
+
+    class Recorded(ThreadingHTTPServer):
+        def serve_forever(self, *a, **kw):
+            started.append(self)
+            super().serve_forever(*a, **kw)
+
+    monkeypatch.setattr(server, "ThreadingHTTPServer", Recorded)
+    argv = ["web", "--cpu", "--host", "127.0.0.1", "--port", "0",
+            "--blocks", "1", "--filters", "8", "--sims", "4",
+            "--checkpoint-dir", str(tmp_path)]
+    t = threading.Thread(target=main, args=(argv,), daemon=True)
+    t.start()
+    for _ in range(600):
+        if started or not t.is_alive():
+            break
+        t.join(timeout=0.1)
+    assert started, "the server did not start"
+    httpd = started[0]
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/api/config"
+    with urllib.request.urlopen(url, timeout=60) as r:
+        assert json.loads(r.read()) == {"board_size": 8, "num_actions": 192}
+    httpd.shutdown()
+    t.join(timeout=30)
+    assert not t.is_alive()
 
 
 def _tiny_bench(**kw):
