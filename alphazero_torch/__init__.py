@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of ``alphazero_tpu`` (AlphaZero for Breakthrough).
 
 The module layout mirrors the JAX package: ``config``, ``env``,
-``models``, ``search``, ``train``, ``arena``, ``baseline``, ``web`` and
-``utils``, with the CLI in ``main`` (``python -m alphazero_torch
+``models``, ``search``, ``train``, ``parallel`` (data parallelism over
+``torch.distributed``, one process per card), ``arena``, ``baseline``,
+``web`` and ``utils``, with the CLI in ``main`` (``python -m alphazero_torch
 train|web|arena``), the bench in ``bench`` and the JAX package's
 strength-gate scripts as ``strength``. The JAX package's three Pallas
 kernels are hand-written CUDA here: the two search-tree kernels

@@ -4,8 +4,8 @@ Port of ``alphazero_tpu/arena/elo.py``: K=32 updates with the standard
 expected score, initial rating 1000, JSON persistence with the same schema
 (ratings / matches / best_model / match_counts / last_updated), match
 counts rebuilt from history on load, best-model tracking synced to a
-``model_best`` checkpoint on change. The port runs as one process, so it
-always writes (the JAX package writes from its coordinator only).
+``model_best`` checkpoint on change. Under a process group only the
+coordinator (rank 0) writes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 from alphazero_torch.config import Config
 from alphazero_torch.train import checkpoint as ckpt
+from alphazero_torch.utils import is_coordinator
 
 INITIAL_ELO = 1000.0
 K_FACTOR = 32.0
@@ -55,6 +56,8 @@ class ArenaState:
             self.match_counts[key] = self.match_counts.get(key, 0) + games
 
     def save(self) -> None:
+        if not is_coordinator():
+            return
         os.makedirs(os.path.dirname(self.state_file) or ".", exist_ok=True)
         data = {
             "ratings": self.ratings,

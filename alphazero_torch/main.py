@@ -5,8 +5,12 @@
     python -m alphazero_torch arena     # continuous ELO matchmaking daemon
 
 The flags of the JAX package's ``main.py`` that mean something here; on
-the card by default, on the CPU with ``--cpu``. ``--scan-blocks``,
-``--distributed`` and ``--debug-nans`` belong to JAX and are not offered.
+the card by default, on the CPU with ``--cpu``. ``--scan-blocks`` belongs
+to JAX and is not offered. Several cards, one process each:
+
+    torchrun --nproc-per-node N -m alphazero_torch train --distributed
+
+(NCCL; with ``--cpu``, gloo processes on the CPU).
 """
 
 from __future__ import annotations
@@ -42,6 +46,13 @@ def add_common(p: argparse.ArgumentParser) -> None:
                    help="stream learn batches from the host instead of "
                         "the device-resident replay window")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group torchrun describes: one "
+                        "process per card (NCCL), or gloo processes on the "
+                        "CPU with --cpu; train shards its learner batch")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="autograd anomaly detection: raise where a "
+                        "backward pass makes a NaN")
 
 
 def build_config(args) -> Config:
@@ -68,7 +79,7 @@ def build_config(args) -> Config:
     return Config(checkpoint_dir=args.checkpoint_dir, **over)
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m alphazero_torch",
         description="AlphaZero for Breakthrough on PyTorch/CUDA")
@@ -92,19 +103,38 @@ def main(argv=None) -> None:
     p_arena = sub.add_parser("arena", help="continuous ELO matchmaking")
     add_common(p_arena)
     p_arena.add_argument("--rounds", type=int, default=None)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
     cfg = build_config(args)
 
-    from alphazero_torch.utils import setup_logging
+    from alphazero_torch.utils import (
+        enable_debug_checks,
+        init_distributed,
+        setup_logging,
+    )
 
     log = setup_logging()
+    if args.debug_nans:
+        enable_debug_checks()
+    mesh = None
+    if args.distributed:
+        from alphazero_torch.parallel import make_mesh
+
+        # before anything touches the card: it takes LOCAL_RANK's
+        rank = init_distributed(device=device if args.cpu else None)
+        mesh = make_mesh(device=device if args.cpu else None)
+        device = mesh.device
+        log.info("process group: rank %d of %d (%s) on %s", rank,
+                 mesh.world, mesh.backend, device)
     if args.command == "train":
         from alphazero_torch.models.network import count_params
         from alphazero_torch.train import Trainer
 
-        trainer = Trainer(cfg, seed=args.seed, device=device)
+        trainer = Trainer(cfg, seed=args.seed, device=device, mesh=mesh)
         trainer.profile_dir = args.profile
         log.info("model: %d blocks x %d filters, %s params on %s",
                  cfg.num_blocks, cfg.num_filters,

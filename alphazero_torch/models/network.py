@@ -26,11 +26,31 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from alphazero_torch import resolve_device
 from alphazero_torch.config import Config
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A SUM all-reduce over ``group`` whose backward is one too: the
+    gradient of every rank's loss with respect to the global sum reaches
+    every rank's local share of it."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -40,14 +60,31 @@ class BatchNorm2d(nn.BatchNorm2d):
     takes the BIASED batch variance, as the normalisation itself does
     (PyTorch's own update takes the unbiased one, larger by n/(n-1),
     n = B*64). Eval mode, parameters and buffers are ``nn.BatchNorm2d``'s.
+
+    With a ``process_group`` (``parallel.replicate`` attaches it; it is no
+    part of the ``state_dict``) train mode takes the statistics of the
+    GLOBAL batch, as the JAX package's mesh does: the per-channel sums of
+    x and x^2 and the count are summed over the group in float32 by one
+    all-reduce that autograd carries back (a second in the backward), and
+    the variance is Flax's fast one, max(E[x^2] - E[x]^2, 0). A copy of
+    the module (``copy.deepcopy``, as the search evaluator's bf16 net is
+    made) keeps no group: a process group cannot be copied.
     """
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.01)
+        self.process_group = None
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["process_group"] = None
+        return state
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._global_batch_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean.to(self.running_mean.dtype),
@@ -56,6 +93,26 @@ class BatchNorm2d(nn.BatchNorm2d):
                                    self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        C = x.shape[1]
+        xf = x.float()
+        count = torch.full((1,), x.numel() // C, dtype=torch.float32,
+                           device=x.device)
+        sums = _AllReduceSum.apply(
+            torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]),
+            self.process_group)
+        n = sums[2 * C]
+        mean = sums[:C] / n
+        var = (sums[C:2 * C] / n - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean[:, None, None]) * scale[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
 
 
 class SqueezeExcite(nn.Module):

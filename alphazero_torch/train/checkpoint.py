@@ -11,6 +11,10 @@ and renamed, so a directory named ``iteration_N`` is always complete.
 The cosine schedule's T_max is intentionally NOT stored: the schedule is
 a closed form over (learn_calls, live Config).
 
+Under a process group every rank holds the same replicated state: rank 0
+alone writes (``utils.is_coordinator``), and every rank reads. The trainer
+puts a barrier after each save.
+
 The payloads of the two packages differ (Orbax there, ``torch.save``
 here); weights cross from the JAX package through the archive npz
 (``models/convert.load_archive``).
@@ -29,6 +33,7 @@ import torch
 
 from alphazero_torch.config import Config
 from alphazero_torch.train.learner import TrainState
+from alphazero_torch.utils import is_coordinator
 
 _ITER_RE = re.compile(r"iteration_(\d+)$")
 _PAYLOAD = "state.pt"
@@ -41,9 +46,12 @@ def _ckpt_dir(cfg: Config, name: str) -> str:
 
 def save_iteration_checkpoint(cfg: Config, state: TrainState, iteration: int,
                               name: Optional[str] = None) -> str:
-    """Save ``state`` as checkpoints/iteration_N (a directory)."""
+    """Save ``state`` as checkpoints/iteration_N (a directory), on the
+    coordinator only; every rank gets the path."""
     name = name or f"iteration_{iteration}"
     path = _ckpt_dir(cfg, name)
+    if not is_coordinator():
+        return path
     tmp = path + ".tmp"
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     if os.path.exists(tmp):
@@ -120,7 +128,10 @@ def list_checkpoints(cfg: Config) -> Dict[str, str]:
 
 
 def sync_best_model(cfg: Config, name: str) -> None:
-    """Copy checkpoint ``name`` to checkpoints/model_best."""
+    """Copy checkpoint ``name`` to checkpoints/model_best (on the
+    coordinator only)."""
+    if not is_coordinator():
+        return
     src = _ckpt_dir(cfg, name)
     dst = _ckpt_dir(cfg, cfg.best_model)
     if os.path.exists(src):

@@ -34,6 +34,7 @@ import torch
 from alphazero_torch import resolve_device
 from alphazero_torch.config import Config
 from alphazero_torch.models.network import AlphaZeroNet
+from alphazero_torch.parallel.mesh import all_reduce_mean_
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -119,11 +120,16 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 
 def train_step(state: TrainState, batch: Batch, mirror_bits: torch.Tensor,
-               cfg: Config) -> Dict[str, torch.Tensor]:
+               cfg: Config, mesh=None) -> Dict[str, torch.Tensor]:
     """One SGD step on ``state``, in place. ``batch`` is (planes
     (B,3,8,8), target policy (B,192), target WL (B,2)) on the state's
     device; ``mirror_bits`` (B,) bool selects per-sample horizontal
-    mirroring. Returns loss, loss_pi, loss_wl (0-dim tensors) and lr."""
+    mirroring. Returns loss, loss_pi, loss_wl (0-dim tensors) and lr.
+
+    With a ``parallel.Mesh`` (and ``state`` replicated over it) the batch
+    is this rank's shard of the global batch: the gradients are averaged
+    over the group before the clip, and the losses returned are the
+    global batch's (``parallel.sharded_train_step``)."""
     states, target_pi, target_wl = batch
     states = states.float()
 
@@ -139,7 +145,15 @@ def train_step(state: TrainState, batch: Batch, mirror_bits: torch.Tensor,
     state.opt.zero_grad(set_to_none=True)
     loss, loss_pi, loss_wl = loss_fn(state.net, states, target_pi, target_wl)
     loss.backward()
-    clip_by_global_norm_(list(state.net.parameters()), cfg.grad_clip_norm)
+    params = list(state.net.parameters())
+    if mesh is not None:
+        # BatchNorm's backward all-reduce already carried every rank's
+        # loss through the global statistics: average once, here, in the
+        # same all-reduce as the losses
+        losses = torch.stack([loss, loss_pi, loss_wl]).detach()
+        all_reduce_mean_(mesh, [p.grad for p in params] + [losses])
+        loss, loss_pi, loss_wl = losses
+    clip_by_global_norm_(params, cfg.grad_clip_norm)
     state.opt.step()
     return {"loss": loss.detach(), "loss_pi": loss_pi.detach(),
             "loss_wl": loss_wl.detach(), "lr": lr}
@@ -155,7 +169,7 @@ def update_rows(states, policies, wls, s_upd, p_upd, w_upd, start: int):
 
 
 def train_epoch(state: TrainState, buf: Batch, base_idx: torch.Tensor,
-                mirror: torch.Tensor, cfg: Config
+                mirror: torch.Tensor, cfg: Config, mesh=None
                 ) -> Dict[str, torch.Tensor]:
     """A whole learn epoch over the device-resident replay window.
 
@@ -164,12 +178,13 @@ def train_epoch(state: TrainState, buf: Batch, base_idx: torch.Tensor,
     ``epoch_batches`` outputs, also on the device. Each step gathers its
     minibatch on the device and runs ``train_step``, so the host uploads
     no batch and reads no metric per step. Returns the metrics stacked
-    over steps ((steps,) per key)."""
+    over steps ((steps,) per key). With ``mesh`` the window is this
+    rank's replay shard and every step is ``train_step``'s sharded one."""
     states_u8, policies, wls = buf
     steps = []
     for bi, mi in zip(base_idx, mirror):
         batch = (states_u8[bi], policies[bi], wls[bi])
-        steps.append(train_step(state, batch, mi, cfg))
+        steps.append(train_step(state, batch, mi, cfg, mesh=mesh))
     out = {k: torch.stack([s[k] for s in steps])
            for k in ("loss", "loss_pi", "loss_wl")}
     out["lr"] = torch.full((len(steps),), steps[0]["lr"],

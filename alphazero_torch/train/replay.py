@@ -1,8 +1,9 @@
 """Replay buffer + on-disk training data persistence.
 
 An independent copy of ``alphazero_tpu/train/replay.py`` (pure numpy
-there too), so that this package imports nothing of the JAX one; the
-per-host shard path is left out until the port runs on several devices.
+there too), so that this package imports nothing of the JAX one. Each
+rank of a multi-process run keeps its own replay shard
+(``host_data_path``).
 
 In memory: a fixed-capacity numpy ring buffer (planes stored as uint8,
 they are 0/1).
@@ -103,6 +104,20 @@ class ReplayBuffer:
                 self.policies[idx], self.wls[idx])
 
 
+def host_data_path(path: str, process_index: int) -> str:
+    """Per-host replay shard path (SURVEY.md §5: replay examples stay
+    host-local). Process 0 keeps the reference's exact filename
+    (``training_data.npz``) so single-host runs match the reference
+    contract; other hosts write ``..._p{i}.npz`` beside it."""
+    if process_index == 0:
+        return path
+    root, ext = os.path.splitext(path)
+    if root.endswith(".npz"):   # handles .npz inside compound suffixes
+        root, ext2 = os.path.splitext(root)
+        ext = ext2 + ext
+    return f"{root}_p{process_index}{ext}"
+
+
 def epoch_batches(rng: np.random.Generator, n_examples: int,
                   batch_size: int,
                   steps: int | None = None
@@ -117,7 +132,8 @@ def epoch_batches(rng: np.random.Generator, n_examples: int,
     packages the same batches.
 
     ``steps`` overrides the step count (the permutation is truncated or
-    wrapped to fit).
+    wrapped to fit): under a process group every rank runs rank 0's
+    count over its own shard, since collectives are lockstep.
 
     Returns (base_idx, mirror), each (steps, batch_size): buffer row
     indices and the per-sample mirror-augmentation flag.

@@ -1,13 +1,21 @@
 """Trainer: orchestrates self-play -> replay -> learn -> checkpoint.
 
-Port of ``alphazero_tpu/train/trainer.py``, single device: resume from the
-latest iteration checkpoint, reload the newest ``buffer_size`` examples
-from disk, then forever {self-play for ``selfplay_batches x
-parallel_games`` games -> learn 1 epoch -> append data -> checkpoint}.
-Every artifact is re-loadable and the loop is idempotent per iteration,
-so a run can be stopped anywhere and restarted. The mesh and multi-process
-branches of the JAX package are left out until the port runs on several
-devices.
+Port of ``alphazero_tpu/train/trainer.py``: resume from the latest
+iteration checkpoint, reload the newest ``buffer_size`` examples from
+disk, then forever {self-play for ``selfplay_batches x parallel_games``
+games -> learn 1 epoch -> append data -> checkpoint}. Every artifact is
+re-loadable and the loop is idempotent per iteration, so a run can be
+stopped anywhere and restarted.
+
+With a ``parallel.Mesh`` (one process per card) the trainer follows the
+JAX package's multi-host branches: every rank plays its own games from
+its own streams and keeps its own replay shard; the learner batch is
+sharded over the ranks (``cfg.batch_size`` must divide by their number),
+with parameters replicated, global-batch BatchNorm and averaged
+gradients; every rank runs rank 0's step count; rank 0 alone writes
+checkpoints and metrics, and a barrier follows each save. The JAX
+package's single-process, several-device layout, with its warnings and
+unsharded fallbacks, has no counterpart here.
 """
 
 from __future__ import annotations
@@ -24,6 +32,12 @@ import torch
 from alphazero_torch import resolve_device
 from alphazero_torch.config import Config
 from alphazero_torch.models.network import AlphaZeroNet, build_network
+from alphazero_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    broadcast_int,
+    replicate,
+)
 from alphazero_torch.search.mcts import make_net_evaluator
 from alphazero_torch.train import checkpoint as ckpt
 from alphazero_torch.train.learner import (
@@ -37,13 +51,14 @@ from alphazero_torch.train.replay import (
     ReplayBuffer,
     append_training_data,
     epoch_batches,
+    host_data_path,
     load_training_data,
 )
 from alphazero_torch.train.selfplay import (
     selfplay_games,
     selfplay_games_continuous,
 )
-from alphazero_torch.utils import profile_trace, setup_logging
+from alphazero_torch.utils import is_coordinator, profile_trace, setup_logging
 
 log = setup_logging()
 
@@ -51,12 +66,27 @@ log = setup_logging()
 class Trainer:
     def __init__(self, cfg: Config, seed: int = 0,
                  net: Optional[AlphaZeroNet] = None,
-                 state: Optional[TrainState] = None, device="cuda"):
+                 state: Optional[TrainState] = None, device="cuda",
+                 mesh: Optional[Mesh] = None):
         if cfg.selfplay_quant not in ("off", "dynamic", "static"):
             raise ValueError(f"selfplay_quant={cfg.selfplay_quant!r}: "
                              "expected 'off', 'dynamic' or 'static'")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rank, self.world = (mesh.rank, mesh.world) if mesh else (0, 1)
+        if mesh is None:
+            self.device = resolve_device(device)
+        elif torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} but the mesh is on "
+                             f"{mesh.device}")
+        else:
+            self.device = mesh.device
+        if cfg.batch_size % self.world:
+            # the unsharded fallback would train each rank on its own data
+            # with no all-reduce: parameters would silently diverge
+            raise ValueError(
+                f"batch_size {cfg.batch_size} is not divisible by "
+                f"{self.world} ranks: pick a divisible batch size")
         if state is None:
             if net is None:
                 net = build_network(
@@ -64,12 +94,18 @@ class Trainer:
                     generator=torch.Generator().manual_seed(seed))
             state = create_train_state(cfg, net, device=self.device)
         self.state = state
+        if mesh is not None:
+            replicate(mesh, self.state)
         self.buffer = ReplayBuffer(cfg.buffer_size,
                                    num_actions=cfg.num_actions)
-        # explicit streams: self-play noise and sampling on the device,
-        # epoch shuffling on the host
-        self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
-        self.np_rng = np.random.default_rng(seed + 2)
+        # explicit streams, one set per rank (every rank plays different
+        # games): self-play noise and sampling on the device, epoch
+        # shuffling on the host; rank 0's are the single-process ones.
+        # The CPU generator keeps 32 bits of a seed.
+        gen_seed = seed + 1 if self.rank == 0 else int(
+            np.random.SeedSequence((seed + 1, self.rank)).generate_state(1)[0])
+        self.gen = torch.Generator(device=self.device).manual_seed(gen_seed)
+        self.np_rng = np.random.default_rng(seed + 2 + self.rank)
         self.iteration = int(state.iteration)
         # structured per-iteration metrics (stdout logging + JSONL file)
         self.metrics_path = cfg.checkpoint_path("metrics.jsonl")
@@ -87,6 +123,8 @@ class Trainer:
         if self.profile_dir and phase not in self._profiled:
             self._profiled.add(phase)
             logdir = os.path.join(self.profile_dir, phase)
+            if self.world > 1:
+                logdir += f"_rank{self.rank}"
             log.info("profiling %s phase -> %s", phase, logdir)
             return profile_trace(logdir)
         return contextlib.nullcontext()
@@ -154,11 +192,27 @@ class Trainer:
     def learn(self, epochs: Optional[int] = None,
               batch_size: Optional[int] = None) -> Dict[str, float]:
         """One learn() call: iterate over the (2x-augmented) buffer for
-        ``epochs``, then advance the cosine schedule once."""
+        ``epochs``, then advance the cosine schedule once.
+
+        Under a mesh each rank draws its ``batch_size // world`` share of
+        every global batch from its own shard, for rank 0's step count."""
         epochs = epochs if epochs is not None else self.cfg.training_epochs
         batch_size = batch_size or self.cfg.batch_size
         if len(self.buffer) == 0:
             return {}
+        if batch_size % self.world:
+            raise RuntimeError(
+                f"learn(batch_size={batch_size}) cannot be sharded over "
+                f"{self.world} ranks: an unsharded step would train each "
+                "rank on its own data with no all-reduce (silent parameter "
+                "divergence)")
+        local_bs = batch_size // self.world
+        steps = None
+        if self.world > 1:
+            # collectives are lockstep: every rank runs rank 0's count
+            # (epoch_batches wraps or truncates its own permutation)
+            steps = broadcast_int(
+                self.mesh, max(1, -(-2 * len(self.buffer) // local_bs)))
 
         # Metrics stay on the device until the end: reading one per step
         # would block the host on every step.
@@ -168,20 +222,21 @@ class Trainer:
                 # every buffered example in both orientations exactly
                 # once, shuffled (see epoch_batches)
                 base_idx, mirrors = epoch_batches(
-                    self.np_rng, len(self.buffer), batch_size)
+                    self.np_rng, len(self.buffer), local_bs, steps=steps)
                 if self.cfg.device_replay:
                     step_metrics.append(train_epoch(
                         self.state, self._device_replay(),
                         torch.from_numpy(base_idx).to(self.device),
                         torch.from_numpy(mirrors).to(self.device),
-                        self.cfg))
+                        self.cfg, mesh=self.mesh))
                     continue
                 for bi, mirror in zip(base_idx, mirrors):
                     batch = tuple(torch.from_numpy(x).to(self.device)
                                   for x in self.buffer.get(bi))
                     m = train_step(
                         self.state, batch,
-                        torch.from_numpy(mirror).to(self.device), self.cfg)
+                        torch.from_numpy(mirror).to(self.device), self.cfg,
+                        mesh=self.mesh)
                     step_metrics.append(
                         {k: torch.as_tensor(v, dtype=torch.float32,
                                             device=self.device).reshape(1)
@@ -193,10 +248,19 @@ class Trainer:
         return {k: float(np.mean(v)) for k, v in host.items()}
 
     # -- persistence ---------------------------------------------------------
+    # Every rank holds the same replicated state, so checkpoints and
+    # metrics are written by rank 0 only (utils.is_coordinator); replay
+    # shards are per rank.
+
     def save(self, iteration: Optional[int] = None) -> str:
         it = self.iteration if iteration is None else iteration
         self.state.iteration = int(it)
-        return ckpt.save_iteration_checkpoint(self.cfg, self.state, it)
+        path = ckpt.save_iteration_checkpoint(self.cfg, self.state, it)
+        if self.mesh is not None:
+            # no rank may go on (or resume()) before rank 0's checkpoint
+            # is whole on disk
+            barrier(self.mesh)
+        return path
 
     def _rebuild_net(self, cfg: Config) -> None:
         """Rebuild the net and the train state for a config whose
@@ -205,6 +269,8 @@ class Trainer:
         net = build_network(cfg, device=self.device,
                             generator=torch.Generator().manual_seed(0))
         self.state = create_train_state(cfg, net, device=self.device)
+        if self.mesh is not None:
+            replicate(self.mesh, self.state)
 
     def resume(self) -> int:
         """Load the latest checkpoint + replay tail; returns iteration.
@@ -231,15 +297,17 @@ class Trainer:
             self.state = ckpt.load_checkpoint(path, self.state)
             self.state.net.eval()
             self.iteration = it
-        loaded = load_training_data(
-            self.cfg.checkpoint_path(self.cfg.data_file), self.buffer)
+        loaded = load_training_data(self._data_path(), self.buffer)
         if it or loaded:
             log.info("resumed at iteration %d with %d examples", it, loaded)
         return it
 
+    def _data_path(self) -> str:
+        return host_data_path(self.cfg.checkpoint_path(self.cfg.data_file),
+                              self.rank)
+
     def append_data(self, examples) -> int:
-        return append_training_data(
-            self.cfg.checkpoint_path(self.cfg.data_file), examples)
+        return append_training_data(self._data_path(), examples)
 
     # -- the loop ------------------------------------------------------------
     def run_iteration(self) -> Dict[str, float]:
@@ -300,6 +368,8 @@ class Trainer:
         return metrics
 
     def _write_metrics(self, metrics: Dict) -> None:
+        if not is_coordinator():
+            return
         try:
             os.makedirs(os.path.dirname(self.metrics_path) or ".",
                         exist_ok=True)

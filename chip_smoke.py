@@ -60,7 +60,23 @@ exiting non-zero:
   most 40 plies; every move legal, ``/api/state`` equal to the last
   answer, each AlphaZero move 200 ``descend`` and 200 ``commit_edges``
   launches (their sums go into the ``kernels`` line as
-  ``web_launches``); the seconds of both players' moves.
+  ``web_launches``); the seconds of both players' moves;
+- phase 14: the distributed trainer (``alphazero_torch/parallel``) at
+  full width, f32 learning with TF32 off, global batch 1024, in worker
+  processes: (a) two ranks on the one card over gloo, 64 lanes x 32
+  simulations each (phase 8's 128 lanes together): one ``run_iteration``,
+  then fresh trainers ``resume()`` and run a second; weights bit-equal
+  across ranks after each and equal to the saved ones, one metrics line
+  an iteration, two replay shards that differ, one ``descend`` and one
+  ``commit_edges`` launch a simulation on each rank; then one train step
+  on a fixed global batch, each rank on its half, against the
+  one-process ``train_step`` on the whole batch from the same weights
+  (loss rtol 2e-5, weights atol 5e-4 rtol 5e-3, running statistics
+  1e-5), both timed, and the all-reduces a step counted; (b) one rank
+  over NCCL through ``init_distributed()`` from ``torchrun``'s
+  variables: one iteration at the same shape, a step timed, the NCCL
+  kernels of a step counted from a profile. Their launches go into the
+  ``kernels`` line as ``dist_launches``.
 
 The second-to-last lines are the ``kernels`` JSON object and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -71,8 +87,10 @@ A profile summary of one short search goes to
 import copy
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -98,6 +116,9 @@ BENCH_ENV = {"AZTPU_BENCH_GAMES": "128", "AZTPU_BENCH_SIMS": "64",
 INT8_OPS_PER_S = 1979e12           # H100 SXM data sheet, dense int8
 TOWER_BLOCKS = 20
 TRAIN_LANES, TRAIN_SIMS, TRAIN_BATCH = 128, 32, 1024
+# phase 14: lanes a rank (two ranks play phase 8's TRAIN_LANES), timed
+# steps, and the seconds a launch of workers may take
+DIST_LANES, DIST_TIMED_STEPS, DIST_TIMEOUT = 64, 3, 300
 FUSED_EVALS = 800
 # bf16 forward of the archived net against its f32 forward: max difference
 # in a logit, a probability and the value. The JAX package's own bf16
@@ -1116,8 +1137,6 @@ def profile_train_steps(step, n=3):
 
 @phase("phase 8 trainer")
 def phase_trainer(dev, card):
-    import tempfile
-
     from alphazero_torch.models.convert import (
         config_from_archive,
         load_archive,
@@ -1252,7 +1271,7 @@ def phase_trainer(dev, card):
                                  "selfplay_seconds", "learn_seconds",
                                  "sims_per_sec", "games_per_hour")},
             "card": card}), flush=True)
-    return launches
+    return launches, step_ms
 
 
 # -----------------------------------------------------------------------------
@@ -1691,10 +1710,354 @@ def phase_web(dev, net, card):
     return total
 
 
+# -----------------------------------------------------------------------------
+# Phase 14: the distributed trainer (worker processes)
+# -----------------------------------------------------------------------------
+
+def _state_digest(net) -> int:
+    """63-bit digest of a net's parameters and buffers, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(net.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return int.from_bytes(h.digest()[:8], "big") >> 1
+
+
+def _gather_ints(mesh, values):
+    """Every rank's ``values`` (a list of ints), by rank."""
+    import torch.distributed as dist
+
+    from alphazero_torch.parallel import collective_device
+
+    t = torch.tensor(values, dtype=torch.int64,
+                     device=collective_device(mesh))
+    out = [torch.zeros_like(t) for _ in range(mesh.world)]
+    dist.all_gather(out, t, group=mesh.group)
+    return [o.tolist() for o in out]
+
+
+def _timed_steps(mesh, step, n):
+    """Host ms of each of ``n`` calls of ``step()``, each between a
+    device synchronisation (and, with ``mesh``, a barrier) and one."""
+    from alphazero_torch.parallel import barrier
+
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        if mesh is not None:
+            barrier(mesh)
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _stopwatch(t0):
+    """(seconds, lap): ``lap(name)`` records the seconds since ``t0`` or
+    the last lap under ``name``."""
+    seconds, last = {}, [t0]
+
+    def lap(name):
+        now = time.time()
+        seconds[name] = now - last[0]
+        last[0] = now
+    return seconds, lap
+
+
+def _profiled_step(step):
+    """One ``step()`` under ``torch.profiler``: all-reduces issued (the
+    ``c10d::allreduce_`` operator), device kernels and NCCL kernels among
+    them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    return {"all_reduces": sum(e.count for e in events
+                               if e.key == "c10d::allreduce_"),
+            "device_kernels": sum(e.count for e in device),
+            "nccl_kernels": sum(e.count for e in device
+                                if "nccl" in e.key.lower())}
+
+
+def _dist_iteration(tr):
+    """One ``run_iteration`` with the tree kernels' counts from 0; checks
+    one ``descend`` and one ``commit_edges`` launch a simulation."""
+    from alphazero_torch.parallel import broadcast_int
+    from alphazero_torch.search import kernels as K
+    from alphazero_torch.search import mcts
+
+    K.descend.launches = K.commit_edges.launches = 0
+    mcts.STATS.reset()
+    m = tr.run_iteration()
+    launches = {"descend": K.descend.launches,
+                "commit_edges": K.commit_edges.launches}
+    check(launches["descend"] == launches["commit_edges"]
+          == mcts.STATS.simulations > 0,
+          f"rank {tr.rank}: {launches} for {mcts.STATS.simulations} "
+          f"simulations")
+    check(all(np.isfinite(m[k]) for k in ("loss", "loss_pi", "loss_wl")),
+          f"rank {tr.rank}: loss not finite: {m}")
+    # every rank ran rank 0's step count (Trainer.learn)
+    steps = broadcast_int(tr.mesh, max(1, -(-2 * m["buffer"] // (
+        tr.cfg.batch_size // tr.world))))
+    return {"launches": launches, "simulations": mcts.STATS.simulations,
+            **{k: m[k] for k in ("loss", "examples_new", "buffer",
+                                 "selfplay_seconds", "learn_seconds",
+                                 "sims_per_sec")},
+            "learn_steps": steps,
+            "learn_ms_per_step": m["learn_seconds"] * 1e3 / steps}
+
+
+def _dist_config(workdir):
+    from alphazero_torch.models.convert import config_from_archive
+
+    return config_from_archive(ARCHIVE).replace(
+        num_simulations=TRAIN_SIMS, parallel_games=DIST_LANES,
+        selfplay_batches=1, batch_size=TRAIN_BATCH,
+        checkpoint_dir=os.path.join(workdir, "checkpoints"))
+
+
+def _dist_gloo(mesh, workdir, lap):
+    """Phase 14 (a) on one rank of two: iterations, resume, files, and one
+    step against the one-process step."""
+    from alphazero_torch.models.convert import load_archive
+    from alphazero_torch.parallel import (
+        barrier, shard_batch, sharded_train_step,
+    )
+    from alphazero_torch.train import Trainer
+    from alphazero_torch.train.learner import (
+        TrainState, make_optimizer, train_step,
+    )
+    from alphazero_torch.train.replay import host_data_path
+
+    dev, rank = mesh.device, mesh.rank
+    cfg = _dist_config(workdir)
+    tr = Trainer(cfg, seed=0, net=load_archive(ARCHIVE, device=dev),
+                 device=dev, mesh=mesh)
+    lap("trainer")
+    its = [_dist_iteration(tr)]
+    lap("iteration_1")
+    saved = _state_digest(tr.net)
+    digests = [saved]
+
+    tr = Trainer(cfg, seed=1, device=dev, mesh=mesh)
+    check(tr.resume() == 1 and tr.iteration == 1,
+          f"rank {rank}: resume found iteration {tr.iteration}")
+    check(_state_digest(tr.net) == saved,
+          f"rank {rank}: the resumed weights are not the saved ones")
+    lap("resume")
+    digests.append(_state_digest(tr.net))
+    its.append(_dist_iteration(tr))
+    lap("iteration_2")
+    digests.append(_state_digest(tr.net))
+    for i, row in enumerate(zip(*_gather_ints(mesh, digests))):
+        check(len(set(row)) == 1, f"weights differ across ranks at point "
+              f"{i} (after iteration 1, resume, iteration 2): {row}")
+    barrier(mesh)
+    with open(cfg.checkpoint_path("metrics.jsonl")) as f:
+        lines = [json.loads(line)["iteration"] for line in f]
+    check(lines == [1, 2], f"metrics.jsonl holds iterations {lines}")
+    shards = [host_data_path(cfg.checkpoint_path(cfg.data_file), r)
+              for r in range(mesh.world)]
+    check(all(os.path.exists(p) for p in shards), f"shards: {shards}")
+    pol = [np.load(p)["policies"] for p in shards]
+    check(pol[0].shape != pol[1].shape or not np.array_equal(*pol),
+          "the two ranks' replay shards are equal")
+
+    # one fixed global batch: rank 0's first rows, on every rank
+    n = cfg.batch_size
+    src = tr._device_replay()
+    idx = torch.arange(n, device=dev) % len(tr.buffer)
+    batch = [src[0][idx].float(), src[1][idx].clone(), src[2][idx].clone()]
+    mirror = (torch.arange(n, device=dev) % 2 == 0).to(torch.uint8)
+    for t in batch + [mirror]:
+        torch.distributed.broadcast(t, src=0, group=mesh.group)
+    batch, mirror = tuple(batch), mirror.bool()
+    one = None
+    if rank == 0:
+        net = copy.deepcopy(tr.net)          # a copy keeps no group
+        one = TrainState(net=net, opt=make_optimizer(cfg, net),
+                         learn_calls=tr.state.learn_calls,
+                         mirror_gather=tr.state.mirror_gather)
+        one.opt.load_state_dict(copy.deepcopy(tr.state.opt.state_dict()))
+    step = sharded_train_step(mesh, cfg)
+    local = shard_batch(mesh, batch), shard_batch(mesh, mirror)
+    two = step(tr.state, *local)
+    two = {k: float(two[k]) for k in ("loss", "loss_pi", "loss_wl")}
+    row = _gather_ints(mesh, [_state_digest(tr.net)])
+    check(len(set(r[0] for r in row)) == 1,
+          f"weights differ across ranks after the compared step: {row}")
+    out = {"rank": rank, "iterations": its, "step_loss": two}
+    if rank == 0:
+        whole = train_step(one, batch, mirror, cfg)
+        check(abs(float(whole["loss"]) - two["loss"])
+              <= 2e-5 * abs(float(whole["loss"])),
+              f"loss: two ranks {two['loss']}, one process "
+              f"{float(whole['loss'])}")
+        sa, sb = tr.net.state_dict(), one.net.state_dict()
+        worst = {}
+        for k in sa:
+            a, b = sa[k].double(), sb[k].double()
+            if k.endswith(("running_mean", "running_var")):
+                excess = ((a - b).abs() - 1e-5).max()
+            elif k.endswith("num_batches_tracked"):
+                excess = (a - b).abs().max()
+            else:
+                excess = ((a - b).abs() - 5e-4 - 5e-3 * b.abs()).max()
+            worst[k] = float(excess)
+        bad = {k: v for k, v in worst.items() if v > 0}
+        check(not bad, f"two ranks against one process, past the bounds: "
+              f"{dict(list(bad.items())[:5])}")
+        out["one_process_loss"] = float(whole["loss"])
+        out["max_param_diff"] = max(
+            float((sa[k].double() - sb[k].double()).abs().max())
+            for k in sa if not k.endswith(("running_mean", "running_var",
+                                           "num_batches_tracked")))
+    out["two_rank_step_ms"] = _timed_steps(
+        mesh, lambda: step(tr.state, *local), DIST_TIMED_STEPS)
+    if rank == 0:
+        out["one_process_step_ms"] = _timed_steps(
+            None, lambda: train_step(one, batch, mirror, cfg),
+            DIST_TIMED_STEPS)
+    barrier(mesh)
+    lap("steps")
+    out["profile"] = _profiled_step(lambda: step(tr.state, *local))
+    lap("profile")
+    return out
+
+
+def _dist_nccl(mesh, workdir, lap):
+    """Phase 14 (b): one rank over NCCL, one iteration, a step timed and
+    profiled."""
+    from alphazero_torch.models.convert import load_archive
+    from alphazero_torch.parallel import shard_batch, sharded_train_step
+    from alphazero_torch.train import Trainer
+
+    check(mesh.backend == "nccl" and mesh.world == 1,
+          f"mesh {mesh.backend} x {mesh.world}")
+    dev = mesh.device
+    cfg = _dist_config(workdir)
+    tr = Trainer(cfg, seed=0, net=load_archive(ARCHIVE, device=dev),
+                 device=dev, mesh=mesh)
+    lap("trainer")
+    it = _dist_iteration(tr)
+    lap("iteration_1")
+    check(tr.state.learn_calls == 1, f"learn_calls {tr.state.learn_calls}")
+    src = tr._device_replay()
+    idx = torch.arange(cfg.batch_size, device=dev) % len(tr.buffer)
+    batch = shard_batch(mesh, tuple(t[idx] for t in src))
+    mirror = idx % 2 == 0
+    step = sharded_train_step(mesh, cfg)
+    ms = _timed_steps(mesh, lambda: step(tr.state, batch, mirror),
+                      1 + DIST_TIMED_STEPS)[1:]
+    lap("steps")
+    prof = _profiled_step(lambda: step(tr.state, batch, mirror))
+    lap("profile")
+    return {"rank": 0, "iterations": [it], "step_ms": ms, "profile": prof}
+
+
+def dist_worker(rank, world, backend, port, workdir, t_launch):
+    """A phase 14 worker: joins the group from ``torchrun``-style
+    variables through ``init_distributed`` (LOCAL_RANK 0: both gloo ranks
+    share the one card), runs its part and writes ``result_<rank>.json``
+    with the seconds of its stages since ``t_launch``; exits non-zero on
+    any failure."""
+    seconds, lap = _stopwatch(t_launch)
+    lap("start")
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed as dist
+
+    from alphazero_torch.parallel import make_mesh
+    from alphazero_torch.utils import init_distributed
+
+    init_distributed(backend=backend)
+    try:
+        mesh = make_mesh()
+        lap("init")
+        run = _dist_gloo if backend == "gloo" else _dist_nccl
+        out = run(mesh, workdir, lap)
+        out["seconds"] = seconds
+        with open(os.path.join(workdir, f"result_{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def launch_workers(backend, world, workdir):
+    """``world`` spawned ``dist_worker``s; fails the phase when one exits
+    non-zero or the launch outlasts ``DIST_TIMEOUT`` (every worker is
+    killed then). Returns their results by rank."""
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dist_worker,
+                         args=(r, world, backend, port, workdir, time.time()))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + DIST_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.time()))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    check(not alive, f"{backend} workers outlasted {DIST_TIMEOUT} s")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"{backend} workers exited {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"result_{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+@phase("phase 14 distributed trainer")
+def phase_distributed(card, single_step_ms):
+    """Two gloo ranks on the one card, then one NCCL rank; returns the
+    launches of ``descend`` and ``commit_edges`` over all ranks."""
+    import torch.distributed as dist
+
+    check(dist.is_nccl_available(), "this PyTorch build has no NCCL")
+    launches = {"descend": 0, "commit_edges": 0}
+    summary = {"lanes_per_rank": DIST_LANES, "sims": TRAIN_SIMS,
+               "global_batch": TRAIN_BATCH, "f32_tf32": False,
+               "one_process_phase8_step_ms": single_step_ms, "card": card}
+    for backend, world in (("gloo", 2), ("nccl", 1)):
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as tmp:
+            res = launch_workers(backend, world, tmp)
+        for r in res:
+            for it in r["iterations"]:
+                for k in launches:
+                    launches[k] += it["launches"][k]
+        summary[backend] = {"wall_s": time.time() - t0, "ranks": res}
+    print("distributed " + json.dumps(summary), flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
     kernels, search, cpu, continuous, tower, fused, trainer, qconv, quant,
-    arena, bench, web) runs only those, for work on one of them, and then
+    arena, bench, web, dist) runs only those, for work on one of them, and then
     prints no ``kernels`` line (quant and arena run the qconv phase first,
     arena the quant phase)."""
     if not torch.cuda.is_available():
@@ -1737,8 +2100,9 @@ def main(argv=None) -> int:
         phase_continuous(dev, net, card)
     if want("fused"):
         launches["tower_forward"] = phase_fused(dev, net, card)
+    trainer_step_ms = None
     if want("trainer"):
-        trainer_launches = phase_trainer(dev, card)
+        trainer_launches, trainer_step_ms = phase_trainer(dev, card)
     if want("qconv") or want("quant") or want("arena"):
         qconv_err, qconv_t, qconv_bound, qp, act = phase_qconv(dev, net)
     if want("quant") or want("arena"):
@@ -1750,6 +2114,8 @@ def main(argv=None) -> int:
         phase_bench(card)
     if want("web"):
         web_launches = phase_web(dev, net, card)
+    if want("dist"):
+        dist_launches = phase_distributed(card, trainer_step_ms)
 
     if not only:
         # "launches" are the main path's own; fetch_rows is launched by the
@@ -1758,9 +2124,10 @@ def main(argv=None) -> int:
         on_path = ("descend", "commit_edges", "tower_forward", "qconv3x3")
         check(all(launches[k] > 0 for k in on_path)
               and all(v > 0 for v in trainer_launches.values())
-              and all(v > 0 for v in web_launches.values()),
+              and all(v > 0 for v in web_launches.values())
+              and all(v > 0 for v in dist_launches.values()),
               f"a kernel was not launched: {launches}, {trainer_launches}, "
-              f"{web_launches}")
+              f"{web_launches}, {dist_launches}")
         src = "alphazero_torch/csrc/tree_kernels.cu"
         replaces = {"descend": "alphazero_tpu/search/kernels.py:50",
                     "fetch_rows": "alphazero_tpu/search/kernels.py:50",
@@ -1775,6 +2142,9 @@ def main(argv=None) -> int:
         # the web bot's path (phase 13), batch 1
         kernels[0]["web_launches"] = web_launches["descend"]
         kernels[2]["web_launches"] = web_launches["commit_edges"]
+        # the distributed trainer's ranks (phase 14), all together
+        kernels[0]["dist_launches"] = dist_launches["descend"]
+        kernels[2]["dist_launches"] = dist_launches["commit_edges"]
         kernels.append({
             "name": "tower_forward", "route": "cuda",
             "source": "alphazero_torch/csrc/tower_kernel.cu",

@@ -17,7 +17,7 @@ torch.set_num_threads(1)
 
 from alphazero_torch import bench
 from alphazero_torch.config import tiny_config
-from alphazero_torch.main import main
+from alphazero_torch.main import build_parser, main
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "alphazero_tpu")
@@ -35,7 +35,7 @@ def test_the_port_imports_nothing_of_jax():
     files = sorted((ROOT / "alphazero_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    for sub in ("baseline", "web", "strength"):
+    for sub in ("baseline", "web", "strength", "parallel"):
         assert ROOT / "alphazero_torch" / sub / "__init__.py" in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -74,13 +74,45 @@ def test_train_then_arena_through_the_cli(tmp_path):
 
 
 def test_cli_refuses_web_and_jax_only_flags(capsys):
+    """``--scan-blocks`` (a Flax layout) is refused by every command;
+    ``--distributed`` and ``--debug-nans`` are the JAX ``main.py``'s
+    common flags, ported."""
     for argv in (["web", "--scan-blocks"], ["train", "--scan-blocks"],
-                 ["train", "--distributed"], ["arena", "--debug-nans"],
-                 ["web", "--debug-nans"]):
+                 ["arena", "--scan-blocks"]):
         with pytest.raises(SystemExit) as e:
             main(argv)
         assert e.value.code == 2
     capsys.readouterr()
+    for cmd in ("train", "arena", "web"):
+        args = build_parser().parse_args([cmd, "--distributed",
+                                          "--debug-nans"])
+        assert args.distributed and args.debug_nans
+
+
+def test_train_over_two_gloo_ranks_through_torchrun(tmp_path):
+    """``python -m torch.distributed.run --nproc-per-node 2 -m
+    alphazero_torch train --cpu --distributed`` for one iteration: one
+    metrics line (rank 0 writes it), a replay shard per rank."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "alphazero_torch", "train",
+           "--cpu", "--distributed", "--blocks", "1", "--filters", "8",
+           "--sims", "4", "--games", "2", "--iterations", "1",
+           "--selfplay-batches", "1", "--buffer", "2048"]
+    run = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert "rank 1 of 2 (gloo)" in run.stderr
+    ck = tmp_path / "checkpoints"
+    with open(ck / "metrics.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert [m["iteration"] for m in lines] == [1]
+    assert (ck / "training_data.npz").exists()
+    assert (ck / "training_data_p1.npz").exists()
+    assert (ck / "iteration_1").is_dir()
 
 
 def test_web_through_the_cli(monkeypatch, tmp_path):
