@@ -27,6 +27,8 @@ from alphazero_torch.env import breakthrough as env
 from alphazero_torch.env.oracle import live_states
 from alphazero_torch.search import (
     SearchSpec,
+    Tree,
+    init_tree,
     make_net_evaluator,
     root_action_probs,
     search,
@@ -89,10 +91,15 @@ def wins(states: env.EnvState, a_is_white: torch.Tensor) -> Tuple[int, int]:
 
 
 def _match_move(states: env.EnvState, a_is_white: torch.Tensor, eval_fn,
-                spec: SearchSpec) -> env.EnvState:
-    """One greedy lockstep move for all games of a match."""
+                spec: SearchSpec, tree: Tree | None = None) -> env.EnvState:
+    """One greedy lockstep move for all games of a match. ``tree``, the
+    tree of an earlier move of the match, is reset in place and searched,
+    so that every move replays the first one's captured simulation (with
+    this move's ``a_to_move`` copied into its context buffer)."""
     a_to_move = torch.where(states.turn == env.WHITE, a_is_white, ~a_is_white)
-    tree = search(states, eval_fn, spec, eval_ctx=a_to_move)
+    if tree is not None:
+        tree = init_tree(states, spec, tree=tree)
+    tree = search(states, eval_fn, spec, tree=tree, eval_ctx=a_to_move)
     actions = root_action_probs(tree, 0.0).argmax(-1).int()  # most visited
     return env.step(states, actions)
 
@@ -127,8 +134,9 @@ def play_paired_matches(
 
     eval_fn = pair_eval_fn or make_pair_evaluator(
         net_a, net_b, getattr(torch, cfg.inference_dtype))
+    tree = init_tree(states, spec)
     for _ in range(max_moves):
         if bool(states.done.all()):
             break
-        states = _match_move(states, a_is_white, eval_fn, spec)
+        states = _match_move(states, a_is_white, eval_fn, spec, tree)
     return wins(states, a_is_white)

@@ -84,6 +84,7 @@ def run_bench(num_games: int = 512, num_sims: int = 800, reps: int = 3,
     """The bench's result line as a dict. ``archive=None`` uses a random
     net of ``cfg``'s size (seed 0) instead of trained weights."""
     from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.search import init_tree
     from alphazero_torch.train import selfplay
 
     dev = resolve_device(device)
@@ -137,10 +138,13 @@ def run_bench(num_games: int = 512, num_sims: int = 800, reps: int = 3,
 
     spec = selfplay.search_spec(cfg)
     states = env.initial_state((num_games,), device=dev)
+    # one tree for every move: the first move captures the simulation on
+    # the card, the timed ones replay it
+    tree = init_tree(states, spec)
 
     def run(s):
         new_states = selfplay.selfplay_move(
-            s, gen, eval_fn, spec, cfg.temperature_threshold)[0]
+            s, gen, eval_fn, spec, cfg.temperature_threshold, tree)[0]
         _sync(dev)
         return new_states
 

@@ -106,12 +106,36 @@
 //   kernel's "accumulate the row in f32, round once" rule for a float32
 //   tree. The tree is updated in place; the kernel never copies it.
 //
-// A simulation is now one descend launch and one commit_edges launch. What
-// is left around them in the search loop is the evaluator's eager launches
-// and the small PyTorch launches that build the backprop's operands;
-// capturing a simulation in a CUDA graph would remove those. Each entry
-// point launches on the given stream and returns cudaGetLastError(); it
-// never synchronises.
+// commit_path is commit_edges in the form the search calls it: a whole
+// backprop built from the descent's own outputs, the JAX package's
+// backprop while_loop (alphazero_tpu/search/mcts.py:425-451) in one
+// launch. For every game b and every level d < depth[b] it adds
+//   [alloc edge ? slot + 1 : 0 | 1 | sign0 * (-1)^d * value[b]]
+// at (path_nodes[b, d], path_actions[b, d]), offsets off[0..2], where
+// sign0 = +1 for an odd depth and -1 for an even one, and the alloc edge
+// is the last one when needs_alloc[b]. The slot is read from the device,
+// so nothing about the backprop is known to the host: no read of the
+// deepest game's depth sizes it, and a CUDA graph can replay it.
+//   Bit for bit what the stacked form leaves with L = max(depth, 1): the
+// same float32 adds in the same order per element, +0.0 where the stacked
+// form adds a zero, and levels past a game's depth, which the stacked form
+// sends to the trash row as zeros, skipped (the trash row is never
+// written otherwise, so adding zeros there changes no bit).
+//   Bound on an H100: the bytes it must move, B x (depth, needs_alloc,
+// value) + the slot + 32 bytes per walked edge (its node and action, and
+// three elements read and written): about 0.2 MB at 512 games and a mean
+// depth of 6, under 0.1 us. Its time is the launch and two dependent loads
+// (path entry, then the element).
+//   Design: one warp per game, a lane per level (d = lane, lane + 32,
+// ...): the levels of one game touch distinct nodes (a path never visits
+// a node twice), so its lanes never meet, and different games own
+// different rows; no atomics, no order between lanes needed.
+//
+// A simulation is one descend launch, the evaluator, the expansion's row
+// write and one commit_path launch, none of which the host has to read
+// for: the search captures it once as a CUDA graph and replays it
+// (alphazero_torch/search/graph.py). Each entry point launches on the
+// given stream and returns cudaGetLastError(); it never synchronises.
 
 #include <cmath>
 #include <cstdint>
@@ -150,6 +174,36 @@ __global__ void commit_edges_kernel(float* rows,
     const int i = l * B + b;
     float* x = game + node[i] * R + act[i];
     *x = *x + upd[(int64_t)i * K + k];
+  }
+}
+
+constexpr int kPathGames = 4;          // games per block, one warp each
+
+__global__ void __launch_bounds__(kPathGames * 32)
+commit_path_kernel(float* rows, const int32_t* __restrict__ path_nodes,
+                   const int32_t* __restrict__ path_actions,
+                   const int32_t* __restrict__ depth,
+                   const uint8_t* __restrict__ needs_alloc,
+                   const float* __restrict__ value,
+                   const int32_t* __restrict__ slot, int B, int N,
+                   Offsets off, int64_t M, int64_t R) {
+  const int b = blockIdx.x * kPathGames + threadIdx.x / 32;
+  if (b >= B) return;
+  const int lane = threadIdx.x % 32;
+  const int D = min(depth[b], N);
+  const float v = value[b];
+  const bool odd = (D & 1) != 0;                 // sign0 = +1
+  const float alloc = needs_alloc[b] ? (float)(slot[0] + 1) : 0.0f;
+  float* game = rows + (int64_t)b * M * R;
+  for (int d = lane; d < D; d += 32) {
+    const int64_t i = (int64_t)b * N + d;
+    float* x = game + (int64_t)path_nodes[i] * R + path_actions[i];
+    // sign0 * (-1)^d * value: an exact sign flip, as the stacked form's
+    // products by +-1 are
+    const float u = (odd == ((d & 1) == 0)) ? v : -v;
+    x[off.v[0]] = __fadd_rn(x[off.v[0]], d == D - 1 ? alloc : 0.0f);
+    x[off.v[1]] = __fadd_rn(x[off.v[1]], 1.0f);
+    x[off.v[2]] = __fadd_rn(x[off.v[2]], u);
   }
 }
 
@@ -406,6 +460,28 @@ int commit_edges_f32(void* rows, const void* node, const void* act,
                           (cudaStream_t)stream>>>(
         (float*)rows, (const int32_t*)node, (const int32_t*)act,
         (const float*)upd, L, B, K, off, (int64_t)M, (int64_t)R);
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows: (B, M, R) float32, updated in place; path_nodes, path_actions
+// (B, N) int32, read at d < depth[b]; depth (B,) int32; needs_alloc (B,)
+// one byte; value (B,) float32; slot: one int32 (the fresh slot); three
+// in-row offsets o0 (child ptr), o1 (visit), o2 (vsum).
+int commit_path_f32(void* rows, const void* path_nodes,
+                    const void* path_actions, const void* depth,
+                    const void* needs_alloc, const void* value,
+                    const void* slot, int B, int N, int o0, int o1, int o2,
+                    long long M, int R, void* stream) {
+  if (B < 0 || N < 0) return (int)cudaErrorInvalidValue;
+  const Offsets off = {{o0, o1, o2, 0}};
+  if (B > 0) {
+    commit_path_kernel<<<(B + kPathGames - 1) / kPathGames, kPathGames * 32,
+                         0, (cudaStream_t)stream>>>(
+        (float*)rows, (const int32_t*)path_nodes,
+        (const int32_t*)path_actions, (const int32_t*)depth,
+        (const uint8_t*)needs_alloc, (const float*)value,
+        (const int32_t*)slot, B, N, off, (int64_t)M, (int64_t)R);
   }
   return (int)cudaGetLastError();
 }

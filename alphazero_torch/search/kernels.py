@@ -6,9 +6,10 @@ Port of ``alphazero_tpu/search/kernels.py``. The tree is one
 root, reading and scoring one row per level (``descend``: the whole walk
 of a simulation in one call, board stepping included), and adds three
 scalars into one row per game on every backprop level (``commit_edges``,
-which takes all levels of a backprop in one call). ``fetch_rows`` is the
-row read of one level, the gather the JAX package's kernel is; the plain
-per-level descent is built on it.
+which takes all levels of a backprop in one call; ``commit_path``, the
+form the search calls, builds those levels itself from the descent's
+outputs). ``fetch_rows`` is the row read of one level, the gather the JAX
+package's kernel is; the plain per-level descent is built on it.
 
 On a CUDA tensor each public function launches its hand-written kernel
 from ``csrc/tree_kernels.cu`` (float32 trees only) or raises; it never
@@ -42,6 +43,8 @@ def _lib() -> ctypes.CDLL:
         lib.commit_edges_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                          ll, i, p]
         lib.commit_edges_f32.restype = i
+        lib.commit_path_f32.argtypes = [p] * 7 + [i] * 5 + [ll, i, p]
+        lib.commit_path_f32.restype = i
         f = ctypes.c_float
         lib.descend_f32.argtypes = ([p, ll, i, i] + [p] * 7 + [f, f, i, i, i]
                                     + [p] * 10)
@@ -189,6 +192,105 @@ def commit_edges(rows: torch.Tensor, node: torch.Tensor, act: torch.Tensor,
 
 
 commit_edges.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# commit_path: a whole backprop from the descent's outputs
+# -----------------------------------------------------------------------------
+
+def _commit_path_plain(rows, path_nodes, path_actions, depth, needs_alloc,
+                       value, slot, offsets):
+    # The levels ``commit_edges`` is given by the search, built here as
+    # (B, N) planes, and applied all at once: the levels of one game touch
+    # distinct rows (a path visits a node once), so every element gets at
+    # most one update and the order of levels cannot matter. Each update
+    # is rounded once, f32 accumulate then the tree's dtype, as the stacked
+    # form rounds it. Levels past a game's depth point at its trash row
+    # with zero updates, which leave it as it was. Nothing is read by the
+    # host.
+    B, M = rows.shape[:2]
+    N = path_nodes.shape[1]
+    vdt = rows.dtype
+    dev = rows.device
+    flat = rows.view(-1)
+    R = flat.numel() // (B * M)
+    zero = torch.zeros((), dtype=vdt, device=dev)
+    d = torch.arange(N, device=dev)[None]                         # (1, N)
+    active = d < depth[:, None]                                   # (B, N)
+    sign0 = torch.where(depth % 2 == 1, 1.0, -1.0).to(vdt)
+    flip = (1 - 2 * (d % 2)).to(vdt)
+    alloc = active & needs_alloc[:, None] & (d == depth[:, None] - 1)
+    upd = torch.stack([
+        torch.where(alloc, (slot + 1).to(vdt), zero),
+        active.to(vdt),
+        torch.where(active, (sign0 * value)[:, None] * flip, zero),
+    ], dim=-1).to(torch.float32)                                  # (B, N, 3)
+    node = torch.where(active, path_nodes, M - 1).long()
+    at = torch.arange(B, device=dev)[:, None] * M + node          # (B, N)
+    if vdt == torch.float64:
+        # the stacked form rounds each touched row through float32 whole
+        # (the TPU kernel's rule); for the other dtypes that changes nothing
+        by_row = rows.view(B * M, R)
+        by_row[at] = by_row[at].float().to(vdt)
+    idx = ((at * R + path_actions.long())[..., None]
+           + torch.tensor(offsets, device=dev))                   # (B, N, 3)
+    flat[idx] = (flat[idx].float() + upd).to(vdt)
+    return rows
+
+
+def commit_path(rows: torch.Tensor, path_nodes: torch.Tensor,
+                path_actions: torch.Tensor, depth: torch.Tensor,
+                needs_alloc: torch.Tensor, value: torch.Tensor,
+                slot: torch.Tensor, offsets: tuple, num_actions: int
+                ) -> torch.Tensor:
+    """A simulation's whole backprop, in place; returns ``rows``.
+
+    ``path_nodes``, ``path_actions`` (B, N) int32, ``depth`` (B,) int32 and
+    ``needs_alloc`` (B,) bool are ``descend``'s results; ``value`` (B,) of
+    the tree's dtype is the leaf's value for the side to move there;
+    ``slot`` () int32 is the simulation's fresh slot; ``offsets`` are the
+    three in-row offsets (child ptr, visit, vsum). Every walked edge ``d <
+    depth[b]`` gets ``[slot + 1 if it is the last edge and needs_alloc[b],
+    else 0 | 1 | sign0 * (-1)^d * value[b]]``, ``sign0`` +1 for an odd
+    depth and -1 for an even one: bit for bit what ``commit_edges`` does
+    with the stacked (L, B) levels the search used to build, L = max(depth,
+    1), levels past a game's depth on its trash row.
+
+    On a CUDA tree one launch of ``commit_path_kernel``, which reads the
+    slot and the depths where they lie: the host reads nothing. It counts
+    in ``commit_edges.launches``: it is the path form of that kernel, and
+    the backprop's launch count keeps its name.
+    """
+    B, M, RS, L = rows.shape
+    if len(offsets) != 3:
+        raise ValueError(f"commit_path takes the three offsets (child ptr, "
+                         f"visit, vsum), got {tuple(offsets)}")
+    _check_offsets(offsets, num_actions, RS * L)
+    N = M - 1
+    for name, t, dtype, shape in (
+            ("path_nodes", path_nodes, torch.int32, (B, N)),
+            ("path_actions", path_actions, torch.int32, (B, N)),
+            ("depth", depth, torch.int32, (B,)),
+            ("needs_alloc", needs_alloc, torch.bool, (B,)),
+            ("value", value, rows.dtype, (B,)),
+            ("slot", slot, torch.int32, ())):
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != rows.device:
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                             f"tensor on the tree's device; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if rows.device.type == "cpu":
+        return _commit_path_plain(rows, path_nodes, path_actions, depth,
+                                  needs_alloc, value, slot, tuple(offsets))
+    _check_cuda_operands(rows)
+    rc = _lib().commit_path_f32(
+        rows.data_ptr(), path_nodes.data_ptr(), path_actions.data_ptr(),
+        depth.data_ptr(), needs_alloc.data_ptr(), value.data_ptr(),
+        slot.data_ptr(), B, N, *offsets, M, RS * L,
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    _raise_on_error(rc, "commit_path")
+    commit_edges.launches += 1
+    return rows
 
 
 # -----------------------------------------------------------------------------

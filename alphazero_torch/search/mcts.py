@@ -5,13 +5,15 @@ that trees compare row for row with the JAX package's:
 
 - node slots are allocated in simulation order: the slot of simulation
   ``i`` is ``i+1`` for every game, so the expansion write is one
-  batch-uniform row write;
+  batch-uniform row write; the slot is a device scalar, as in the JAX
+  package, so the host never needs to know it;
 - per-node data is ONE fused row ``rows[b, n] : (RS, 128)`` whose flat
   view holds the [child ptr | prior | edge visit | edge vsum] blocks of
   width A. The two per-game varying-index accesses (the descent's row
   reads and the backprop's edge updates) go through ``search/kernels.py``,
   which launches hand-written CUDA kernels on the card: one for the whole
-  descent of a simulation, one for its whole backprop;
+  descent of a simulation (``descend``), one for its whole backprop
+  (``commit_path``);
 - child pointers are additive: -1 (UNALLOCATED) becomes the slot index
   when the backprop update of the allocating edge adds ``s+1``;
 - the descent path is recorded in (B, N) buffers and backprop walks it;
@@ -25,17 +27,21 @@ fallback, the value sign flips every ply, root expansion does not count a
 visit, and scores tie-break to the lowest action index (``torch.argmax``
 returns the first maximum, on the CPU and on CUDA).
 
-Unlike the JAX package, ``search`` updates the ``Tree`` it is given IN
-PLACE (its ``rows`` tensor and its fields) and returns it: the tree is
-1.26 GB at 512 games x 800 simulations and is never copied.
+Unlike the JAX package, ``search``, ``init_tree(..., tree=)`` and
+``advance_root`` update the ``Tree`` they are given IN PLACE (the tensors
+of its fields, which are never rebound) and return it: the tree is 1.26
+GB at 512 games x 800 simulations and is never copied.
 
-Host syncs: one per simulation on a CUDA tree, where the descent is one
-kernel launch and the host reads the deepest game's depth after it, the
-number of levels the backprop has to stack. On a CPU tree the descent is
-the plain per-level loop, which runs while any game is still descending
-and reads that once per level. Backprop needs no sync: it commits that
-many levels, all in one ``commit_edges`` call (levels past a game's depth
-commit zeros to the trash row).
+A simulation (``_simulate_once``) reads nothing back to the host: the
+descent is one kernel on the card, the expansion writes at the device
+slot, and the backprop walks each game's own depth in one kernel. The
+JAX package compiles a move into one program (``selfplay_move`` is
+jitted, the simulations a ``fori_loop``); the port's counterpart is a CUDA
+graph: on a CUDA tree ``search`` captures one simulation and replays it
+``num_simulations`` times (``search/graph.py``), and ``capture=False``
+runs the same body eagerly. On a CPU tree the body runs eagerly through
+the kernels' plain versions; of those, the per-level descent reads "is any
+game still walking" once per level (``STATS.host_syncs``).
 """
 
 from __future__ import annotations
@@ -106,11 +112,19 @@ class Tree:
     root_visit:  (B,) int32 root visit count
     root_vsum:   (B,) value_dtype
     node_count:  (B,) int32 real allocated nodes (including the root)
-    next_slot:   int, next fresh slot, advanced once per simulation
-                 uniformly across the batch (kept on the host)
+    next_slot:   () int32 next fresh slot, advanced once per simulation
+                 uniformly across the batch, on the device
     parents:     (B, N+1) int32 each slot's parent slot (0 for the root,
                  unallocated slots, and games that skipped an allocation)
     n_actions:   A (not recoverable from rows.shape for padded rows)
+    slot_bound:  host int, a bound next_slot cannot pass, for the capacity
+                 check of ``search``; it is never read from the card
+    captured:    the simulation ``search/graph.py`` captured on this tree's
+                 buffers, or None
+
+    The tree owns its root state (contiguous copies); every field's tensor
+    keeps its address for the tree's life, which a captured simulation
+    relies on.
     """
 
     rows: torch.Tensor
@@ -118,9 +132,12 @@ class Tree:
     root_visit: torch.Tensor
     root_vsum: torch.Tensor
     node_count: torch.Tensor
-    next_slot: int
+    next_slot: torch.Tensor
     parents: torch.Tensor
     n_actions: int
+    slot_bound: int = 1
+    captured: object = dataclasses.field(default=None, repr=False,
+                                         compare=False)
 
     @property
     def num_actions(self) -> int:
@@ -142,9 +159,20 @@ def _root_flat(tree: Tree) -> torch.Tensor:
     return tree._flat_rows()[:, 0]
 
 
-def init_tree(root_states: env.EnvState, spec: SearchSpec) -> Tree:
+def _copy_state(dst: env.EnvState, src: env.EnvState) -> None:
+    for f in dataclasses.fields(env.EnvState):
+        getattr(dst, f.name).copy_(getattr(src, f.name))
+
+
+def init_tree(root_states: env.EnvState, spec: SearchSpec,
+              tree: Tree | None = None) -> Tree:
     """Fresh tree batch with the given root states at slot 0, on the
-    states' device."""
+    states' device.
+
+    ``tree``, a tree of the same shape, dtype and device, is reset in place
+    and returned: its buffers, and the simulation captured on them, serve
+    the next search (a move of fresh roots replays the last move's graph).
+    Otherwise a new tree is made."""
     B = root_states.turn.shape[0]
     N, A = spec.capacity, spec.num_actions
     vdt = spec.value_dtype
@@ -164,18 +192,34 @@ def init_tree(root_states: env.EnvState, spec: SearchSpec) -> Tree:
             f"value_dtype={vdt} on CUDA: the tree kernels take float32 "
             f"trees only; other dtypes are for CPU numerics tests")
     RS = _row_sublanes(A, vdt)
-    rows = torch.zeros((B, N + 1, RS, 128), dtype=vdt, device=dev)
-    rows.view(B, N + 1, -1)[:, :, :A] = ILLEGAL
-    return Tree(
-        rows=rows,
-        n_actions=A,
-        root_state=root_states,
-        root_visit=torch.zeros((B,), dtype=torch.int32, device=dev),
-        root_vsum=torch.zeros((B,), dtype=vdt, device=dev),
-        node_count=torch.ones((B,), dtype=torch.int32, device=dev),
-        next_slot=1,
-        parents=torch.zeros((B, N + 1), dtype=torch.int32, device=dev),
-    )
+    shape = (B, N + 1, RS, 128)
+    if tree is None or tuple(tree.rows.shape) != shape \
+            or tree.rows.dtype != vdt or tree.rows.device != dev \
+            or tree.n_actions != A:
+        tree = Tree(
+            rows=torch.empty(shape, dtype=vdt, device=dev),
+            n_actions=A,
+            root_state=env.EnvState(*(
+                torch.empty(getattr(root_states, f.name).shape,
+                            dtype=getattr(root_states, f.name).dtype,
+                            device=dev)
+                for f in dataclasses.fields(env.EnvState))),
+            root_visit=torch.empty((B,), dtype=torch.int32, device=dev),
+            root_vsum=torch.empty((B,), dtype=vdt, device=dev),
+            node_count=torch.empty((B,), dtype=torch.int32, device=dev),
+            next_slot=torch.empty((), dtype=torch.int32, device=dev),
+            parents=torch.empty((B, N + 1), dtype=torch.int32, device=dev),
+        )
+    tree.rows.zero_()
+    tree.rows.view(B, N + 1, -1)[:, :, :A] = ILLEGAL
+    _copy_state(tree.root_state, root_states)
+    tree.root_visit.zero_()
+    tree.root_vsum.zero_()
+    tree.node_count.fill_(1)
+    tree.next_slot.fill_(1)
+    tree.parents.zero_()
+    tree.slot_bound = 1
+    return tree
 
 
 def _renorm_priors(policy: torch.Tensor, legal: torch.Tensor,
@@ -193,20 +237,39 @@ def _renorm_priors(policy: torch.Tensor, legal: torch.Tensor,
 @dataclasses.dataclass
 class SearchStats:
     """Counters of the search loop, read by measurement scripts: simulations
-    run, levels stacked into the backprops (on a CPU tree the levels the
-    per-level descent ran), the descents' reads of a device value by the
-    host (one per simulation on a CUDA tree, one per level on a CPU tree),
-    and the per-game edge depth summed over games and simulations (a
-    device tensor)."""
+    run (a replayed one counted by the host at its replay), the levels the
+    per-level descent ran (CPU trees only: on a CUDA tree no one reads how
+    deep a descent went), the host's reads of a device value inside
+    simulations (one per level of the CPU's descent; none on a CUDA
+    tree), and the per-game edge depth summed over games and simulations
+    (``depth_sum``, read from one accumulator per device that the
+    simulation adds to in place, so that a captured simulation adds to it
+    on every replay)."""
 
     simulations: int = 0
     levels: int = 0
     host_syncs: int = 0
-    depth_sum: torch.Tensor | int = 0
+    depth: dict = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.simulations, self.levels, self.host_syncs = 0, 0, 0
-        self.depth_sum = 0
+        for acc in self.depth.values():
+            acc.zero_()
+
+    def add_depth(self, depth: torch.Tensor) -> None:
+        acc = self.depth.get(depth.device)
+        if acc is None:
+            # a normal tensor, so that searches in and out of inference
+            # mode both add to it in place
+            with torch.inference_mode(False):
+                acc = torch.zeros((), dtype=torch.int64, device=depth.device)
+            self.depth[depth.device] = acc
+        acc += depth.sum()
+
+    @property
+    def depth_sum(self) -> int:
+        """The accumulators read by the host (a read of each device)."""
+        return sum(int(acc) for acc in self.depth.values())
 
 
 STATS = SearchStats()
@@ -227,18 +290,18 @@ def _descend(rows: torch.Tensor, root_state: env.EnvState,
     levels): the walked edges are (path_nodes[:, d], path_actions[:, d])
     for d < depth; when ``needs_alloc`` the last edge is the one that needs
     a new child, otherwise the walk stopped on an existing leaf (terminal
-    node or unexpanded root). ``levels`` is the number of levels the
-    backprop stacks: at least one, and no game is deeper. ``out`` is an
-    earlier call's result, overwritten and returned (``kernels.descend``).
+    node or unexpanded root). ``levels`` is the number of levels the plain
+    per-level descent ran on a CPU tree, each one read of the device by
+    the host, and None on a CUDA tree, where the kernel reads nothing.
+    ``out`` is an earlier call's result, overwritten and returned
+    (``kernels.descend``).
     """
     *out, levels = kernels.descend(rows, root_state, root_visit, root_vsum,
                                    spec.num_actions, spec.c_puct,
                                    spec.fpu_reduction, out)
-    syncs = levels
-    if levels is None:                       # CUDA: the kernel read nothing
-        levels = max(int(out[2].max()), 1)                    # host sync
-        syncs = 1
-    STATS.host_syncs += syncs
+    if levels is not None:
+        STATS.levels += levels
+        STATS.host_syncs += levels
     return (*out, levels)
 
 
@@ -247,22 +310,27 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec,
     """One simulation for every game; updates ``tree`` in place. Returns
     its descent's results, which the next simulation takes as ``out`` and
     overwrites (``_descend``). ``eval_ctx``, if given, is passed to
-    ``eval_fn`` as its second argument."""
+    ``eval_fn`` as its second argument.
+
+    Nothing in it is read back by the host on a CUDA tree, and nothing
+    depends on a host value that changes between simulations (the slot
+    lives on the device): it is what ``search/graph.py`` captures. Every
+    tensor it writes outside ``out`` is a field of the tree, in place, or
+    the depth accumulator of ``STATS``."""
     B = tree.root_visit.shape[0]
     A = spec.num_actions
     vdt = spec.value_dtype
     rows = tree.rows
     M = rows.shape[1]
     dev = rows.device
-    s = tree.next_slot                       # this simulation's fresh slot
-    trash = M - 1                            # slot N
+    slot = tree.next_slot                    # this simulation's fresh slot
     zero = torch.zeros((), dtype=vdt, device=dev)
 
     # (1) selection with in-loop state stepping
     with record_function("mcts.descend"):
         out = _descend(rows, tree.root_state, tree.root_visit,
                        tree.root_vsum, spec, out)
-        leaf_state, needs_alloc, depth, path_nodes, path_actions, levels = out
+        leaf_state, needs_alloc, depth, path_nodes, path_actions, _ = out
 
     # (2) one batched network evaluation
     with record_function("mcts.evaluate"):
@@ -287,54 +355,47 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec,
                                           device=dev), illegal),
             illegal)
         prior_row = torch.where(do_expand, priors, zero)
-        flat_s = rows.view(B, M, -1)[:, s]
-        flat_s[:, :A] = child_row
-        flat_s[:, A:2 * A] = prior_row
+        # the row write at the device slot (the JAX package's
+        # dynamic_update_slice)
+        flat = rows.view(B, M, -1)
+        at = slot.view(1).long()
         if spec.tree_reuse:
             # Slots between a game's compacted node count and next_slot hold
             # stale rows from the compaction, so clear visit/vsum too.
-            flat_s[:, 2 * A:] = 0
+            fresh_row = torch.cat(
+                [child_row, prior_row,
+                 torch.zeros((B, flat.shape[2] - 2 * A), dtype=vdt,
+                             device=dev)], dim=-1)
+            flat.index_copy_(1, at, fresh_row[:, None])
             # Record the fresh slot's parent: the node the allocating edge
             # left from (path position depth-1); 0 for games that did not
             # allocate (self-excluding in advance_root).
             d_last = (depth - 1).clamp_min(0).long()[:, None]
             par = path_nodes.gather(1, d_last)[:, 0]
-            tree.parents[:, s] = torch.where(needs_alloc, par,
-                                             torch.zeros_like(par))
+            tree.parents.index_copy_(
+                1, at, torch.where(needs_alloc, par, 0)[:, None])
+        else:
+            flat[:, :, :2 * A].index_copy_(
+                1, at, torch.cat([child_row, prior_row], dim=-1)[:, None])
 
     # (4) backprop: the recorded path top-down, every level at once; level
     # d commits [child ptr? | visit += 1 | vsum += signed value] for one
-    # edge per game. Edge d's child accumulates value * (-1)^(L-1-d) (leaf
-    # mover's side at d = L-1, flipping each ply toward the root). Levels
-    # past a game's depth go to the trash row.
+    # edge per game. Edge d's child accumulates value * (-1)^(depth-1-d)
+    # (leaf mover's side at d = depth-1, flipping each ply toward the root),
+    # and the allocating edge's child pointer becomes the slot.
     with record_function("mcts.backprop"):
-        sign0 = torch.where(depth % 2 == 1, 1.0, -1.0).to(vdt)
-        alloc_val = torch.full((), float(s + 1), dtype=vdt, device=dev)
-        lv = torch.arange(levels, dtype=torch.int32, device=dev)[:, None]
-        active = lv < depth[None]                                 # (L, B)
-        tgt = torch.where(active, path_nodes[:, :levels].T,
-                          torch.full((), trash, dtype=torch.int32,
-                                     device=dev)).contiguous()
-        is_alloc_edge = active & needs_alloc[None] & (lv == depth[None] - 1)
-        flip = (1 - 2 * (lv % 2)).to(vdt)                         # (L, 1)
-        upd = torch.stack([
-            torch.where(is_alloc_edge, alloc_val, zero),
-            active.to(vdt),
-            torch.where(active, (sign0 * value)[None] * flip, zero),
-        ], dim=-1)                                                # (L, B, 3)
-        kernels.commit_edges(rows, tgt,
-                             path_actions[:, :levels].T.contiguous(), upd,
-                             (0, 2 * A, 3 * A), A)
+        kernels.commit_path(rows, path_nodes, path_actions, depth,
+                            needs_alloc, value, slot, (0, 2 * A, 3 * A), A)
 
     # Root stats: the value reaches the root flipped ``depth`` times.
+    sign0 = torch.where(depth % 2 == 1, 1.0, -1.0).to(vdt)
     tree.root_visit += 1
     tree.root_vsum += -sign0 * value
     tree.node_count += needs_alloc.int()
-    tree.next_slot = s + 1
+    slot += 1
 
     STATS.simulations += 1
-    STATS.levels += levels
-    STATS.depth_sum = STATS.depth_sum + depth.sum()
+    STATS.add_depth(depth)
     return out
 
 
@@ -351,26 +412,42 @@ def search(
     tree: Tree | None = None,
     root_noise: torch.Tensor | None = None,
     eval_ctx=None,
+    capture: bool | None = None,
 ) -> Tree:
     """Run ``spec.num_simulations`` simulations for a batch of games.
 
     ``eval_fn`` receives encoded planes and returns (policy_probs, scalar
     value). ``add_noise`` mixes Dirichlet noise drawn from ``generator``
     into the root priors; ``root_noise`` (B, A) overrides the draw
-    (tests). Passing an existing ``tree`` (rooted at ``root_states``)
-    continues it; it must have capacity for the total simulation count.
-    ``eval_ctx`` (e.g. the arena's per-game "player A to move" flags) is
-    passed to every ``eval_fn`` call as ``eval_fn(planes, eval_ctx)``.
-    The tree is updated in place and returned.
+    (tests). Passing an existing ``tree`` (rooted at ``root_states``, whose
+    own root state it keeps) continues it; it must have capacity for the
+    total simulation count. ``eval_ctx`` (e.g. the arena's per-game
+    "player A to move" flags) is passed to every ``eval_fn`` call as
+    ``eval_fn(planes, eval_ctx)``. The tree is updated in place and
+    returned.
+
+    The root expansion and the noise run eagerly. On a CUDA tree the
+    simulations are one captured simulation replayed ``num_simulations``
+    times (``search/graph.py``; the capture is kept on the tree and
+    replayed by later searches of the same tree, evaluator and spec);
+    the host then reads nothing until the caller does. ``capture=False``
+    runs them eagerly instead (the yardstick the captured path is held
+    to); ``capture=True`` on a CPU tree raises, as a failed capture does:
+    nothing falls back.
     """
     if tree is None:
         tree = init_tree(root_states, spec)
+    on_card = tree.rows.device.type == "cuda"
+    if capture and not on_card:
+        raise ValueError(f"capture=True needs a CUDA tree; this one is on "
+                         f"{tree.rows.device}")
+    N = spec.num_simulations
+    if tree.slot_bound + N > tree.rows.shape[1] - 1:
+        raise ValueError(f"the tree has {tree.rows.shape[1] - 2} slots, its "
+                         f"next fresh slot may be {tree.slot_bound}: no room "
+                         f"for {N} more simulations")
     vdt = spec.value_dtype
     A = spec.num_actions
-    # the descent kernel reads the root state where it lies
-    tree.root_state = env.EnvState(*(
-        getattr(tree.root_state, f.name).contiguous()
-        for f in dataclasses.fields(env.EnvState)))
 
     # Root expansion (does not count a visit).
     root_planes = env.encoded_state(tree.root_state)
@@ -395,13 +472,19 @@ def search(
             raise ValueError("add_noise requires a generator")
         _add_root_noise(tree, generator, spec, noise=root_noise)
 
-    # One set of descent results for the whole search: the first
-    # simulation makes them and every later one overwrites them, and what a
-    # simulation leaves in the path past a game's depth is an earlier
-    # simulation's node and action, so still in range.
-    out = None
-    for _ in range(spec.num_simulations):
-        out = _simulate_once(tree, eval_fn, spec, out, eval_ctx)
+    if on_card and capture is not False:
+        from alphazero_torch.search import graph
+
+        graph.run(tree, eval_fn, spec, eval_ctx)
+    else:
+        # One set of descent results for the whole search: the first
+        # simulation makes them and every later one overwrites them, and
+        # what a simulation leaves in the path past a game's depth is an
+        # earlier simulation's node and action, so still in range.
+        out = None
+        for _ in range(N):
+            out = _simulate_once(tree, eval_fn, spec, out, eval_ctx)
+    tree.slot_bound += N
     return tree
 
 
@@ -421,7 +504,10 @@ def advance_root(
     child, plus any ``force_fresh`` lanes, restart with an empty root. If
     the largest kept subtree plus the next search's allocations would
     overflow capacity, the WHOLE batch restarts from fresh roots (slot
-    allocation is batch-uniform). Returns a new tree; one host sync.
+    allocation is batch-uniform), chosen on the device as the JAX package
+    chooses it. Updates ``tree`` in place (its tensors keep their
+    addresses, so a captured simulation stays valid) and returns it; the
+    host reads nothing.
     """
     if not spec.tree_reuse:
         raise ValueError("advance_root requires spec.tree_reuse")
@@ -477,22 +563,26 @@ def advance_root(
     valid = slots[None, :] < torch.where(fresh, 1, new_count)[:, None]
     par_new = torch.where(valid, par_new, 0).int()
 
-    next_slot = max(int(count_eff.max()), 1)          # host sync
+    next_slot = count_eff.max().clamp_min(1).int()     # () on the device
     # capacity: slots 0..M-2 usable (M-1 is the trash row); the next
-    # search allocates num_simulations slots starting at next_slot
-    if next_slot + spec.num_simulations > M - 1:
-        return init_tree(new_root_state, spec)
-    return Tree(
-        rows=new_flat.view(tree.rows.shape),
-        n_actions=A,
-        root_state=new_root_state,
-        root_visit=torch.where(fresh, 0, ev_a.int()).int(),
-        root_vsum=torch.where(fresh, torch.zeros((), dtype=vdt, device=dev),
-                              evs_a),
-        node_count=count_eff.int(),
-        next_slot=next_slot,
-        parents=par_new,
-    )
+    # search allocates num_simulations slots starting at next_slot; on
+    # overflow every field takes its fresh tree's value
+    overflow = next_slot + spec.num_simulations > M - 1
+    empty_row = torch.zeros_like(flat[0, 0])
+    empty_row[:A] = ILLEGAL
+    torch.where(overflow, empty_row, new_flat, out=flat)
+    restart = overflow | fresh
+    tree.parents.copy_(torch.where(overflow, 0, par_new))
+    tree.root_visit.copy_(torch.where(restart, 0, ev_a.int()))
+    tree.root_vsum.copy_(torch.where(
+        restart, torch.zeros((), dtype=vdt, device=dev), evs_a))
+    tree.node_count.copy_(torch.where(overflow, 1, count_eff))
+    tree.next_slot.copy_(torch.where(overflow, 1, next_slot))
+    _copy_state(tree.root_state, new_root_state)
+    # what the host knows without a read: either the search fits after the
+    # kept subtrees, or the tree restarted at slot 1
+    tree.slot_bound = max(1, M - 1 - spec.num_simulations)
+    return tree
 
 
 def sample_gamma(alpha: float, shape, generator: torch.Generator,

@@ -14,6 +14,11 @@ Port of ``alphazero_tpu/train/selfplay.py``:
 Per-move outputs stay on the device; the host syncs a done flag every
 ``CHECK_EVERY`` moves and copies the recorded episodes once at the end.
 Randomness comes from one ``torch.Generator`` on the games' device.
+
+A game loop keeps one tree for all its moves: a fresh-root move resets it
+in place (``init_tree(..., tree=)``) and tree reuse re-roots it in place
+(``advance_root``), so on the card every move replays the simulation the
+first one captured (``search/graph.py``).
 """
 
 from __future__ import annotations
@@ -55,8 +60,8 @@ def search_spec(cfg: Config) -> SearchSpec:
 def _searched_move(states, tree, generator, eval_fn, spec,
                    temperature_threshold):
     """Search + sample + step core shared by all move variants. ``tree``
-    is an existing tree rooted at ``states`` (reuse) or None (fresh).
-    Returns (tree, planes, probs, actions, new_states)."""
+    is a tree rooted at ``states`` (reused, or reset to fresh roots) or
+    None (a new one). Returns (tree, planes, probs, actions, new_states)."""
     planes = env.encoded_state(states)
     tree = search(states, eval_fn, spec, generator=generator,
                   add_noise=True, tree=tree)
@@ -76,15 +81,21 @@ def _searched_move(states, tree, generator, eval_fn, spec,
 
 
 def selfplay_move(states: env.EnvState, generator: torch.Generator, eval_fn,
-                  spec: SearchSpec, temperature_threshold: int):
+                  spec: SearchSpec, temperature_threshold: int,
+                  tree: Tree | None = None):
     """One lockstep move for a batch of games (fresh root per move).
 
     Returns (new_states, planes, probs, actions, root_values): the encoded
     position before the move, the visit-count policy recorded as a
-    training target, and the sampled action applied.
+    training target, and the sampled action applied. ``tree``, a tree of
+    an earlier move at this shape, is reset to the fresh roots in place and
+    searched (its buffers and captured simulation serve every move);
+    None searches a new tree.
     """
+    if tree is not None:
+        tree = init_tree(states, spec, tree=tree)
     tree, planes, probs, actions, new_states = _searched_move(
-        states, None, generator, eval_fn, spec, temperature_threshold)
+        states, tree, generator, eval_fn, spec, temperature_threshold)
     return new_states, planes, probs, actions, root_value(tree)
 
 
@@ -92,8 +103,9 @@ def selfplay_move_tree(states: env.EnvState, tree: Tree,
                        generator: torch.Generator, eval_fn,
                        spec: SearchSpec, temperature_threshold: int):
     """One lockstep move WITH between-move tree reuse: searches the given
-    tree (rooted at ``states``), then re-roots it at the chosen child.
-    Returns (new_states, planes, probs, actions, root_values, new_tree)."""
+    tree (rooted at ``states``), then re-roots it at the chosen child, in
+    place. Returns (new_states, planes, probs, actions, root_values,
+    new_tree), ``new_tree`` being ``tree``."""
     stree, planes, probs, actions, new_states = _searched_move(
         states, tree, generator, eval_fn, spec, temperature_threshold)
     values = root_value(stree)
@@ -140,7 +152,7 @@ def selfplay_games(
     spec = search_spec(cfg)
 
     states = env.initial_state((num_games,), device=dev)
-    tree = init_tree(states, spec) if spec.tree_reuse else None
+    tree = init_tree(states, spec)
 
     rec_planes, rec_probs, rec_mover, rec_active = [], [], [], []
     moves_played = 0
@@ -153,7 +165,8 @@ def selfplay_games(
                 cfg.temperature_threshold)
         else:
             states, planes, probs, _, _ = selfplay_move(
-                states, generator, eval_fn, spec, cfg.temperature_threshold)
+                states, generator, eval_fn, spec, cfg.temperature_threshold,
+                tree)
         rec_planes.append(planes)
         rec_probs.append(probs)
         rec_mover.append(pre_turn)
@@ -195,14 +208,16 @@ def _reset_ended(states: env.EnvState, ended: torch.Tensor) -> env.EnvState:
 
 def selfplay_move_autoreset(states: env.EnvState, generator: torch.Generator,
                             eval_fn, spec: SearchSpec,
-                            temperature_threshold: int):
+                            temperature_threshold: int,
+                            tree: Tree | None = None):
     """One lockstep move where finished lanes immediately restart at the
     initial position, so every evaluation in every lane is real work.
     Returns (new_states, planes, probs, ended, winner): ``ended`` flags
     lanes whose episode completed ON this move, with ``winner`` its
-    result; new_states holds fresh games for those lanes."""
+    result; new_states holds fresh games for those lanes. ``tree`` as in
+    ``selfplay_move``."""
     new_states, planes, probs, _, _ = selfplay_move(
-        states, generator, eval_fn, spec, temperature_threshold)
+        states, generator, eval_fn, spec, temperature_threshold, tree)
     ended = new_states.done
     winner = new_states.winner
     return _reset_ended(new_states, ended), planes, probs, ended, winner
@@ -242,7 +257,7 @@ def selfplay_games_continuous(
     B = min(num_games, cfg.parallel_games)
 
     states = env.initial_state((B,), device=dev)
-    tree = init_tree(states, spec) if spec.tree_reuse else None
+    tree = init_tree(states, spec)
 
     rec_planes, rec_probs, rec_mover, rec_ended, rec_winner = \
         [], [], [], [], []
@@ -260,7 +275,8 @@ def selfplay_games_continuous(
                 cfg.temperature_threshold)
         else:
             states, planes, probs, ended, winner = selfplay_move_autoreset(
-                states, generator, eval_fn, spec, cfg.temperature_threshold)
+                states, generator, eval_fn, spec, cfg.temperature_threshold,
+                tree)
         rec_planes.append(planes)
         rec_probs.append(probs)
         rec_mover.append(pre_turn)

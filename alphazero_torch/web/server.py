@@ -44,7 +44,12 @@ from alphazero_torch.baseline import Search, from_board
 from alphazero_torch.config import Config
 from alphazero_torch.env import BLACK, WHITE, OracleGame
 from alphazero_torch.env.oracle import live_states
-from alphazero_torch.search import root_action_probs, root_value, search
+from alphazero_torch.search import (
+    init_tree,
+    root_action_probs,
+    root_value,
+    search,
+)
 from alphazero_torch.train import checkpoint as ckpt
 from alphazero_torch.utils import setup_logging
 
@@ -115,6 +120,7 @@ class BotService:
         self._spec = SearchSpec(
             num_simulations=self.cfg.num_simulations_inference,
             c_puct=self.cfg.c_puct, fpu_reduction=self.cfg.fpu_reduction)
+        self._tree = None
 
     def alphazero_move(self, game: OracleGame) -> tuple[int, float]:
         """(action, evaluation): greedy most-visited; eval White-positive."""
@@ -123,7 +129,11 @@ class BotService:
                    else contextlib.nullcontext())
         with torch.inference_mode(), on_card:
             states = live_states([game], dev)
-            tree = search(states, self._eval_fn, self._spec)
+            # one batch-1 tree, reset for every move: on the card every
+            # move replays the simulation the first one captured (always
+            # under inference mode, in which its tensors were made)
+            self._tree = init_tree(states, self._spec, tree=self._tree)
+            tree = search(states, self._eval_fn, self._spec, tree=self._tree)
             action = int(root_action_probs(tree, 0.0).argmax(-1)[0])
             ev = float(root_value(tree)[0])
         if game.turn == BLACK:

@@ -7,9 +7,17 @@ Builds the CUDA kernels from ``alphazero_torch/csrc`` (into ``build/``)
 and then runs, each phase printing one line and any failure raising and
 exiting non-zero:
 
+Every search on the card replays a simulation captured as a CUDA graph
+(``alphazero_torch/search/graph.py``) unless a phase asks for the eager
+yardstick (``capture=False``); the kernels' launch counts include the
+launches of the replays.
+
 - phase 1: the tree kernels against their plain PyTorch versions
   (bit-exact): ``fetch_rows``; ``commit_edges``, also on 2 and 5 stacked
-  levels against one call per level; ``descend`` against the plain
+  levels against one call per level, and in its path form
+  (``commit_path``, what the search launches) against its plain version,
+  and on the descent of a grown 512-game tree against the stacked form,
+  with its times beside its bound; ``descend`` against the plain
   per-level descent on trees that searches grew (512, 13 and 3 games,
   and 1 and 2 games at the web bot's 200 simulations; first-play urgency
   off and on, finished roots and terminal leaves);
@@ -21,11 +29,17 @@ exiting non-zero:
   512 positions x 20 blocks beside its bound, its plain version and the
   bf16 net's tower blocks in eager mode;
 - phase 3: the self-play search at full width (512 games x 800
-  simulations, one timed move) through ``selfplay_move``; a descent is
-  one ``descend`` launch and a backprop one ``commit_edges`` launch, so
-  the move launches each 800 times and reads the device once per
-  simulation;
+  simulations) through ``selfplay_move`` on one tree: a warm-up move that
+  captures the simulation, then one counted and timed move of 800
+  replays, each one ``descend`` and one ``commit_edges`` launch and no
+  read of the card; then one eager search and one captured from the same
+  position, timed and bit-equal; profiles of both;
 - phase 4: the card's search against the CPU's;
+- phase 15 (``graph``): the captured search against the eager one, trees
+  bit-equal over two consecutive moves each: bf16 and int8-static at 512
+  games x 64 simulations, the web bot's batch of one at 200 simulations
+  under inference mode, the arena's pair evaluator with its context;
+  captures, replays and the seconds of each move;
 - phase 5: continuous self-play (128 lanes x 16 simulations);
 - phase 7: the fused path at full width (512 positions, 800 evaluations
   in a row) beside the layer-by-layer bf16 net;
@@ -44,9 +58,10 @@ exiting non-zero:
   im2col matrix (the s8 product alone), and the input conv's;
 - phase 10: the int8-static evaluator (scales calibrated on positions from
   ``random_positions``) through ``selfplay_move`` at 512 games x 800
-  simulations beside the bf16 evaluator: a warm-up move with each, then
-  timed moves in turns (int8, bf16, bf16, int8); launches per forward,
-  the evaluate span, ``qconv3x3``'s device total in the profile; the
+  simulations beside the bf16 evaluator: a warm-up move with each (a
+  capture each), then timed moves in turns (int8, bf16, bf16, int8), then
+  one eager and one captured search of each; launches per forward, the
+  evaluate span, ``qconv3x3``'s device total in the profile; the
   card's int8 forward against the CPU's plain one and against the f32 net;
 - phase 11: the arena, ``play_paired_matches`` with int8 static against
   bf16 on the archived weights, 16 openings x 2 games at 32 simulations (a
@@ -60,7 +75,9 @@ exiting non-zero:
   most 40 plies; every move legal, ``/api/state`` equal to the last
   answer, each AlphaZero move 200 ``descend`` and 200 ``commit_edges``
   launches (their sums go into the ``kernels`` line as
-  ``web_launches``); the seconds of both players' moves;
+  ``web_launches``); the seconds of both players' moves; then the bot's
+  move on the initial position captured and eagerly, timed and
+  bit-equal;
 - phase 14: the distributed trainer (``alphazero_torch/parallel``) at
   full width, f32 learning with TF32 off, global batch 1024, in worker
   processes: (a) two ranks on the one card over gloo, 64 lanes x 32
@@ -80,8 +97,8 @@ exiting non-zero:
 
 The second-to-last lines are the ``kernels`` JSON object and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
-A profile summary of one short search goes to
-``chiprun_out/chip_smoke_profile_<games>.txt``.
+Profile summaries of short searches, captured and eager, go to
+``chiprun_out/chip_smoke_profile_<tag>.txt``.
 """
 
 import copy
@@ -260,7 +277,19 @@ def phase_kernels(dev):
                       f"stacked commit_edges differs from one call per "
                       f"level ({name_l})")
             del before, want, touched
-        del rows
+
+        # the path form: walks over distinct nodes, depths from 0
+        path = path_operands(B, M, gen, dev)
+        want = K._commit_path_plain(rows.clone(), *path, OFFSETS)
+        launches = K.commit_edges.launches
+        K.commit_path(rows, *path, OFFSETS, A)
+        torch.cuda.synchronize()
+        check(K.commit_edges.launches == launches + 1,
+              "commit_path did not count its launch")
+        err["commit_edges"] = max(err["commit_edges"],
+                                  float((rows - want).abs().max()))
+        check(torch.equal(rows, want), f"commit_path differs ({name})")
+        del rows, want
 
     # timing at the main path's shape; 64 node vectors cycle through 96 MB
     # of rows per fetch round, so rows come from HBM, not the 50 MB L2
@@ -335,8 +364,7 @@ def phase_kernels(dev):
     # per level: node and act, the three updates, and each touched element
     # read and written
     commit_bytes = LEVELS * (2 * B * 4 + B * 3 * 4 + 2 * B * 3 * 4)
-    bounds = {"fetch_rows": fetch_bytes / HBM_BYTES_PER_S * 1e3,
-              "commit_edges": commit_bytes / HBM_BYTES_PER_S * 1e3}
+    bounds = {"fetch_rows": fetch_bytes / HBM_BYTES_PER_S * 1e3}
     del rows
     torch.cuda.empty_cache()
     print(f"kernels bit-exact on {len(cases)} shapes x (1, 2, {LEVELS}) "
@@ -345,15 +373,125 @@ def phase_kernels(dev):
           f"kernel) {json.dumps(floor_t)}; times {json.dumps(t)}", flush=True)
 
     # descend against the plain per-level descent; the plain version's
-    # row reads are the fetch_rows launches this run counts
+    # row reads are the fetch_rows launches this run counts. The main path
+    # launches commit_edges in its path form (commit_path): its times, on
+    # the descent of the timing tree, are the kernel's, the stacked form's
+    # beside them under "stacked_"
     K.fetch_rows.launches = 0
-    err["descend"], t["descend"], bounds["descend"] = check_descend(dev)
+    (err["descend"], t["descend"], bounds["descend"], path_t,
+     bounds["commit_edges"]) = check_descend(dev)
+    t["commit_edges"] = {**path_t, **{f"stacked_{k}": v for k, v in
+                                      t["commit_edges"].items()},
+                         "stacked_bound_ms": commit_bytes / HBM_BYTES_PER_S
+                         * 1e3, "floor_ms": floor_t["ms"],
+                         "floor_call_ms": floor_t["call_ms"]}
     t["descend"]["floor_ms"] = floor_t["ms"]
     t["descend"]["floor_call_ms"] = floor_t["call_ms"]
     launches = {"fetch_rows": K.fetch_rows.launches}
     check(launches["fetch_rows"] > 0, "the plain descent did not launch "
                                       "fetch_rows")
     return err, t, bounds, launches
+
+
+def path_operands(B, M, gen, dev, max_depth=10):
+    """``commit_path``'s operands after ``kernels.commit_path``'s order
+    (path nodes, actions, depth, needs_alloc, value, slot): every game's
+    walk over distinct nodes, depths 0 to ``max_depth``, terminal leaves
+    and allocating walks."""
+    N = M - 1
+    nodes = torch.argsort(torch.rand((B, N), generator=gen, device=dev),
+                          dim=1).int()
+    acts = torch.randint(0, A, (B, N), generator=gen, device=dev,
+                         dtype=torch.int32)
+    depth = torch.randint(0, min(max_depth, N) + 1, (B,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    needs_alloc = (torch.rand((B,), generator=gen, device=dev) < 0.6) \
+        & (depth > 0)
+    value = torch.randn((B,), generator=gen, device=dev)
+    slot = torch.randint(1, N, (), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return nodes, acts, depth, needs_alloc, value, slot
+
+
+def stacked_backprop(rows, nodes, acts, depth, needs_alloc, value, slot):
+    """The backprop as the search built it before the path form: every
+    level to the deepest game's (L = max(depth, 1), a host read) stacked
+    into one ``commit_edges`` call, levels past a game's depth on the trash
+    row. Returns ``rows``, updated in place."""
+    from alphazero_torch.search import kernels as K
+
+    B, M = rows.shape[:2]
+    dev = rows.device
+    levels = max(int(depth.max()), 1)
+    lv = torch.arange(levels, dtype=torch.int32, device=dev)[:, None]
+    active = lv < depth[None]
+    zero = torch.zeros((), device=dev)
+    sign0 = torch.where(depth % 2 == 1, 1.0, -1.0)
+    tgt = torch.where(active, nodes[:, :levels].T,
+                      torch.full((), M - 1, dtype=torch.int32,
+                                 device=dev)).contiguous()
+    alloc = active & needs_alloc[None] & (lv == depth[None] - 1)
+    upd = torch.stack([
+        torch.where(alloc, (slot + 1).float(), zero), active.float(),
+        torch.where(active, (sign0 * value)[None] * (1 - 2 * (lv % 2)), zero),
+    ], dim=-1)
+    return K.commit_edges(rows, tgt, acts[:, :levels].T.contiguous(), upd,
+                          OFFSETS, A)
+
+
+def check_commit_path(dev, tree, out, copies):
+    """The path-form ``commit_edges`` at the main path's shape, on the
+    results of a descent of a grown tree: bit-equal to its plain version
+    and to the stacked form the search used to build; its device and
+    per-call times (cycling through ``copies`` of the tree, so that its
+    rows come from device memory), the plain version's, one
+    ``index_put_(accumulate=True)`` of the same updates, and its bound: the
+    bytes it must move (depth, needs_alloc and value of every game, the
+    slot, and per walked edge its node and action and three elements read
+    and written)."""
+    from alphazero_torch.search import kernels as K
+
+    _, needs_alloc, depth, nodes, acts = out[:5]
+    B, M = tree.rows.shape[:2]
+    R = tree.rows[0, 0].numel()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    value = torch.randn((B,), generator=gen, device=dev)
+    args = (nodes, acts, depth, needs_alloc, value, tree.next_slot)
+    got = K.commit_path(tree.rows.clone(), *args, OFFSETS, A)
+    want = K._commit_path_plain(tree.rows.clone(), *args, OFFSETS)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "commit_path differs from its plain "
+                                  "version on the grown tree")
+    check(torch.equal(got, stacked_backprop(tree.rows.clone(), *args)),
+          "commit_path differs from the stacked backprop")
+    del got, want
+    # the library call: the walked edges' elements and updates, flat
+    walked = (torch.arange(M - 1, device=dev)[None] < depth[:, None])
+    b, d = walked.nonzero(as_tuple=True)
+    sign = torch.where((depth[b] % 2 == 1) == (d % 2 == 0), 1.0, -1.0)
+    alloc = needs_alloc[b] & (d == depth[b] - 1)
+    upd = torch.stack([torch.where(alloc, (tree.next_slot + 1).float(), 0.0),
+                       torch.ones_like(sign), sign * value[b]], -1)
+    idx = (((b * M + nodes[b, d].long()) * R + acts[b, d].long())[:, None]
+           + torch.tensor(OFFSETS, device=dev)).reshape(-1)
+    upd = upd.reshape(-1)
+    flat = tree.rows.clone().view(-1)
+    cold = lambda i: K.commit_path(copies[i % len(copies)], *args, OFFSETS,
+                                   A)
+    edges = int(depth.sum())
+    nbytes = B * (4 + 1 + 4) + 4 + edges * (2 * 4 + 2 * 3 * 4)
+    # the plain version (its offsets copied from the host) and index_put_
+    # with accumulate over these indices synchronise with the host: their
+    # times are per call
+    t = {"ms": cuda_ms(cold, iters=48, warmup=12, what="commit_path"),
+         "call_ms": cuda_ms(cold, iters=48, warmup=12, queued=False),
+         "plain_ms": cuda_ms(lambda i: K._commit_path_plain(
+             copies[i % len(copies)], *args, OFFSETS), iters=8, warmup=2,
+             queued=False),
+         "library_ms": cuda_ms(lambda i: flat.index_put_(
+             (idx,), upd, accumulate=True), iters=8, warmup=2, queued=False),
+         "edges": edges, "bound_bytes": nbytes}
+    return t, nbytes / HBM_BYTES_PER_S * 1e3
 
 
 DESCEND_CHUNKS = (0, 50, 150, 200)  # simulations between two comparisons
@@ -535,6 +673,8 @@ def check_descend(dev):
             "l2_ms": cuda_ms(hot, what="descend l2"),
             "plain_ms": cuda_ms(plain, iters=4, warmup=2, queued=False),
             "bound_ms": bound, "bound_bytes": nbytes})
+        if chunk == DESCEND_CHUNKS[-1]:
+            path_t, path_bound = check_commit_path(dev, tree, out, copies)
         del copies
         torch.cuda.empty_cache()
     last = timed[-1]
@@ -545,7 +685,11 @@ def check_descend(dev):
     print(f"descend equal to the plain per-level descent on {compared} "
           f"trees ({'; '.join(report)}); at {GAMES} games by simulations "
           f"searched: {json.dumps(timed)}", flush=True)
-    return 0.0, t, last["bound_ms"]
+    print(f"commit_path (the backprop, path form) equal to its plain "
+          f"version and to the stacked form on the descent of the "
+          f"{int(tree.root_visit[0])}-simulation tree: {json.dumps(path_t)}; "
+          f"bound {path_bound:.7f} ms (bytes)", flush=True)
+    return 0.0, t, last["bound_ms"], path_t, path_bound
 
 
 # -----------------------------------------------------------------------------
@@ -619,6 +763,7 @@ def phase_network(dev):
 def phase_search(dev, net, card):
     from alphazero_torch.config import Config
     from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
     from alphazero_torch.train import selfplay
@@ -628,27 +773,38 @@ def phase_search(dev, net, card):
     spec = selfplay.search_spec(cfg)
     gen = torch.Generator(device=dev).manual_seed(1)
     states = env.initial_state((GAMES,), device=dev)
+    # the one tree of every move here, as selfplay_games keeps it
+    tree = mcts.init_tree(states, spec)
 
-    # warm-up move: checks on the searched tree
+    # warm-up move: it captures the simulation; checks on the searched tree
     legal = env.legal_action_mask(states)
-    tree, _, probs, actions, states = selfplay._searched_move(
-        states, None, gen, eval_fn, spec, cfg.temperature_threshold)
+    graph.STATS.reset()
     torch.cuda.synchronize()
+    t0 = time.time()
+    tree, _, probs, actions, states = selfplay._searched_move(
+        states, tree, gen, eval_fn, spec, cfg.temperature_threshold)
+    torch.cuda.synchronize()
+    first = {"first_move_s": time.time() - t0,
+             "captures": graph.STATS.captures,
+             "capture_s": graph.STATS.capture_s,
+             "replays": graph.STATS.replays}
+    check(graph.STATS.captures == 1, f"the first move made "
+                                     f"{graph.STATS.captures} captures")
     check(bool((tree.root_visit == SIMS).all()), "root visits != sims")
     check(bool((mcts.root_child_visits(tree).sum(-1) == SIMS).all()),
           "root child visits do not sum to sims")
     check(bool(((probs.sum(-1) - 1).abs() < 1e-5).all()), "probs sum")
     check(bool(legal[torch.arange(GAMES, device=dev), actions.long()].all()),
           "illegal sampled action")
-    del tree
-    torch.cuda.empty_cache()
 
-    # the main path, counted: one move through selfplay_move
+    # the main path, counted: one move through selfplay_move, which replays
+    # the captured simulation SIMS times
     torch.cuda.reset_peak_memory_stats()
     K.fetch_rows.launches = 0
     K.descend.launches = 0
     K.commit_edges.launches = 0
     mcts.STATS.reset()
+    graph.STATS.reset()
     moves, live = 1, 0
     torch.cuda.synchronize()
     t0 = time.time()
@@ -656,7 +812,7 @@ def phase_search(dev, net, card):
         legal = env.legal_action_mask(states)
         live_now = ~states.done
         states, _, probs, actions, values = selfplay.selfplay_move(
-            states, gen, eval_fn, spec, cfg.temperature_threshold)
+            states, gen, eval_fn, spec, cfg.temperature_threshold, tree)
         live += int(live_now.sum())
         check(bool(legal[live_now, actions[live_now].long()].all()),
               "illegal sampled action")
@@ -671,39 +827,58 @@ def phase_search(dev, net, card):
           f"a kernel was not launched on the main path: {launches}")
     st = mcts.STATS
     check(launches["descend"] == launches["commit_edges"] == moves * SIMS
-          == st.host_syncs and launches["fetch_rows"] == 0,
-          f"{launches} and {st.host_syncs} host syncs for {moves * SIMS} simulations: a "
-          f"descent is one launch and one sync, a backprop one launch")
-    depth = float(st.depth_sum) / (st.simulations * GAMES)
+          == st.simulations == graph.STATS.replays
+          and graph.STATS.captures == 0 and st.host_syncs == 0
+          and launches["fetch_rows"] == 0,
+          f"{launches}, {st.host_syncs} host syncs, "
+          f"{graph.STATS.captures} captures and {graph.STATS.replays} "
+          f"replays for {moves * SIMS} simulations: a simulation is one "
+          f"replay, one descend and one commit_edges launch, no host read")
+    depth = st.depth_sum / (st.simulations * GAMES)
     out = {
         "games": GAMES, "sims": SIMS, "moves": moves,
         "sims_per_s": live * SIMS / dt, "move_s": dt / moves,
         "mean_edge_depth": depth,
-        "levels_per_sim": st.levels / st.simulations,
         "launches_per_move": {k: v / moves for k, v in launches.items()},
         "host_syncs_per_sim": st.host_syncs / st.simulations,
+        "replays_per_move": graph.STATS.replays / moves,
+        "first_move": first,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "card": card,
     }
+    # the eager yardstick in the same call: one search of the next position
+    # eagerly, then one captured (replays of the tree's capture), each tree
+    # bit-equal to the other
+    live = int((~states.done).sum())
+    seconds = captured_against_eager(states, eval_fn, spec, 1, 11,
+                                     tree=tree)["seconds"]
+    out["search_sims_per_s"] = {m: live * SIMS / t[0] for m, t in
+                                seconds.items()}
+    out["captured_over_eager"] = seconds["eager"][0] / seconds["captured"][0]
     print("main path " + json.dumps(out), flush=True)
-    profile_search(states, eval_fn)
+    out["profile"] = {mode: profile_search(states, eval_fn, capture=c,
+                                           tag=f"{GAMES}_{mode}")
+                      for mode, c in (("captured", None), ("eager", False))}
     return launches, out
 
 
 STAGES = ("mcts.descend", "mcts.evaluate", "mcts.expand", "mcts.backprop")
 
 
-def profile_search(states, eval_fn, sims=16, tag=None):
-    """One ``sims``-simulation search under ``torch.profiler``: wall time,
-    device busy time (the sum of the kernels' own times; one stream, so
-    they do not overlap), host and device time per simulation stage (the
-    ``record_function`` spans of ``mcts._simulate_once``), the host syncs
-    and the host time spent blocked in them (``aten::_local_scalar_dense``,
-    the device-to-host read behind every ``bool()``/``int()`` of a CUDA
-    tensor), and the kernels that took most device time. The whole table goes to
-    ``chiprun_out/chip_smoke_profile_<tag or games>.txt``. Returns the
-    wall and busy seconds and the stages' host and device ms per
-    simulation."""
+def profile_search(states, eval_fn, sims=16, tag=None, capture=None):
+    """One ``sims``-simulation search under ``torch.profiler``, captured
+    (the default, on a tree that captured in a search before it, so
+    that the profiled one only replays) or eager (``capture=False``): wall
+    time; the host's time until the search returned, per simulation (on
+    the captured path the host's cost of a replay); device busy time (the
+    sum of the kernels' own times; one stream, so they do not overlap) and
+    the idle share; host time and device span per simulation stage (the
+    ``record_function`` spans of ``mcts._simulate_once``, which a replay
+    does not record: eager only); the host syncs and the host time spent
+    blocked in them (``aten::_local_scalar_dense``, the device-to-host read
+    behind every ``bool()``/``int()`` of a CUDA tensor); and the kernels
+    that took most device time. The whole table goes to
+    ``chiprun_out/chip_smoke_profile_<tag or games>.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -711,12 +886,14 @@ def profile_search(states, eval_fn, sims=16, tag=None):
 
     B = states.turn.shape[0]
     spec = mcts.SearchSpec(num_simulations=sims)
-    mcts.search(states, eval_fn, spec)                        # warm
+    tree = mcts.search(states, eval_fn, spec, capture=capture)   # warm
+    tree = mcts.init_tree(states, spec, tree=tree)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        mcts.search(states, eval_fn, spec)
+        mcts.search(states, eval_fn, spec, tree=tree, capture=capture)
+        host = time.time() - t0
         torch.cuda.synchronize()
         wall = time.time() - t0
     events = prof.key_averages()
@@ -727,19 +904,21 @@ def profile_search(states, eval_fn, sims=16, tag=None):
                    and e.key not in STAGES
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(k[0] for k in kern) / 1e6
-    host = {e.key: e.cpu_time_total / 1e3 / sims for e in events
-            if e.key in STAGES and e.device_type == DeviceType.CPU}
+    host_stage = {e.key: e.cpu_time_total / 1e3 / sims for e in events
+                  if e.key in STAGES and e.device_type == DeviceType.CPU}
     span = {e.key: e.self_device_time_total / 1e3 / sims for e in events
             if e.key in STAGES and e.device_type == DeviceType.CUDA}
-    stage = {k: (host.get(k, 0.0), span.get(k, 0.0)) for k in STAGES}
+    stage = {k: (host_stage.get(k, 0.0), span.get(k, 0.0)) for k in STAGES}
     syncs = [e for e in events if e.key == "aten::_local_scalar_dense"
              and e.device_type == DeviceType.CPU]
     n_sync = sum(e.count for e in syncs) / sims
     sync_ms = sum(e.cpu_time_total for e in syncs) / 1e3 / sims
+    mode = "eager" if capture is False else "captured"
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out",
                            f"chip_smoke_profile_{tag or B}.txt"), "w") as f:
-        f.write(f"one search, {B} games x {sims} sims: wall {wall:.4f} s, "
+        f.write(f"one {mode} search, {B} games x {sims} sims: wall "
+                f"{wall:.4f} s, host until it returned {host:.4f} s, "
                 f"device busy {busy:.4f} s\n")
         f.write(f"host syncs: {n_sync:.3f} per sim, host blocked in them "
                 f"{sync_ms:.3f} ms/sim\n")
@@ -748,18 +927,19 @@ def profile_search(states, eval_fn, sims=16, tag=None):
                     f"ms/sim\n")
         for us, key, count in kern[:40]:
             f.write(f"{us / 1e3:10.3f} ms  {count:7d}  {key}\n")
-    check(kern, "profile: no device events")
+    check(kern, f"profile of the {mode} search: no device events")
     top = "; ".join(f"{k[:40]} {us / 1e3:.1f} ms x{c}"
                     for us, k, c in kern[:5])
     split = ", ".join(f"{k[5:]} {h:.2f}/{d:.2f}"
                       for k, (h, d) in stage.items())
-    print(f"profile {tag or ''} {B} games x {sims} sims: wall "
-          f"{wall * 1e3:.1f} ms, "
-          f"device busy {busy * 1e3:.1f} ms (idle share "
-          f"{1 - busy / wall:.3f}); per sim host/device-span ms: {split}; "
-          f"host syncs per sim {n_sync:.3f}, host blocked in them "
-          f"{sync_ms:.3f} ms/sim; top kernels: {top}", flush=True)
+    print(f"profile {tag or ''} {mode}, {B} games x {sims} sims: wall "
+          f"{wall * 1e3:.1f} ms, host until it returned "
+          f"{host * 1e3 / sims:.3f} ms/sim, device busy {busy * 1e3:.1f} ms "
+          f"(idle share {1 - busy / wall:.3f}); per sim host/device-span "
+          f"ms: {split}; host syncs per sim {n_sync:.3f}, host blocked in "
+          f"them {sync_ms:.3f} ms/sim; top kernels: {top}", flush=True)
     return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
+            "host_ms_per_sim": host * 1e3 / sims,
             "stages_host_device_ms_per_sim": stage,
             "kernels_ms": {key: us / 1e3 for us, key, _ in kern}}
 
@@ -770,16 +950,22 @@ def profile_search(states, eval_fn, sims=16, tag=None):
 
 _W = torch.tensor((np.arange(A) * 5) % 8 + 1, dtype=torch.float32)
 _SQ = torch.arange(A) // 3
+_DYADIC = {}
 
 
 def dyadic_eval(planes):
     """Toy evaluator whose every output and every sum the search takes is
     exact in float32 in any order: integer policy weights and values that
-    are multiples of 1/16."""
+    are multiples of 1/16. Its weights go to the device once (a copy from
+    the host could not be captured)."""
     B = planes.shape[0]
     mine = planes[:, 0].reshape(B, 64)
     theirs = planes[:, 1].reshape(B, 64)
-    w = _W.to(planes.device) * (1.0 + mine[:, _SQ.to(planes.device)])
+    if planes.device not in _DYADIC:
+        _DYADIC[planes.device] = (_W.to(planes.device),
+                                  _SQ.to(planes.device))
+    weights, squares = _DYADIC[planes.device]
+    w = weights * (1.0 + mine[:, squares])
     value = (mine.sum(-1) - theirs.sum(-1)) / 16.0
     return w, value
 
@@ -836,6 +1022,7 @@ def phase_card_vs_cpu(dev):
 @phase("phase 5 continuous self-play")
 def phase_continuous(dev, net, card):
     from alphazero_torch.config import Config
+    from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
     from alphazero_torch.train import selfplay
@@ -847,6 +1034,7 @@ def phase_continuous(dev, net, card):
     K.descend.launches = 0
     K.commit_edges.launches = 0
     mcts.STATS.reset()
+    graph.STATS.reset()
     torch.cuda.synchronize()
     t0 = time.time()
     examples, stats = selfplay.selfplay_games_continuous(
@@ -856,11 +1044,14 @@ def phase_continuous(dev, net, card):
     check(K.descend.launches > 0 and K.commit_edges.launches > 0,
           "continuous self-play did not launch both kernels")
     check(K.descend.launches == K.commit_edges.launches == st.simulations
-          == st.host_syncs and K.fetch_rows.launches == 0,
+          and st.host_syncs == 0 and K.fetch_rows.launches == 0
+          and graph.STATS.captures == 1,
           f"{K.descend.launches} descend, {K.commit_edges.launches} "
-          f"commit_edges, {K.fetch_rows.launches} fetch_rows launches and "
-          f"{st.host_syncs} host syncs for {st.simulations} simulations: a "
-          f"descent is one launch and one sync, a backprop one launch")
+          f"commit_edges, {K.fetch_rows.launches} fetch_rows launches, "
+          f"{st.host_syncs} host syncs and {graph.STATS.captures} captures "
+          f"for {st.simulations} simulations: a simulation is one descend "
+          f"and one commit_edges launch and no host read, and the run's "
+          f"one tree is captured once")
     check(stats["games"] >= CONT_GAMES, f"games {stats['games']}")
     check(stats["examples"] == len(examples) > 0, "no examples")
     for planes, probs, wl in examples:
@@ -876,17 +1067,19 @@ def phase_continuous(dev, net, card):
            "games_per_hour": stats["games"] / dt * 3600,
            "sims_per_s": stats["simulations"] / dt,
            "ms_per_sim": dt / st.simulations * 1e3,
-           "mean_edge_depth": float(st.depth_sum) / (st.simulations
-                                                     * CONT_LANES),
-           "levels_per_sim": st.levels / st.simulations,
+           "mean_edge_depth": st.depth_sum / (st.simulations * CONT_LANES),
            "host_syncs_per_sim": st.host_syncs / st.simulations,
+           "captures": graph.STATS.captures,
+           "capture_s": graph.STATS.capture_s,
+           "replays": graph.STATS.replays,
            "launches_per_sim": {
                "descend": K.descend.launches / st.simulations,
                "commit_edges": K.commit_edges.launches / st.simulations},
            "card": card}
     print("continuous " + json.dumps(out), flush=True)
     from alphazero_torch.env import breakthrough as env
-    profile_search(env.initial_state((CONT_LANES,), device=dev), eval_fn)
+    profile_search(env.initial_state((CONT_LANES,), device=dev), eval_fn,
+                   tag=f"{CONT_LANES}_captured")
 
 
 # -----------------------------------------------------------------------------
@@ -1141,6 +1334,7 @@ def phase_trainer(dev, card):
         config_from_archive,
         load_archive,
     )
+    from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
     from alphazero_torch.train import Trainer, cosine_lr
@@ -1158,6 +1352,7 @@ def phase_trainer(dev, card):
         K.descend.launches = 0
         K.commit_edges.launches = 0
         mcts.STATS.reset()
+        graph.STATS.reset()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         metrics = [tr.run_iteration() for _ in range(2)]
@@ -1168,18 +1363,20 @@ def phase_trainer(dev, card):
               f"the trainer's self-play did not launch both kernels: "
               f"{launches}")
         check(launches["descend"] == launches["commit_edges"]
-              == st.simulations == st.host_syncs
-              and K.fetch_rows.launches == 0,
-              f"{launches}, {K.fetch_rows.launches} fetch_rows launches "
-              f"and {st.host_syncs} host syncs for {st.simulations} "
-              f"simulations: a descent is one launch and one sync, a "
-              f"backprop one launch")
+              == st.simulations and st.host_syncs == 0
+              and K.fetch_rows.launches == 0 and graph.STATS.captures == 2,
+              f"{launches}, {K.fetch_rows.launches} fetch_rows launches, "
+              f"{st.host_syncs} host syncs and {graph.STATS.captures} "
+              f"captures for {st.simulations} simulations: a simulation is "
+              f"one descend and one commit_edges launch and no host read, "
+              f"and each iteration's new evaluator one capture")
         search_stats = {
             "simulations": st.simulations,
-            "levels_per_sim": st.levels / st.simulations,
             "host_syncs_per_sim": st.host_syncs / st.simulations,
-            "mean_edge_depth": float(st.depth_sum) / (st.simulations
-                                                      * TRAIN_LANES)}
+            "captures": graph.STATS.captures,
+            "capture_s": graph.STATS.capture_s,
+            "mean_edge_depth": st.depth_sum / (st.simulations
+                                               * TRAIN_LANES)}
         steps = []
         for i, m in enumerate(metrics):
             check(m["iteration"] == i + 1 and m["examples_new"] > 0,
@@ -1435,6 +1632,7 @@ def phase_quant_search(dev, net, card, qp, act):
     from alphazero_torch.env import breakthrough as env
     from alphazero_torch.models import quant
     from alphazero_torch.models.network import wl_to_value
+    from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
     from alphazero_torch.train import selfplay
@@ -1444,38 +1642,47 @@ def phase_quant_search(dev, net, card, qp, act):
              "bf16": mcts.make_net_evaluator(net, torch.bfloat16)}
     spec = selfplay.search_spec(cfg)
     states = env.initial_state((GAMES,), device=dev)
-    # a warm-up move with each evaluator
+    # a tree for each evaluator, and a warm-up move with each: it captures
+    trees = {name: mcts.init_tree(states, spec) for name in evals}
+    graph.STATS.reset()
     for name, fn in evals.items():
         gen = torch.Generator(device=dev).manual_seed(1)
         tree, _, probs, _, _ = selfplay._searched_move(
-            states, None, gen, fn, spec, cfg.temperature_threshold)
+            states, trees[name], gen, fn, spec, cfg.temperature_threshold)
         torch.cuda.synchronize()
         check(bool((tree.root_visit == SIMS).all())
               and bool((mcts.root_child_visits(tree).sum(-1) == SIMS).all()),
               f"{name} search: root visits != sims")
         check(bool(((probs.sum(-1) - 1).abs() < 1e-5).all()), "probs sum")
-        del tree
-        torch.cuda.empty_cache()
+    check(graph.STATS.captures == 2, f"{graph.STATS.captures} captures for "
+                                     f"two evaluators")
 
     # the main path, counted, and timed in turns (int8, bf16, bf16, int8:
     # the host's speed drifts within a call), each move from the same
-    # position and generator state
+    # position and generator state, replays only; then one eager move of
+    # each from the same position
     n_conv = 2 * len(qp["blocks"]) + 1
     out = {"games": GAMES, "sims": SIMS, "card": card,
+           "capture_s": graph.STATS.capture_s,
            "int8_sims_per_s": [], "bf16_sims_per_s": []}
     for name in ("int8", "bf16", "bf16", "int8"):
         quant.qconv3x3.launches = 0
         K.descend.launches = 0
         K.commit_edges.launches = 0
         mcts.STATS.reset()
+        graph.STATS.reset()
         gen = torch.Generator(device=dev).manual_seed(2)
         torch.cuda.synchronize()
         t0 = time.time()
         values = selfplay.selfplay_move(
-            states, gen, evals[name], spec, cfg.temperature_threshold)[4]
+            states, gen, evals[name], spec, cfg.temperature_threshold,
+            trees[name])[4]
         torch.cuda.synchronize()
         dt = time.time() - t0
         check(bool(torch.isfinite(values).all()), "root values not finite")
+        check(graph.STATS.captures == 0 and graph.STATS.replays == SIMS,
+              f"{name} move: {graph.STATS.captures} captures, "
+              f"{graph.STATS.replays} replays")
         out[f"{name}_sims_per_s"].append(GAMES * SIMS / dt)
         if name == "int8":
             launches = {"qconv3x3": quant.qconv3x3.launches,
@@ -1483,26 +1690,40 @@ def phase_quant_search(dev, net, card, qp, act):
                         "commit_edges": K.commit_edges.launches}
             check(launches["qconv3x3"] == n_conv * (SIMS + 1)
                   and launches["descend"] == launches["commit_edges"]
-                  == SIMS == mcts.STATS.host_syncs,
+                  == SIMS and mcts.STATS.host_syncs == 0,
                   f"int8 move: {launches}, {mcts.STATS.host_syncs} syncs")
         else:
             check(quant.qconv3x3.launches == 0, "bf16 move ran an s8 conv")
     out["int8_over_bf16"] = (sum(out["int8_sims_per_s"])
                              / sum(out["bf16_sims_per_s"]))
     out["launches_per_move"] = launches
+    for name, fn in evals.items():
+        seconds = captured_against_eager(states, fn, spec, 1, 2,
+                                         tree=trees[name])["seconds"]
+        out[f"{name}_search_sims_per_s"] = {m: GAMES * SIMS / t[0]
+                                            for m, t in seconds.items()}
+    out["eager_int8_over_bf16"] = (
+        out["int8_search_sims_per_s"]["eager"]
+        / out["bf16_search_sims_per_s"]["eager"])
+    del trees
+    torch.cuda.empty_cache()
     planes = env.encoded_state(random_positions(GAMES, 71)).to(dev)
     out["launches_per_forward"] = {
         name: launches_per_forward(fn, planes) for name, fn in evals.items()}
     for name, fn in evals.items():
-        p = profile_search(states, fn, tag=f"{name}_{GAMES}")
-        if name == "int8":
-            p_int8 = p
-        out[f"{name}_evaluate_host_ms_per_sim"] = \
-            p["stages_host_device_ms_per_sim"]["mcts.evaluate"][0]
-        out[f"{name}_idle_share"] = p["idle_share"]
-        out[f"{name}_busy_ms"] = p["busy_s"] * 1e3
-    out["int8_qconv3x3_device_ms"] = sum(
-        ms for key, ms in p_int8["kernels_ms"].items() if "qconv3x3" in key)
+        for mode, c in (("captured", None), ("eager", False)):
+            p = profile_search(states, fn, tag=f"{name}_{GAMES}_{mode}",
+                               capture=c)
+            if mode == "eager":
+                out[f"{name}_evaluate_host_ms_per_sim"] = \
+                    p["stages_host_device_ms_per_sim"]["mcts.evaluate"][0]
+            out[f"{name}_{mode}_host_ms_per_sim"] = p["host_ms_per_sim"]
+            out[f"{name}_{mode}_idle_share"] = p["idle_share"]
+            out[f"{name}_{mode}_busy_ms"] = p["busy_s"] * 1e3
+            if (name, mode) == ("int8", "captured"):
+                out["int8_qconv3x3_device_ms"] = sum(
+                    ms for key, ms in p["kernels_ms"].items()
+                    if "qconv3x3" in key)
     print("int8 search " + json.dumps(out), flush=True)
 
     # the card's int8 forward against the CPU's plain one (same static
@@ -1619,8 +1840,10 @@ def phase_web(dev, net, card):
     from http.server import ThreadingHTTPServer
 
     from alphazero_torch.env import OracleGame
+    from alphazero_torch.env.oracle import live_states
     from alphazero_torch.models.convert import config_from_archive
     from alphazero_torch.search import kernels as K
+    from alphazero_torch.search import mcts
     from alphazero_torch.train import checkpoint as ckpt
     from alphazero_torch.train.learner import TrainState, make_optimizer
     from alphazero_torch.web import server
@@ -1686,6 +1909,26 @@ def phase_web(dev, net, card):
                         "legal_moves"):
                 check(state[key] == r[key],
                       f"/api/state {key} {state[key]} != {r[key]}")
+            # the bot's move on the initial position, in this thread:
+            # captured (its tree's simulation, replayed) against one eager
+            # search of the same position, bit for bit
+            bot, game = session.bot, OracleGame()
+            bot_s = {}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            bot.alphazero_move(game)
+            torch.cuda.synchronize()
+            bot_s["captured"] = time.time() - t0
+            with torch.inference_mode():
+                t0 = time.time()
+                eager = mcts.search(live_states([game], dev), bot._eval_fn,
+                                    bot._spec, capture=False)
+                torch.cuda.synchronize()
+                bot_s["eager"] = time.time() - t0
+                check(torch.equal(eager.rows, bot._tree.rows)
+                      and torch.equal(eager.root_vsum, bot._tree.root_vsum),
+                      "the bot's captured search differs from the eager "
+                      "one")
         finally:
             server.BASELINE_TIME_MS = real_ms
             httpd.shutdown()
@@ -1700,7 +1943,8 @@ def phase_web(dev, net, card):
                       "s_per_move_after_first": (sum(az_s[1:])
                                                  / max(len(az_s) - 1, 1)),
                       "min_s": min(az_s), "max_s": max(az_s),
-                      "evaluations": evals},
+                      "evaluations": evals,
+                      "initial_position_move_s": bot_s},
         "baseline": {"ms": WEB_BASELINE_MS, "cut_from_ms": real_ms,
                      "moves": len(base_s),
                      "s_per_move": sum(base_s) / max(len(base_s), 1),
@@ -1708,6 +1952,117 @@ def phase_web(dev, net, card):
                                                           1e-9)},
         "launches": total, "card": card}), flush=True)
     return total
+
+
+# -----------------------------------------------------------------------------
+# Phase 15: the captured simulation against the eager one
+# -----------------------------------------------------------------------------
+
+GRAPH_MOVES = 2
+
+
+def captured_against_eager(states, eval_fn, spec, moves, seed, ctx=None,
+                           tree=None):
+    """``moves`` consecutive moves from ``states`` (greedy on the eager
+    tree's visits, so both take the same path), each searched eagerly on a
+    tree of its own and captured on one tree reset in place (``tree``, and
+    the simulation it captured, if given), with root noise from generators
+    of the same seed and ``ctx(states)`` as the evaluator's context. Fails
+    unless every move's trees are bit-equal. Returns the host seconds of
+    each move in each mode and the captures and replays of the captured
+    moves."""
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.search import graph
+    from alphazero_torch.search import mcts
+
+    dev = states.turn.device
+    fields = ("rows", "root_visit", "root_vsum", "node_count", "next_slot")
+    seconds = {"eager": [], "captured": []}
+    graph.STATS.reset()
+    for move in range(moves):
+        eval_ctx = None if ctx is None else ctx(states)
+        trees = {}
+        for mode in ("eager", "captured"):
+            gen = torch.Generator(device=dev).manual_seed(seed + move)
+            t = (mcts.init_tree(states, spec) if mode == "eager" else
+                 mcts.init_tree(states, spec, tree=tree))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            trees[mode] = mcts.search(
+                states, eval_fn, spec, generator=gen, add_noise=True, tree=t,
+                eval_ctx=eval_ctx, capture=False if mode == "eager" else None)
+            torch.cuda.synchronize()
+            seconds[mode].append(time.time() - t0)
+        tree = trees["captured"]
+        differ = [f for f in fields if not torch.equal(
+            getattr(trees["eager"], f), getattr(tree, f))]
+        check(not differ, f"move {move}: the captured tree's {differ} differ "
+                          f"from the eager tree's")
+        actions = mcts.root_child_visits(trees["eager"]).argmax(-1)
+        states = env.step(states, actions)
+    return {"seconds": seconds, "captures": graph.STATS.captures,
+            "replays": graph.STATS.replays,
+            "capture_s": graph.STATS.capture_s}
+
+
+@phase("phase 15 graph")
+def phase_graph(dev, net, card):
+    import contextlib
+    import random
+
+    from alphazero_torch.arena import match
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import quant
+    from alphazero_torch.search import graph
+    from alphazero_torch.search import mcts
+    from alphazero_torch.strength.common import calibration_batches
+
+    qp = quant.quantize_network(net)
+    act = quant.calibrate(qp, calibration_batches(ARCHIVE, dev)[0])
+    evals = {"bf16": mcts.make_net_evaluator(net, torch.bfloat16),
+             "int8": quant.make_quant_evaluator(net, act_scales=act, qp=qp)}
+    pair = match.select_evaluator(evals["int8"], evals["bf16"])
+    rng = random.Random(0)
+    arena_states = match.paired_states(
+        [match.random_opening(rng) for _ in range(ARENA_OPENINGS)], dev)
+    a_is_white = torch.arange(2 * ARENA_OPENINGS, device=dev) % 2 == 0
+    # (name, states, evaluator, simulations, context, under inference mode)
+    cases = [
+        ("bf16", env.initial_state((GAMES,), device=dev), evals["bf16"], 64,
+         None, False),
+        ("int8_static", env.initial_state((GAMES,), device=dev),
+         evals["int8"], 64, None, False),
+        # the web bot's shape, as its handler runs it
+        ("batch1_web", env.initial_state((1,), device=dev), evals["bf16"],
+         WEB_SIMS, None, True),
+        # the arena's pair evaluator and context, "player A to move", a new
+        # tensor every move (arena/match.py)
+        ("arena_eval_ctx", arena_states, pair, ARENA_SIMS,
+         lambda st: torch.where(st.turn == env.WHITE, a_is_white,
+                                ~a_is_white), False),
+    ]
+    out = {"moves_per_case": GRAPH_MOVES, "warmup_sims": graph.WARMUP,
+           "card": card}
+    for name, states, fn, sims, ctx, inference in cases:
+        spec = mcts.SearchSpec(num_simulations=sims)
+        mode = torch.inference_mode() if inference \
+            else contextlib.nullcontext()
+        with mode:
+            r = captured_against_eager(states, fn, spec, GRAPH_MOVES, 7, ctx)
+        check(r["captures"] == 1
+              and r["replays"] == GRAPH_MOVES * sims - graph.WARMUP,
+              f"{name}: {r['captures']} captures, {r['replays']} replays for "
+              f"{GRAPH_MOVES} moves of {sims} simulations")
+        B = states.turn.shape[0]
+        r["games"], r["sims"] = B, sims
+        r["sims_per_s"] = {m: [B * sims / t for t in ts]
+                           for m, ts in r["seconds"].items()}
+        out[name] = r
+        print(f"graph {name}: {B} games x {sims} sims, {GRAPH_MOVES} moves "
+              f"captured and eager, trees bit-equal: {json.dumps(r)}",
+              flush=True)
+    torch.cuda.empty_cache()
+    return out
 
 
 # -----------------------------------------------------------------------------
@@ -2056,8 +2411,9 @@ def phase_distributed(card, single_step_ms):
 
 def main(argv=None) -> int:
     """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
-    kernels, search, cpu, continuous, tower, fused, trainer, qconv, quant,
-    arena, bench, web, dist) runs only those, for work on one of them, and then
+    kernels, search, cpu, graph, continuous, tower, fused, trainer, qconv,
+    quant, arena, bench, web, dist) runs only those, for work on one of
+    them, and then
     prints no ``kernels`` line (quant and arena run the qconv phase first,
     arena the quant phase)."""
     if not torch.cuda.is_available():
@@ -2096,6 +2452,8 @@ def main(argv=None) -> int:
         launches.update(phase_search(dev, net, card)[0])
     if want("cpu"):
         phase_card_vs_cpu(dev)
+    if want("graph"):
+        phase_graph(dev, net, card)
     if want("continuous"):
         phase_continuous(dev, net, card)
     if want("fused"):

@@ -83,7 +83,9 @@ def _toy_eval(weights, planes: torch.Tensor):
     B = planes.shape[0]
     mine = planes[:, 0].reshape(B, 64)
     theirs = planes[:, 1].reshape(B, 64)
-    w = weights * (1.0 + mine[:, torch.arange(A) // 3])
+    # the index is made where the planes lie: a copy from the host could
+    # not be captured in a CUDA graph
+    w = weights * (1.0 + mine[:, torch.arange(A, device=planes.device) // 3])
     return w, (mine.sum(-1) - theirs.sum(-1)) / 16.0
 
 
@@ -679,20 +681,24 @@ def test_cuda_descend_equals_plain_descent(cuda, n, sims, fpu, ties):
 
 @pytest.mark.gpu
 def test_cuda_search_is_one_descend_launch_per_simulation(cuda):
+    """A search on the card: one ``descend`` and one path-form
+    ``commit_edges`` launch a simulation (replays counted), no read of the
+    card by the host inside it, and the CPU's tree."""
     states = _positions(2, 16)
     spec = tmcts.SearchSpec(num_simulations=32)
     cpu_tree = tmcts.search(states, tie_eval, spec)
     counts = (K.descend.launches, K.fetch_rows.launches,
               K.commit_edges.launches)
+    weights = _TIE_W.to(cuda)
     tmcts.STATS.reset()
     tree = tmcts.search(_on(states, cuda),
-                        lambda planes: _toy_eval(_TIE_W.to(cuda), planes),
-                        spec)
+                        lambda planes: _toy_eval(weights, planes), spec)
     torch.cuda.synchronize()
     assert (K.descend.launches, K.fetch_rows.launches,
             K.commit_edges.launches) == (counts[0] + 32, counts[1],
                                          counts[2] + 32)
-    assert tmcts.STATS.host_syncs == 32
+    assert tmcts.STATS.simulations == 32 and tmcts.STATS.host_syncs == 0
+    assert tree.captured is not None
     assert torch.equal(tree.rows.cpu(), cpu_tree.rows)
 
 

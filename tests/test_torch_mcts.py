@@ -114,34 +114,55 @@ def test_visit_counts_and_rows_equal_jax_search(variant):
 
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 def test_backprop_is_one_stacked_commit_per_simulation(monkeypatch, dtype):
-    """A simulation hands every level of its path to ``commit_edges`` in
-    one call, and the tree is the one that a call per level leaves."""
+    """A simulation's whole backprop is one ``commit_path`` call on the
+    descent's own outputs (every level at once, the slot on the device),
+    and the tree is the one that a ``commit_edges`` call per level leaves:
+    the JAX package's backprop loop (mcts.py:425-451)."""
     games = _games(19, 8)
     spec = tmcts.SearchSpec(num_simulations=24, value_dtype=dtype)
-    real = tmcts.kernels.commit_edges
-    shapes = []
+    real = tmcts.kernels.commit_path
+    calls = []
 
-    def stacked(rows, node, act, upd, offsets, num_actions):
-        shapes.append((tuple(node.shape), tuple(act.shape),
-                       tuple(upd.shape), node.dtype, node.is_contiguous()
-                       and act.is_contiguous()))
-        return real(rows, node, act, upd, offsets, num_actions)
+    def path(rows, nodes, acts, depth, needs_alloc, value, slot, offsets,
+             num_actions):
+        calls.append((tuple(nodes.shape), tuple(acts.shape), nodes.dtype,
+                      depth.dtype, needs_alloc.dtype, value.dtype,
+                      tuple(slot.shape), slot.dtype, tuple(offsets)))
+        return real(rows, nodes, acts, depth, needs_alloc, value, slot,
+                    offsets, num_actions)
 
-    def per_level(rows, node, act, upd, offsets, num_actions):
-        for l in range(node.shape[0]):
-            real(rows, node[l], act[l], upd[l], offsets, num_actions)
+    def per_level(rows, nodes, acts, depth, needs_alloc, value, slot,
+                  offsets, num_actions):
+        M = rows.shape[1]
+        sign0 = torch.where(depth % 2 == 1, 1.0, -1.0).to(dtype)
+        zero = torch.zeros((), dtype=dtype)
+        flip = 1.0
+        for d in range(int(depth.max())):
+            active = d < depth
+            is_alloc = active & needs_alloc & (depth - 1 == d)
+            upd = torch.stack([
+                torch.where(is_alloc, (slot + 1).to(dtype), zero),
+                active.to(dtype),
+                torch.where(active, sign0 * flip * value, zero)], dim=-1)
+            tmcts.kernels.commit_edges(
+                rows, torch.where(active, nodes[:, d], M - 1).int(),
+                acts[:, d].contiguous(), upd, offsets, num_actions)
+            flip = -flip
         return rows
 
-    monkeypatch.setattr(tmcts.kernels, "commit_edges", stacked)
+    monkeypatch.setattr(tmcts.kernels, "commit_path", path)
     tmcts.STATS.reset()
     tree = tmcts.search(torch_states_from_games(games), fake_eval_torch, spec)
-    assert len(shapes) == 24 == tmcts.STATS.simulations
-    assert sum(s[0][0] for s in shapes) == tmcts.STATS.levels
-    for node_shape, act_shape, upd_shape, node_dtype, contiguous in shapes:
-        assert node_shape == act_shape == (node_shape[0], 8)
-        assert upd_shape == node_shape + (3,)
-        assert node_dtype == torch.int32 and contiguous
-    monkeypatch.setattr(tmcts.kernels, "commit_edges", per_level)
+    st = tmcts.STATS
+    assert len(calls) == 24 == st.simulations
+    # on a CPU tree the plain descent reads once per level, and that is
+    # all the host reads
+    assert st.levels == st.host_syncs >= 24 and st.depth_sum > 0
+    N = spec.capacity
+    assert set(calls) == {((8, N), (8, N), torch.int32, torch.int32,
+                           torch.bool, dtype, (), torch.int32,
+                           (0, 2 * NUM_ACTIONS, 3 * NUM_ACTIONS))}
+    monkeypatch.setattr(tmcts.kernels, "commit_path", per_level)
     tree_l = tmcts.search(torch_states_from_games(games), fake_eval_torch,
                           spec)
     assert torch.equal(tree.rows, tree_l.rows)

@@ -18,6 +18,7 @@ the ``gpu`` cases run where JAX is not installed (``python -m pytest
 --noconftest -m gpu tests/test_torch_web.py``).
 """
 
+import functools
 import json
 import threading
 import urllib.error
@@ -177,13 +178,21 @@ _W = torch.tensor((np.arange(A) * 5) % 8 + 1, dtype=torch.float32)
 _SQ = torch.arange(A) // 3
 
 
+@functools.cache
+def _dyadic_weights(device):
+    # on the card once, not at every call: a copy from the host could not
+    # be captured in a CUDA graph
+    return _W.to(device), _SQ.to(device)
+
+
 def dyadic_eval(planes):
     """Integer policy weights and values in sixteenths: every output and
     every sum the search takes is exact in float32 in any order."""
     B = planes.shape[0]
     mine = planes[:, 0].reshape(B, 64)
     theirs = planes[:, 1].reshape(B, 64)
-    w = _W.to(planes.device) * (1.0 + mine[:, _SQ.to(planes.device)])
+    weights, squares = _dyadic_weights(planes.device)
+    w = weights * (1.0 + mine[:, squares])
     return w, (mine.sum(-1) - theirs.sum(-1)) / 16.0
 
 
