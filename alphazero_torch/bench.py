@@ -72,7 +72,7 @@ def make_evaluator(net, quant: str):
         qp = quantize_network(net)
         return make_quant_evaluator(net, act_scales=calibrate(qp, [cal]),
                                     qp=qp)
-    log("evaluator: bf16 net (models/network.py)")
+    log("evaluator: bf16 net (models/inference.py)")
     return make_net_evaluator(net, torch.bfloat16)
 
 

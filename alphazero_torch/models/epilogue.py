@@ -1,0 +1,281 @@
+"""The epilogues around the convolutions of the bf16 search evaluator.
+
+The JAX package's bf16 net runs inside the jitted move, where XLA fuses
+the glue between its convolutions into their neighbours. The port does
+the same with two hand-written kernels (``csrc/epilogue_kernels.cu``) on
+NHWC bf16 maps ``(B, 8, 8, C)``:
+
+- ``bn_act``: an inference BatchNorm and its ReLU, in Flax's order
+  (``flax.linen.normalization._normalize``): the conv's bf16 output, then
+  ``((y - mean) * mul) + beta`` in float32, then one cast, where ``mul =
+  rsqrt(var + eps) * gamma`` is computed once, when the weights are
+  prepared (``models/inference.py``). The BatchNorm is not folded into the
+  conv weights: the JAX bf16 net does not fold, and folding would move the
+  bf16 rounding points.
+- ``se_residual``: the tail of a tower block
+  (``alphazero_tpu/models/network.py:74-77``, ``quant.py:185-186``): an
+  optional BatchNorm affine, the LC0 scale-and-shift squeeze-excite and
+  ``relu(y * gate + shift + x)``, rounded to bf16 after each operation as
+  the plain version's separate operations round.
+
+Each has a plain PyTorch version beside it (``bn_act_plain``,
+``se_residual_plain``), which is the reference: a wrapper runs it for a
+tensor on the CPU, and on a CUDA tensor launches its kernel or raises
+(a dtype other than bfloat16, a map that is not contiguous, a failed
+build). Each wrapper counts its launches in ``<function>.launches``.
+
+How far the kernels may be from their plain versions: ``bn_act`` not at
+all. ``se_residual`` rounds where its plain version rounds and takes the
+float32 sums of the pool and the dense layers in its own order; the plain
+version with ``f64_sums`` takes them in float64, then rounds through
+float32, which the kernel's sums of bf16 terms match but for a rare last
+bit. On the card ``se_residual`` is held to that: every element at most
+one step of bf16 away (``steps_apart``) and at most ``SE_UNEQUAL_SHARE``
+of them unequal. ``se_residual_bound`` is the looser bound between the
+plain version and another computation whose sums may each round to a
+neighbouring value, such as Flax's under XLA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from alphazero_torch.cuda_build import load_library
+
+_LIB = "epilogue_kernels"
+# what se_residual's kernel takes: channels (a multiple of 8) and SE
+# hidden units, so that a block's shared memory stays within the default
+# 48 KB (the net has 128 and 16)
+MAX_SE_CHANNELS, MAX_SE_HIDDEN = 128, 32
+# the share of se_residual's elements that may differ from
+# se_residual_plain(..., f64_sums=True) on the card, each by one step
+SE_UNEQUAL_SHARE = 1e-5
+
+BN = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]        # mean, mul, beta
+Dense = Tuple[torch.Tensor, torch.Tensor]                   # (in, out), bias
+
+
+# -----------------------------------------------------------------------------
+# Plain versions
+# -----------------------------------------------------------------------------
+
+def bn_act_plain(y: torch.Tensor, bn: BN, relu: bool = True
+                 ) -> torch.Tensor:
+    """What ``bn_act`` computes: ``((f32(y) - mean) * mul) + beta``, then
+    ReLU, in ``y``'s dtype; without ``relu`` the affine of
+    ``se_residual``'s BatchNorm."""
+    mean, mul, beta = bn
+    out = (y.float() - mean) * mul + beta
+    if relu:
+        out = torch.relu(out)
+    return out.to(y.dtype)
+
+
+def se_gate_shift_plain(y: torch.Tensor, fc1: Dense, fc2: Dense,
+                        f64_sums: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The squeeze-excite's (B, C) sigmoid gate and shift of the NHWC map
+    ``y``, in its dtype: the mean over the squares, each matrix product
+    and each bias add rounded apart, as Flax's ``nn.Dense`` rounds. With
+    ``f64_sums`` the mean and the products are summed in float64 and
+    rounded through float32 to ``y``'s dtype."""
+    if f64_sums:
+        dt = y.dtype
+        pooled = y.double().mean(dim=(1, 2)).float().to(dt)
+        mm = lambda a, w: (a.double() @ w.double()).float().to(dt)
+    else:
+        pooled, mm = y.mean(dim=(1, 2)), torch.matmul
+    h = torch.relu(mm(pooled, fc1[0]) + fc1[1])
+    h = mm(h, fc2[0]) + fc2[1]
+    gate, shift = h.chunk(2, dim=-1)
+    return torch.sigmoid(gate), shift
+
+
+def se_residual_plain(y: torch.Tensor, x: torch.Tensor, fc1: Dense,
+                      fc2: Dense, bn: BN | None = None,
+                      f64_sums: bool = False) -> torch.Tensor:
+    """What ``se_residual`` computes: ``y' = bn_act_plain(y, bn, False)``
+    (or ``y``), then ``relu(y' * gate + shift + x)``; ``f64_sums`` as in
+    ``se_gate_shift_plain``."""
+    if bn is not None:
+        y = bn_act_plain(y, bn, relu=False)
+    gate, shift = se_gate_shift_plain(y, fc1, fc2, f64_sums)
+    return torch.relu(y * gate[:, None, None, :] + shift[:, None, None, :]
+                      + x)
+
+
+def steps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``|a - b|`` in steps of their dtype at the larger magnitude of the
+    two, element by element (0 where they are equal)."""
+    d = (a.float() - b.float()).abs()
+    return d / (_two_steps(torch.maximum(a.abs(), b.abs()), a.dtype) / 2)
+
+
+def _two_steps(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Twice the spacing of ``dtype``'s values at ``|t|``: a step there, or
+    at a neighbour across a power of two."""
+    info = torch.finfo(dtype)
+    _, exp = torch.frexp(t.float().abs().clamp_min(info.tiny))
+    return torch.pow(2.0, exp.float()) * info.eps
+
+
+def se_residual_bound(y: torch.Tensor, x: torch.Tensor, fc1: Dense,
+                      fc2: Dense, bn: BN | None = None) -> torch.Tensor:
+    """How far apart two computations of ``se_residual`` may be, an
+    element, when both round at the plain version's points but take the
+    float32 sums of the pool and of the SE's two dense layers in other
+    orders (the kernel against the plain version's library reductions;
+    either against XLA). Each rounded sum may then land on the neighbouring
+    value of the maps' dtype, one step: the pool, each product and each
+    bias add. A step in the pool or in the hidden layer is carried on by
+    the next layer's absolute weights, the sigmoid's slope is at most 1/4,
+    and the multiply and the two adds after the gate round once each. Each
+    step is taken at twice its size at the plain version's values."""
+    step = lambda t: _two_steps(t, y.dtype)
+    if bn is not None:
+        y = bn_act_plain(y, bn, relu=False)
+    w1, b1, w2, b2 = (t.float() for t in (*fc1, *fc2))
+    pooled = y.mean(dim=(1, 2))
+    dot1 = pooled.float() @ w1
+    d_hidden = step(pooled) @ w1.abs() + step(dot1) + step(dot1 + b1)
+    hidden = torch.relu(pooled @ fc1[0] + fc1[1]).float()
+    dot2 = hidden @ w2
+    d_g = d_hidden @ w2.abs() + step(dot2) + step(dot2 + b2)
+    C = y.shape[3]
+    gate, shift = se_gate_shift_plain(y, fc1, fc2)
+    d_gate = d_g[:, :C] / 4 + step(gate)
+    yf = y.float()
+    t1 = yf * gate.float()[:, None, None, :]
+    t2 = t1 + shift.float()[:, None, None, :]
+    return (yf.abs() * d_gate[:, None, None, :] + d_g[:, None, None, C:]
+            + step(t1) + step(t2) + step(t2 + x.float()))
+
+
+# -----------------------------------------------------------------------------
+# Wrappers
+# -----------------------------------------------------------------------------
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library(_LIB)
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.bn_act_bf16.argtypes = [p, p, p, p, p, ll, i, p]
+        lib.bn_act_bf16.restype = i
+        lib.se_residual_bf16.argtypes = [p] * 10 + [i, i, i, p]
+        lib.se_residual_bf16.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def _check_map(name: str, t: torch.Tensor, like: torch.Tensor | None = None
+               ) -> None:
+    if t.dim() != 4 or tuple(t.shape[1:3]) != (8, 8) \
+            or (like is not None and t.shape != like.shape):
+        raise ValueError(f"{name} must be a (B, 8, 8, C) map"
+                         + ("" if like is None else
+                            f" like {tuple(like.shape)}")
+                         + f", got {tuple(t.shape)}")
+
+
+def _check_card(name: str, t: torch.Tensor, dev: torch.device,
+                dtype: torch.dtype, shape: tuple | None = None) -> None:
+    """An operand of a launch: on ``dev``, of ``dtype``, contiguous and
+    16-byte aligned (the kernels read 16-byte vectors)."""
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, the map on {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"the kernel takes {name} in {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_device(y: torch.Tensor) -> None:
+    if y.device.index != torch.cuda.current_device():
+        raise ValueError(f"input on {y.device}, current CUDA device is "
+                         f"{torch.cuda.current_device()}")
+
+
+def _check_bn(bn: BN, C: int, dev: torch.device) -> None:
+    for name, t in zip(("mean", "mul", "beta"), bn):
+        _check_card(name, t, dev, torch.float32, (C,))
+
+
+def bn_act(y: torch.Tensor, bn: BN) -> torch.Tensor:
+    """Inference BatchNorm (``bn`` = float32 (mean, mul, beta) of C) and
+    ReLU on the NHWC map ``y`` (B, 8, 8, C); a new map of ``y``'s dtype. On
+    a CUDA tensor one launch of ``bn_act_kernel``, which takes contiguous
+    bfloat16 maps with C a multiple of 8; on a CPU tensor
+    ``bn_act_plain``."""
+    _check_map("y", y)
+    if y.device.type == "cpu":
+        return bn_act_plain(y, bn)
+    C = y.shape[3]
+    _check_card("y", y, y.device, torch.bfloat16)
+    _check_bn(bn, C, y.device)
+    if C % 8:
+        raise ValueError(f"the kernel takes C a multiple of 8, got {C}")
+    _check_device(y)
+    out = torch.empty_like(y)
+    rc = _lib().bn_act_bf16(
+        y.data_ptr(), *(t.data_ptr() for t in bn), out.data_ptr(),
+        y.numel(), C, torch.cuda.current_stream(y.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bn_act kernel launch failed: CUDA error {rc}")
+    bn_act.launches += 1
+    return out
+
+
+bn_act.launches = 0
+
+
+def se_residual(y: torch.Tensor, x: torch.Tensor, fc1: Dense, fc2: Dense,
+                bn: BN | None = None) -> torch.Tensor:
+    """The tail of a tower block on NHWC maps (B, 8, 8, C): ``y`` (the
+    second conv's output) through the optional BatchNorm ``bn``, the
+    squeeze-excite with ``fc1`` = ((C, H) kernel, (H,) bias) and ``fc2`` =
+    ((H, 2C), (2C,)) in the maps' dtype, then ``relu(y * gate + shift +
+    x)``; a new map. On a CUDA tensor one launch of
+    ``se_residual_kernel``, which takes contiguous bfloat16 maps and
+    weights, C a multiple of 8 up to ``MAX_SE_CHANNELS`` and H up to
+    ``MAX_SE_HIDDEN``; on a CPU tensor ``se_residual_plain``."""
+    _check_map("y", y)
+    _check_map("x", x, y)
+    if y.device.type == "cpu":
+        return se_residual_plain(y, x, fc1, fc2, bn)
+    B, C = y.shape[0], y.shape[3]
+    H = fc1[0].shape[-1]
+    dev = y.device
+    for name, t, shape in (("y", y, None), ("x", x, None),
+                           ("fc1 kernel", fc1[0], (C, H)),
+                           ("fc1 bias", fc1[1], (H,)),
+                           ("fc2 kernel", fc2[0], (H, 2 * C)),
+                           ("fc2 bias", fc2[1], (2 * C,))):
+        _check_card(name, t, dev, torch.bfloat16, shape)
+    if bn is not None:
+        _check_bn(bn, C, dev)
+    if C % 8 or C > MAX_SE_CHANNELS or not 0 < H <= MAX_SE_HIDDEN:
+        raise ValueError(f"the kernel takes C a multiple of 8 up to "
+                         f"{MAX_SE_CHANNELS} and H up to {MAX_SE_HIDDEN}, "
+                         f"got C {C}, H {H}")
+    _check_device(y)
+    out = torch.empty_like(y)
+    consts = (None, None, None) if bn is None else \
+        tuple(t.data_ptr() for t in bn)
+    rc = _lib().se_residual_bf16(
+        y.data_ptr(), x.data_ptr(), out.data_ptr(), *consts,
+        fc1[0].data_ptr(), fc1[1].data_ptr(), fc2[0].data_ptr(),
+        fc2[1].data_ptr(), B, C, H,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"se_residual kernel launch failed: CUDA error "
+                           f"{rc}")
+    se_residual.launches += 1
+    return out
+
+
+se_residual.launches = 0

@@ -1,0 +1,114 @@
+"""The bf16 search evaluator's forward, as the JAX package compiles it.
+
+In the JAX package the evaluator is traced inside the jitted move
+(``alphazero_tpu/search/mcts.py:717-725``), so XLA keeps the net's NHWC
+layout (the planes are transposed once, ``network.py:126``) and fuses the
+glue between the convolutions into their neighbours. This module does the
+same for the port's ``AlphaZeroNet``:
+
+- ``prepare_inference`` casts the weights once, on the net's device: the
+  convolutions' in ``torch.channels_last``, each BatchNorm as float32
+  (mean, mul, beta) with ``mul = rsqrt(var + eps) * gamma`` (not folded
+  into the conv, as the JAX bf16 net does not fold), the dense layers as
+  (in, out) matrices, ``policy_fc`` and ``value_fc1`` back in the JAX
+  package's (h, w, c) input order (``fused._hwc_dense``), since an NHWC
+  flatten is (h, w, c) while ``models/convert.py`` permuted those two for
+  the NCHW module;
+- ``inference_apply`` runs the forward on NHWC maps: each convolution is
+  ``F.conv2d`` on channels-last operands (cuDNN on the card, as the JAX
+  package leaves its convolutions to XLA), so nothing is transposed;
+  ``epilogue.bn_act`` follows the input, ``conv1``, policy and value
+  convolutions and ``epilogue.se_residual`` ends each block; the dense
+  layers are matrix products, each product and each bias add rounded
+  apart as Flax's ``nn.Dense`` rounds.
+
+On the card the two epilogues are hand-written kernels and take bfloat16
+only; on the CPU their plain versions run, in any float dtype (the tests
+run float32 against Flax).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from alphazero_torch.models import epilogue, fused
+from alphazero_torch.models.network import AlphaZeroNet
+
+
+def _copy(t: torch.Tensor, dev: torch.device, dtype: torch.dtype,
+          **kw) -> torch.Tensor:
+    """A copy of ``t`` that shares no memory with the net's parameters."""
+    return t.detach().to(device=dev, dtype=dtype, copy=True, **kw)
+
+
+def prepare_inference(net: AlphaZeroNet, dtype: torch.dtype = torch.bfloat16
+                      ) -> Dict[str, Any]:
+    """The net's weights for ``inference_apply`` in ``dtype``, on the net's
+    device: a snapshot that later training does not change."""
+    dev = next(net.parameters()).device
+
+    def conv(c: torch.nn.Conv2d) -> torch.Tensor:
+        return _copy(c.weight, dev, dtype, memory_format=torch.channels_last)
+
+    def bn(b: torch.nn.BatchNorm2d):
+        # on the host in float32, so that the card's constants are the CPU's
+        f = lambda v: v.detach().to("cpu", torch.float32)
+        mul = torch.rsqrt(f(b.running_var) + b.eps) * f(b.weight)
+        return tuple(_copy(v, dev, torch.float32)
+                     for v in (f(b.running_mean), mul, f(b.bias)))
+
+    def dense(fc: torch.nn.Linear, flattened: bool = False):
+        kernel = (torch.from_numpy(fused._hwc_dense(fc)) if flattened
+                  else fc.weight.detach().T.contiguous())
+        return _copy(kernel, dev, dtype), _copy(fc.bias, dev, dtype)
+
+    return {
+        "dtype": dtype,
+        "input_conv": conv(net.input_conv), "input_bn": bn(net.input_bn),
+        "blocks": [{"conv1": conv(b.conv1), "bn1": bn(b.bn1),
+                    "conv2": conv(b.conv2), "bn2": bn(b.bn2),
+                    "fc1": dense(b.se.fc1), "fc2": dense(b.se.fc2)}
+                   for b in net.blocks],
+        "policy_conv": conv(net.policy_conv), "policy_bn": bn(net.policy_bn),
+        "policy_fc": dense(net.policy_fc, flattened=True),
+        "value_conv": conv(net.value_conv), "value_bn": bn(net.value_bn),
+        "value_fc1": dense(net.value_fc1, flattened=True),
+        "value_fc2": dense(net.value_fc2),
+    }
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME conv of the NHWC map ``x`` by the channels-last OIHW ``w``, no
+    bias: an NHWC view of the channels-last result."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=w.shape[-1] // 2)
+    return y.permute(0, 2, 3, 1)
+
+
+def _dense(x: torch.Tensor, p) -> torch.Tensor:
+    return x @ p[0] + p[1]
+
+
+@torch.no_grad()
+def inference_apply(prep: Dict[str, Any], planes: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, 3, 8, 8) planes -> (policy_logits (B, 192), wl_logits (B, 2)),
+    float32, through the weights of ``prepare_inference``."""
+    # NHWC in the evaluator's dtype: one copy
+    x = planes.permute(0, 2, 3, 1).to(prep["dtype"],
+                                      memory_format=torch.contiguous_format)
+    x = epilogue.bn_act(_conv(x, prep["input_conv"]), prep["input_bn"])
+    for b in prep["blocks"]:
+        y = epilogue.bn_act(_conv(x, b["conv1"]), b["bn1"])
+        x = epilogue.se_residual(_conv(y, b["conv2"]), x, b["fc1"],
+                                 b["fc2"], b["bn2"])
+
+    B = x.shape[0]
+    p = epilogue.bn_act(_conv(x, prep["policy_conv"]), prep["policy_bn"])
+    policy_logits = _dense(p.reshape(B, -1), prep["policy_fc"])
+    v = epilogue.bn_act(_conv(x, prep["value_conv"]), prep["value_bn"])
+    v = torch.relu(_dense(v.reshape(B, -1), prep["value_fc1"]))
+    wl_logits = _dense(v, prep["value_fc2"])
+    return policy_logits.float(), wl_logits.float()

@@ -13,9 +13,12 @@ scheme:
 - the input conv and the 2N tower 3x3 convs in s8 x s8 -> s32, each ONE
   launch of the hand-written kernel in ``csrc/qconv_kernel.cu``
   (``qconv3x3``: quantise on load, exact s32 sums, dequantise, bias and
-  ReLU); everything else in ``dtype`` (bf16 by default): SE, residual
-  adds, the policy 3x3 conv, the value 1x1 conv (``F.conv2d``, as the JAX
-  package left them to XLA) and the dense heads; logits in float32.
+  ReLU); each block's tail (SE and residual) ONE launch of
+  ``epilogue.se_residual`` (``csrc/epilogue_kernels.cu``), with no
+  BatchNorm affine since the s8 conv added the folded bias; everything
+  else in ``dtype`` (bf16 by default): the policy 3x3 conv, the value 1x1
+  conv (``F.conv2d``, as the JAX package left them to XLA) and the dense
+  heads; logits in float32.
 
 Activations are NHWC, as in the JAX package, so the dense heads take the
 JAX package's (h, w, c)-ordered kernels unchanged. ``QuantParams`` has the
@@ -39,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from alphazero_torch.cuda_build import load_library
-from alphazero_torch.models import fused
+from alphazero_torch.models import epilogue, fused
 from alphazero_torch.models.network import AlphaZeroNet, wl_to_value
 
 _LIB = "qconv_kernel"
@@ -302,14 +305,6 @@ def _qconv(x: torch.Tensor, e: Dict[str, torch.Tensor], dtype: torch.dtype,
     return qconv3x3(x, xs, e, relu=relu, out_dtype=dtype)
 
 
-def _se(x: torch.Tensor, fc1, fc2) -> torch.Tensor:
-    """LC0 scale-and-shift SE on NHWC ``x``, in its dtype."""
-    h = torch.relu(x.mean(dim=(1, 2)) @ fc1[0] + fc1[1])
-    h = h @ fc2[0] + fc2[1]
-    gate, bias = h.chunk(2, dim=-1)
-    return x * torch.sigmoid(gate)[:, None, None, :] + bias[:, None, None, :]
-
-
 def _float_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                 ) -> torch.Tensor:
     y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=w.shape[-1] // 2)
@@ -332,7 +327,7 @@ def _forward(prep: Dict[str, Any], planes: torch.Tensor,
     for i, (c1, c2, fc1, fc2) in enumerate(prep["blocks"]):
         y = _qconv(x, c1, dtype, xs(x, 2 * i + 1, f"b{i}c1"), relu=True)
         y = _qconv(y, c2, dtype, xs(y, 2 * i + 2, f"b{i}c2"))
-        x = torch.relu(_se(y, fc1, fc2) + x)
+        x = epilogue.se_residual(y, x, fc1, fc2)
 
     B = x.shape[0]
     p = _float_conv(x, *prep["policy"]).reshape(B, -1)

@@ -65,6 +65,7 @@ _COUNTED = {
     "alphazero_torch.search.kernels": ("fetch_rows", "commit_edges",
                                        "descend"),
     "alphazero_torch.models.quant": ("qconv3x3",),
+    "alphazero_torch.models.epilogue": ("bn_act", "se_residual"),
     "alphazero_torch.models.fused": ("tower_forward",),
 }
 
@@ -156,8 +157,18 @@ def _capture(tree, eval_fn, spec, eval_ctx, warmup: int):
     simulations = mcts.STATS.simulations
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        mcts._simulate_once(tree, eval_fn, spec, out, ctx)
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            mcts._simulate_once(tree, eval_fn, spec, out, ctx)
+    except BaseException:
+        # a failed capture leaves the capture's stream current, and the
+        # card's default generator registered with the graph, so that
+        # every later draw from it would raise; a copy of its state is not
+        # registered
+        torch.cuda.set_stream(cur)
+        gen = torch.cuda.default_generators[dev.index]
+        gen.graphsafe_set_state(gen.clone_state())
+        raise
     STATS.capture_s += time.perf_counter() - t0
     STATS.captures += 1
     per_replay = [(f, f.launches - b) for f, b in zip(counters, before)]

@@ -46,7 +46,6 @@ game still walking" once per level (``STATS.host_syncs``).
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 from typing import Callable, Tuple
 
@@ -54,7 +53,8 @@ import torch
 from torch.profiler import record_function
 
 from alphazero_torch.env import breakthrough as env
-from alphazero_torch.models.network import policy_value_apply
+from alphazero_torch.models import inference
+from alphazero_torch.models.network import policy_value_apply, wl_to_value
 from alphazero_torch.search import kernels
 
 Evaluator = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -691,16 +691,29 @@ def root_action_probs(tree: Tree, temperature) -> torch.Tensor:
 
 
 def make_net_evaluator(net, dtype=torch.float32) -> Evaluator:
-    """Evaluator closure over a net: softmax policy + WL scalar value.
+    """Evaluator closure over a net: softmax policy + WL scalar value,
+    float32.
 
-    With ``dtype=torch.bfloat16`` the evaluator runs a bfloat16 copy of
-    the net (activations and weights in bf16) and returns float32 policy
-    and value, like the JAX package's bf16 inference.
+    With ``dtype=torch.float32`` it runs the module's forward (the CPU
+    parity tests and the learner's dtype). With ``torch.bfloat16`` (the
+    config's ``inference_dtype``, the JAX package's search dtype) it runs
+    the JAX package's compiled forward, ``models/inference.py``: weights
+    cast once here and kept on the net's device, NHWC maps, the BatchNorm
+    and block-tail epilogues as hand-written kernels on the card. It
+    copies nothing from the host per call, so a search can capture it.
     """
-    model = net if dtype == torch.float32 else copy.deepcopy(net).to(dtype)
-    model.eval()
+    if dtype == torch.float32:
+        net.eval()
+
+        def eval_fn(planes: torch.Tensor):
+            return policy_value_apply(net, planes.to(dtype))
+
+        return eval_fn
+
+    prep = inference.prepare_inference(net, dtype)
 
     def eval_fn(planes: torch.Tensor):
-        return policy_value_apply(model, planes.to(dtype))
+        policy_logits, wl_logits = inference.inference_apply(prep, planes)
+        return torch.softmax(policy_logits, dim=-1), wl_to_value(wl_logits)
 
     return eval_fn

@@ -22,18 +22,33 @@ launches of the replays.
   and 1 and 2 games at the web bot's 200 simulations; first-play urgency
   off and on, finished roots and terminal leaves);
   and their times beside the launch floor (a kernel with no body);
-- phase 2: the archived 20x128 net on the card against the CPU;
+- phase 2: the archived 20x128 net on the card against the CPU, and the
+  bf16 search evaluator's forward (``models/inference.py``) on the card
+  within ``BF16_LIMITS`` of the f32 net on the CPU;
 - phase 6: the fused tower kernel (``wgmma`` on a ring of weight chunks
   in shared memory) against its plain version (1, 2 and 20 blocks, and
   every block alone) and against the layer-by-layer net, and its times at
   512 positions x 20 blocks beside its bound, its plain version and the
   bf16 net's tower blocks in eager mode;
+- phase 16 (``epilogue``): the epilogue kernels of the evaluators'
+  forwards (``csrc/epilogue_kernels.cu``) against their plain versions at
+  every site of the archived net (the bf16 forward's 23 ``bn_act`` and 20
+  ``se_residual`` with its BatchNorm, the int8-static forward's 20
+  ``se_residual`` tails), at 512 boards and at the web bot's 1 and 2:
+  ``bn_act`` bit-equal; ``se_residual`` against its plain version with
+  float64 sums, every element within one bf16 step and at most
+  ``epilogue.SE_UNEQUAL_SHARE`` of them unequal; their
+  times beside their bounds, their plain versions, the launch floor and,
+  for ``bn_act``, ``F.batch_norm`` and ``F.relu`` on channels-last maps;
 - phase 3: the self-play search at full width (512 games x 800
   simulations) through ``selfplay_move`` on one tree: a warm-up move that
   captures the simulation, then one counted and timed move of 800
   replays, each one ``descend`` and one ``commit_edges`` launch and no
-  read of the card; then one eager search and one captured from the same
-  position, timed and bit-equal; profiles of both;
+  read of the card, and each forward of the bf16 evaluator 23 ``bn_act``
+  and 20 ``se_residual`` launches; then one eager search and one captured
+  from the same position, timed and bit-equal; device kernels a forward;
+  profiles of both, the captured one without cuDNN layout transposes or
+  eager BatchNorm kernels;
 - phase 4: the card's search against the CPU's;
 - phase 15 (``graph``): the captured search against the eager one, trees
   bit-equal over two consecutive moves each: bf16 and int8-static at 512
@@ -74,8 +89,9 @@ launches of the replays.
   baseline engine (its budget cut to 150 ms a move, from 2000) for at
   most 40 plies; every move legal, ``/api/state`` equal to the last
   answer, each AlphaZero move 200 ``descend`` and 200 ``commit_edges``
-  launches (their sums go into the ``kernels`` line as
-  ``web_launches``); the seconds of both players' moves; then the bot's
+  launches and 201 forwards' ``bn_act`` and ``se_residual`` launches
+  (their sums go into the ``kernels`` line as ``web_launches``); the
+  seconds of both players' moves; then the bot's
   move on the initial position captured and eagerly, timed and
   bit-equal;
 - phase 14: the distributed trainer (``alphazero_torch/parallel``) at
@@ -109,6 +125,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -724,6 +741,7 @@ def finish_games(state, which, seed):
 @phase("phase 2 network")
 def phase_network(dev):
     from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import inference
     from alphazero_torch.models.convert import load_archive
     from alphazero_torch.models.network import count_params
 
@@ -731,12 +749,15 @@ def phase_network(dev):
     n_params = count_params(net_cpu)
     check(n_params == 8_027_970, f"count_params {n_params}")
     net = copy.deepcopy(net_cpu).to(dev)
-    net_bf16 = copy.deepcopy(net).to(torch.bfloat16)
+    # the bf16 search evaluator's forward (models/inference.py: NHWC,
+    # cuDNN convs on channels-last operands, the epilogue kernels)
+    prep = inference.prepare_inference(net, torch.bfloat16)
     planes = env.encoded_state(random_positions(64, 11))
     with torch.no_grad():
         p32, w32 = net_cpu(planes)
         pc, wc = (t.cpu() for t in net(planes.to(dev)))
-        p16, w16 = (t.cpu() for t in net_bf16(planes.to(dev).bfloat16()))
+        p16, w16 = (t.cpu() for t in inference.inference_apply(
+            prep, planes.to(dev)))
     # float32 on the card (TF32 off) against float32 on the CPU: only the
     # summation order differs
     d32 = max(float((pc - p32).abs().max()), float((wc - w32).abs().max()))
@@ -750,8 +771,9 @@ def phase_network(dev):
           f"bf16 logits/probs/value differ: {dl}, {dp}, {dv}")
     print(f"count_params == {n_params:,}; on 64 positions against f32 on "
           f"the CPU: f32 card max |d logit| {d32:.2e} (limit 1e-3); bf16 "
-          f"card max |d logit| {dl:.4f}, |d prob| {dp:.5f}, |d value| "
-          f"{dv:.5f} (limits {BF16_LIMITS})", flush=True)
+          f"evaluator's forward on the card max |d logit| {dl:.4f}, |d "
+          f"prob| {dp:.5f}, |d value| {dv:.5f} (limits {BF16_LIMITS})",
+          flush=True)
     return net
 
 
@@ -763,6 +785,7 @@ def phase_network(dev):
 def phase_search(dev, net, card):
     from alphazero_torch.config import Config
     from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import epilogue
     from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
@@ -770,6 +793,9 @@ def phase_search(dev, net, card):
 
     cfg = Config(num_simulations=SIMS, parallel_games=GAMES)
     eval_fn = mcts.make_net_evaluator(net, getattr(torch, cfg.inference_dtype))
+    # epilogues a forward: input, conv1 of each block, policy and value
+    # BatchNorms; a tail a block
+    n_bn, n_tail = len(net.blocks) + 3, len(net.blocks)
     spec = selfplay.search_spec(cfg)
     gen = torch.Generator(device=dev).manual_seed(1)
     states = env.initial_state((GAMES,), device=dev)
@@ -803,6 +829,8 @@ def phase_search(dev, net, card):
     K.fetch_rows.launches = 0
     K.descend.launches = 0
     K.commit_edges.launches = 0
+    epilogue.bn_act.launches = 0
+    epilogue.se_residual.launches = 0
     mcts.STATS.reset()
     graph.STATS.reset()
     moves, live = 1, 0
@@ -822,9 +850,16 @@ def phase_search(dev, net, card):
     dt = time.time() - t0
     launches = {"descend": K.descend.launches,
                 "fetch_rows": K.fetch_rows.launches,
-                "commit_edges": K.commit_edges.launches}
+                "commit_edges": K.commit_edges.launches,
+                "bn_act": epilogue.bn_act.launches,
+                "se_residual": epilogue.se_residual.launches}
     check(launches["descend"] > 0 and launches["commit_edges"] > 0,
           f"a kernel was not launched on the main path: {launches}")
+    # the root's evaluation and one a simulation, replays counted
+    check(launches["bn_act"] == n_bn * moves * (SIMS + 1)
+          and launches["se_residual"] == n_tail * moves * (SIMS + 1),
+          f"{launches}: the bf16 evaluator's forward is {n_bn} bn_act and "
+          f"{n_tail} se_residual launches")
     st = mcts.STATS
     check(launches["descend"] == launches["commit_edges"] == moves * SIMS
           == st.simulations == graph.STATS.replays
@@ -855,14 +890,25 @@ def phase_search(dev, net, card):
     out["search_sims_per_s"] = {m: live * SIMS / t[0] for m, t in
                                 seconds.items()}
     out["captured_over_eager"] = seconds["eager"][0] / seconds["captured"][0]
+    out["launches_per_forward"] = launches_per_forward(
+        eval_fn, env.encoded_state(random_positions(GAMES, 71)).to(dev))
     print("main path " + json.dumps(out), flush=True)
     out["profile"] = {mode: profile_search(states, eval_fn, capture=c,
                                            tag=f"{GAMES}_{mode}")
                       for mode, c in (("captured", None), ("eager", False))}
+    # the forward keeps NHWC and runs its BatchNorms in bn_act: no layout
+    # transposes around cuDNN and no eager BatchNorm are left
+    left = sorted(k for k in out["profile"]["captured"]["kernels_ms"]
+                  if any(w in k for w in LAYOUT_KERNELS))
+    check(not left, f"the bf16 captured profile runs {left}")
+    print(f"bf16 captured profile: {out['launches_per_forward']} device "
+          f"kernels a forward; none of {LAYOUT_KERNELS}", flush=True)
     return launches, out
 
 
 STAGES = ("mcts.descend", "mcts.evaluate", "mcts.expand", "mcts.backprop")
+# kernels the bf16 forward ran before it kept NHWC and fused its BatchNorms
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "batch_norm_transform_input")
 
 
 def profile_search(states, eval_fn, sims=16, tag=None, capture=None):
@@ -1608,6 +1654,184 @@ def phase_qconv(dev, net):
 
 
 # -----------------------------------------------------------------------------
+# Phase 16: the epilogue kernels of the evaluators' forwards
+# -----------------------------------------------------------------------------
+
+EPILOGUE_BATCHES = (GAMES, 1, 2)   # the main path's, and the web bot's
+F32_OPS_PER_S = 67e12              # H100 SXM data sheet, f32 (no tensor cores)
+
+
+def epilogue_bound_ms(kind, B, C, H=0, affine=True):
+    """The least time the card could take for one ``bn_act`` or
+    ``se_residual`` of B boards: its bytes (each map read once and written
+    once, the float32 BatchNorm constants and the bf16 SE weights once) at
+    the memory rate, or its float32 operations (bn_act: subtract, multiply,
+    add and ReLU an element; se_residual: the affine's three, the pool's
+    add, the multiply, two adds and ReLU an element, and the SE's dense
+    layers, bias adds and sigmoid a board) at the rate outside the tensor
+    cores, whichever is larger."""
+    n = B * 64 * C
+    consts = 3 * C * 4 if affine else 0
+    if kind == "bn_act":
+        nbytes, ops = 2 * n * 2 + consts, 4 * n
+    else:
+        nbytes = 3 * n * 2 + consts + 2 * (3 * C * H + H + 2 * C)
+        ops = (n * ((3 if affine else 0) + 5)
+               + B * (2 * C * H + 2 * H * 2 * C + 3 * H + 8 * C))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations"), nbytes, ops
+
+
+@phase("phase 16 epilogue kernels")
+def phase_epilogue(dev, net):
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import epilogue, inference, quant
+    from alphazero_torch.search import kernels as K
+    from alphazero_torch.strength.common import calibration_batches
+
+    kinds = ("bn_act", "se_residual")
+    real = {k: getattr(epilogue, k) for k in kinds}
+    plain = {"bn_act": epilogue.bn_act_plain,
+             "se_residual": epilogue.se_residual_plain}
+    # what each kernel is held to: the plain version, for se_residual with
+    # its sums in float64 (rounded where the plain version rounds)
+    reference = {"bn_act": epilogue.bn_act_plain,
+                 "se_residual": lambda *a: epilogue.se_residual_plain(
+                     *a, f64_sums=True)}
+    # the inputs of every epilogue of the archived net in one forward of
+    # each evaluator: bf16 (23 bn_act, 20 se_residual with bn2) and
+    # int8-static (20 se_residual, no affine)
+    planes = env.encoded_state(random_positions(GAMES, 81)).to(dev)
+    prep = inference.prepare_inference(net, torch.bfloat16)
+    qp = quant.quantize_network(net)
+    int8 = quant.make_quant_evaluator(net, qp=qp, act_scales=quant.calibrate(
+        qp, calibration_batches(ARCHIVE, dev)[0]))
+    sites = []
+
+    def recorder(path, kind):
+        def record(*args):
+            sites.append((path, kind, args))
+            return real[kind](*args)
+        return record
+
+    # the two forwards reach the wrappers as attributes of their modules'
+    # ``epilogue``: a stand-in records each call's inputs and passes it on
+    for path, run in (("bf16", lambda: inference.inference_apply(prep,
+                                                                   planes)),
+                      ("int8", lambda: int8(planes))):
+        stand_in = types.SimpleNamespace(**{k: recorder(path, k)
+                                            for k in kinds})
+        inference.epilogue = quant.epilogue = stand_in
+        try:
+            run()
+        finally:
+            inference.epilogue = quant.epilogue = epilogue
+    n_blocks = len(net.blocks)
+    count = {(p, k): sum(1 for s in sites if s[:2] == (p, k))
+             for p in ("bf16", "int8") for k in kinds}
+    check(count == {("bf16", "bn_act"): n_blocks + 3,
+                    ("bf16", "se_residual"): n_blocks,
+                    ("int8", "bn_act"): 0, ("int8", "se_residual"): n_blocks},
+          f"epilogue sites of the two forwards: {count}")
+
+    # each site at 512 boards and at the web bot's 1 and 2: bn_act
+    # bit-equal; se_residual each element within one bf16 step and at most
+    # SE_UNEQUAL_SHARE of them unequal
+    err = {k: 0.0 for k in kinds}
+    unequal = {k: 0 for k in kinds}
+    elements = {k: 0 for k in kinds}
+    steps = {k: 0.0 for k in kinds}
+    for path, kind, args in sites:
+        maps = 2 if kind == "se_residual" else 1
+        for B in EPILOGUE_BATCHES:
+            a = tuple(t[:B].contiguous() if i < maps else t
+                      for i, t in enumerate(args))
+            got, want = real[kind](*a), reference[kind](*a)
+            torch.cuda.synchronize()
+            err[kind] = max(err[kind], float(
+                (got.float() - want.float()).abs().max()))
+            unequal[kind] += int((got != want).sum())
+            elements[kind] += got.numel()
+            steps[kind] = max(steps[kind], float(
+                epilogue.steps_apart(got, want).max()))
+    share = unequal["se_residual"] / elements["se_residual"]
+    check(unequal["bn_act"] == 0, f"bn_act differs from bn_act_plain in "
+                                  f"{unequal['bn_act']} elements")
+    check(steps["se_residual"] <= 1.0 and share <= epilogue.SE_UNEQUAL_SHARE,
+          f"se_residual against its plain version with float64 sums: "
+          f"{unequal['se_residual']} of {elements['se_residual']} elements "
+          f"unequal (at most {epilogue.SE_UNEQUAL_SHARE} of them), up to "
+          f"{steps['se_residual']} bf16 steps apart (at most 1)")
+    print(f"epilogue kernels against their plain versions at "
+          f"{len(sites)} sites x {EPILOGUE_BATCHES} boards: bn_act "
+          f"bit-equal ({elements['bn_act']} elements); se_residual "
+          f"against float64 sums {unequal['se_residual']} of "
+          f"{elements['se_residual']} elements unequal, up to "
+          f"{steps['se_residual']} bf16 steps, max |d| "
+          f"{err['se_residual']}", flush=True)
+
+    # times at 512 boards (and at 1) of block 0's sites; yardsticks the
+    # path never calls: F.batch_norm (channels-last, f32 statistics) then
+    # F.relu for bn_act; no one PyTorch call computes se_residual
+    bf16 = [s[2] for s in sites if s[0] == "bf16"]
+    bn_args, tail_args = bf16[1], bf16[2]              # block 0: bn1, tail
+    int8_tail = next(s[2] for s in sites if s[0] == "int8")
+    m = net.blocks[0].bn1
+    y_cl = bn_args[0].permute(0, 3, 1, 2)              # channels-last view
+    library = lambda i: torch.nn.functional.relu(
+        torch.nn.functional.batch_norm(y_cl, m.running_mean, m.running_var,
+                                       m.weight, m.bias, False, 0.0, m.eps))
+    lib_out = library(0).permute(0, 2, 3, 1).float()
+    ker_out = real["bn_act"](*bn_args).float()
+    check(bool(((lib_out - ker_out).abs()
+                <= 2.0 ** -6 * ker_out.abs() + 2.0 ** -12).all()),
+          "F.batch_norm + F.relu does not compute bn_act's function")
+    lib = K._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    floor = {"floor_ms": cuda_ms(lambda i: lib.launch_floor(stream),
+                                 what="launch floor"),
+             "floor_call_ms": cuda_ms(lambda i: lib.launch_floor(stream),
+                                      queued=False)}
+    out = {}
+    for kind, args, n_maps in (("bn_act", bn_args, 1),
+                               ("se_residual", tail_args, 2)):
+        b1 = tuple(t[:1].contiguous() if i < n_maps else t
+                   for i, t in enumerate(args))
+        t = {"ms": cuda_ms(lambda i: real[kind](*args), what=kind),
+             "call_ms": cuda_ms(lambda i: real[kind](*args), queued=False),
+             "plain_ms": cuda_ms(lambda i: plain[kind](*args), iters=20,
+                                 what=f"{kind} plain"),
+             "plain_call_ms": cuda_ms(lambda i: plain[kind](*args),
+                                      iters=20, queued=False),
+             "b1_ms": cuda_ms(lambda i: real[kind](*b1), what=kind),
+             "b1_call_ms": cuda_ms(lambda i: real[kind](*b1), queued=False),
+             **floor}
+        C = args[0].shape[3]
+        H = args[2][0].shape[1] if kind == "se_residual" else 0
+        bound, by, nbytes, ops = epilogue_bound_ms(kind, GAMES, C, H)
+        t.update(bound_ms=bound, bound_by=by, bytes=nbytes, operations=ops,
+                 b1_bound_ms=epilogue_bound_ms(kind, 1, C, H)[0],
+                 max_abs_err=err[kind])
+        out[kind] = t
+    out["bn_act"]["library_ms"] = cuda_ms(library, what="F.batch_norm+relu")
+    out["bn_act"]["library_call_ms"] = cuda_ms(library, queued=False)
+    out["se_residual"]["library_ms"] = None
+    C, H = int8_tail[0].shape[3], int8_tail[2][0].shape[1]
+    out["se_residual"].update(
+        int8_ms=cuda_ms(lambda i: real["se_residual"](*int8_tail),
+                        what="se_residual int8"),
+        int8_bound_ms=epilogue_bound_ms("se_residual", GAMES, C, H,
+                                        affine=False)[0],
+        unequal=unequal["se_residual"], elements=elements["se_residual"],
+        max_steps=steps["se_residual"])
+    print(f"epilogue kernels at {GAMES} boards, C 128 (b1_: one board; "
+          f"int8_: the int8 tail, no affine): {json.dumps(out)}", flush=True)
+    return out
+
+
+# -----------------------------------------------------------------------------
 # Phase 10: the int8-static evaluator on the main path
 # -----------------------------------------------------------------------------
 
@@ -1630,7 +1854,7 @@ def launches_per_forward(eval_fn, planes):
 def phase_quant_search(dev, net, card, qp, act):
     from alphazero_torch.config import Config
     from alphazero_torch.env import breakthrough as env
-    from alphazero_torch.models import quant
+    from alphazero_torch.models import epilogue, quant
     from alphazero_torch.models.network import wl_to_value
     from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
@@ -1638,6 +1862,7 @@ def phase_quant_search(dev, net, card, qp, act):
     from alphazero_torch.train import selfplay
 
     cfg = Config(num_simulations=SIMS, parallel_games=GAMES)
+    n_bn, n_tail = len(net.blocks) + 3, len(net.blocks)
     evals = {"int8": quant.make_quant_evaluator(net, act_scales=act, qp=qp),
              "bf16": mcts.make_net_evaluator(net, torch.bfloat16)}
     spec = selfplay.search_spec(cfg)
@@ -1669,6 +1894,8 @@ def phase_quant_search(dev, net, card, qp, act):
         quant.qconv3x3.launches = 0
         K.descend.launches = 0
         K.commit_edges.launches = 0
+        epilogue.bn_act.launches = 0
+        epilogue.se_residual.launches = 0
         mcts.STATS.reset()
         graph.STATS.reset()
         gen = torch.Generator(device=dev).manual_seed(2)
@@ -1687,13 +1914,21 @@ def phase_quant_search(dev, net, card, qp, act):
         if name == "int8":
             launches = {"qconv3x3": quant.qconv3x3.launches,
                         "descend": K.descend.launches,
-                        "commit_edges": K.commit_edges.launches}
+                        "commit_edges": K.commit_edges.launches,
+                        "se_residual": epilogue.se_residual.launches}
             check(launches["qconv3x3"] == n_conv * (SIMS + 1)
+                  and launches["se_residual"] == n_tail * (SIMS + 1)
+                  and epilogue.bn_act.launches == 0
                   and launches["descend"] == launches["commit_edges"]
                   == SIMS and mcts.STATS.host_syncs == 0,
-                  f"int8 move: {launches}, {mcts.STATS.host_syncs} syncs")
+                  f"int8 move: {launches}, {epilogue.bn_act.launches} "
+                  f"bn_act, {mcts.STATS.host_syncs} syncs")
         else:
             check(quant.qconv3x3.launches == 0, "bf16 move ran an s8 conv")
+            check(epilogue.bn_act.launches == n_bn * (SIMS + 1)
+                  and epilogue.se_residual.launches == n_tail * (SIMS + 1),
+                  f"bf16 move: {epilogue.bn_act.launches} bn_act, "
+                  f"{epilogue.se_residual.launches} se_residual launches")
     out["int8_over_bf16"] = (sum(out["int8_sims_per_s"])
                              / sum(out["bf16_sims_per_s"]))
     out["launches_per_move"] = launches
@@ -1841,6 +2076,7 @@ def phase_web(dev, net, card):
 
     from alphazero_torch.env import OracleGame
     from alphazero_torch.env.oracle import live_states
+    from alphazero_torch.models import epilogue
     from alphazero_torch.models.convert import config_from_archive
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
@@ -1849,6 +2085,7 @@ def phase_web(dev, net, card):
     from alphazero_torch.web import server
 
     sims = WEB_SIMS
+    n_bn, n_tail = len(net.blocks) + 3, len(net.blocks)
     with tempfile.TemporaryDirectory() as tmp:
         # the archive as the port's model_best, which the bot loads first
         cfg = config_from_archive(ARCHIVE).replace(checkpoint_dir=tmp)
@@ -1867,7 +2104,10 @@ def phase_web(dev, net, card):
         real_ms, server.BASELINE_TIME_MS = (server.BASELINE_TIME_MS,
                                             WEB_BASELINE_MS)
         az_s, base_s, base_nodes, evals = [], [], [], []
-        total = {"descend": 0, "commit_edges": 0}
+        total = {"descend": 0, "commit_edges": 0, "bn_act": 0,
+                 "se_residual": 0}
+        counted = (K.descend, K.commit_edges, epilogue.bn_act,
+                   epilogue.se_residual)
         try:
             check(http_json(base, "/api/models")["current"]
                   == cfg.best_model, "/api/models")
@@ -1877,7 +2117,8 @@ def phase_web(dev, net, card):
             plies = 0
             while plies < WEB_PLIES:
                 az_turn = plies % 2 == 0          # AlphaZero plays White
-                K.descend.launches = K.commit_edges.launches = 0
+                for f in counted:
+                    f.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.time()
                 r = http_json(base, *request)
@@ -1886,16 +2127,20 @@ def phase_web(dev, net, card):
                       f"ply {plies}: {r['bot_move']} not in the legal "
                       f"moves {legal}")
                 check(-1.0 <= r["evaluation"] <= 1.0, f"evaluation {r}")
-                launches = (K.descend.launches, K.commit_edges.launches)
-                total["descend"] += launches[0]
-                total["commit_edges"] += launches[1]
+                launches = tuple(f.launches for f in counted)
+                for key, n in zip(total, launches):
+                    total[key] += n
                 if az_turn:
-                    check(launches == (sims, sims) and "engine" not in r,
+                    # the root's evaluation and one a simulation
+                    check(launches == (sims, sims, n_bn * (sims + 1),
+                                       n_tail * (sims + 1))
+                          and "engine" not in r,
                           f"AlphaZero move {plies}: {launches} launches")
                     az_s.append(dt)
                     evals.append(r["evaluation"])
                 else:
-                    check(launches == (0, 0) and r["engine"]["nodes"] > 0,
+                    check(launches == (0, 0, 0, 0)
+                          and r["engine"]["nodes"] > 0,
                           f"baseline move {plies}: {launches}, {r}")
                     base_s.append(dt)
                     base_nodes.append(r["engine"]["nodes"])
@@ -2411,9 +2656,9 @@ def phase_distributed(card, single_step_ms):
 
 def main(argv=None) -> int:
     """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
-    kernels, search, cpu, graph, continuous, tower, fused, trainer, qconv,
-    quant, arena, bench, web, dist) runs only those, for work on one of
-    them, and then
+    kernels, tower, epilogue, search, cpu, graph, continuous, fused,
+    trainer, qconv, quant, arena, bench, web, dist) runs only those, for
+    work on one of them, and then
     prints no ``kernels`` line (quant and arena run the qconv phase first,
     arena the quant phase)."""
     if not torch.cuda.is_available():
@@ -2433,7 +2678,8 @@ def main(argv=None) -> int:
 
     card = device_line(dev)
     t0 = time.time()
-    libs = cuda_build.build(["tree_kernels", "tower_kernel", "qconv_kernel"])
+    libs = cuda_build.build(["tree_kernels", "tower_kernel", "qconv_kernel",
+                             "epilogue_kernels"])
     build_s = time.time() - t0
     print(f"[phase 0] card: {card}; torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}); kernel build {build_s:.1f} s", flush=True)
@@ -2448,6 +2694,8 @@ def main(argv=None) -> int:
         err, times, bounds, kernel_launches = phase_kernels(dev)
     if want("tower"):
         tower_err, tower_t, tower_bound = phase_tower(dev, net)
+    if want("epilogue"):
+        epilogue_t = phase_epilogue(dev, net)
     if want("search"):
         launches.update(phase_search(dev, net, card)[0])
     if want("cpu"):
@@ -2466,6 +2714,7 @@ def main(argv=None) -> int:
     if want("quant") or want("arena"):
         quant_launches, evals, _ = phase_quant_search(dev, net, card, qp, act)
         launches["qconv3x3"] = quant_launches["qconv3x3"]
+        int8_tail_launches = quant_launches["se_residual"]
     if want("arena"):
         phase_arena(dev, evals, card)
     if want("bench"):
@@ -2479,7 +2728,8 @@ def main(argv=None) -> int:
         # "launches" are the main path's own; fetch_rows is launched by the
         # plain descent that phase 1 holds descend against ("check_launches")
         # and nowhere on the search path
-        on_path = ("descend", "commit_edges", "tower_forward", "qconv3x3")
+        on_path = ("descend", "commit_edges", "tower_forward", "qconv3x3",
+                   "bn_act", "se_residual")
         check(all(launches[k] > 0 for k in on_path)
               and all(v > 0 for v in trainer_launches.values())
               and all(v > 0 for v in web_launches.values())
@@ -2519,6 +2769,30 @@ def main(argv=None) -> int:
             "launches": launches["qconv3x3"], "max_abs_err": qconv_err,
             **qconv_t, "bound_ms": qconv_bound[0],
             "bound_by": qconv_bound[1]})
+        # XLA fusions of the JAX package's bf16 forward (and the int8
+        # forward's block tail), not Pallas kernels; launches are phase
+        # 3's bf16 move, int8_launches phase 10's int8-static move,
+        # web_launches phase 13's bot
+        replaces = {
+            "bn_act": "alphazero_tpu/models/network.py:68-70",
+            "se_residual": "alphazero_tpu/models/network.py:74-77, "
+                           "alphazero_tpu/models/quant.py:185-186"}
+        tolerance = {"bn_act": "bit-equal",
+                     "se_residual": "float64 sums: 1 bf16 step, "
+                                    "epilogue.SE_UNEQUAL_SHARE unequal"}
+        for name in ("bn_act", "se_residual"):
+            t = dict(epilogue_t[name])
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "alphazero_torch/csrc/epilogue_kernels.cu",
+                "replaces": replaces[name], "launches": launches[name],
+                "web_launches": web_launches[name],
+                "tolerance": tolerance[name],
+                "max_abs_err": t.pop("max_abs_err"), "ms": t.pop("ms"),
+                "plain_ms": t.pop("plain_ms"), "bound_ms": t.pop("bound_ms"),
+                "bound_by": t.pop("bound_by"),
+                "library_ms": t.pop("library_ms"), **t})
+        kernels[-1]["int8_launches"] = int8_tail_launches
         print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

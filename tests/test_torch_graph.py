@@ -520,11 +520,16 @@ def test_cuda_host_read_in_the_body_fails_the_capture(cuda):
             raise AssertionError
         return toy_eval(planes)
 
+    stream = torch.cuda.current_stream(cuda)
     with pytest.raises(RuntimeError):
         tmcts.search(states, reads, spec)
     torch.cuda.synchronize()
     tree = tmcts.search(states, reads, spec, capture=False)
     assert int(tree.root_visit[0]) == 8
+    # the failed capture left the stream as it was and the default
+    # generator usable
+    assert torch.cuda.current_stream(cuda) == stream
+    assert torch.randn(4, device=cuda).isfinite().all()
 
 
 @pytest.mark.gpu

@@ -310,3 +310,29 @@ def test_search_with_tiny_net():
     visits = tmcts.root_child_visits(tree).numpy()
     assert visits.sum() == 24 * 8
     assert (visits[:, ~OracleGame().get_legal_action_mask()] == 0).all()
+
+
+def test_bf16_evaluator_search_is_inference_apply_search():
+    """``make_net_evaluator(net, bfloat16)`` wires the JAX package's
+    compiled forward (``models/inference.py``): a float64-tree search with
+    it and one whose evaluator wraps ``inference_apply`` directly give the
+    same visit counts."""
+    from alphazero_torch.models import inference
+    from alphazero_torch.models.network import wl_to_value
+
+    cfg = tiny_config(num_blocks=2, num_filters=16)
+    net = build_network(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(3))
+    prep = inference.prepare_inference(net, torch.bfloat16)
+
+    def direct(planes):
+        logits, wl = inference.inference_apply(prep, planes)
+        return torch.softmax(logits, -1), wl_to_value(wl)
+
+    spec = tmcts.SearchSpec(num_simulations=32, value_dtype=F64)
+    states = torch_states_from_games(_games(23, 6))
+    visits = [tmcts.root_child_visits(tmcts.search(states, fn, spec))
+              for fn in (tmcts.make_net_evaluator(net, torch.bfloat16),
+                         direct)]
+    assert torch.equal(visits[0], visits[1])
+    assert int(visits[0].sum()) == 32 * 6
