@@ -24,32 +24,46 @@ tensor on the CPU, and on a CUDA tensor launches its kernel or raises
 (a dtype other than bfloat16, a map that is not contiguous, a failed
 build). Each wrapper counts its launches in ``<function>.launches``.
 
+``se_residual``'s kernel is persistent: a block an SM walks over every
+grid-th board with up to four warpgroups, each taking one board at a
+time: its ``y`` straight into registers, its ``x`` by a bulk async copy
+into the warpgroup's own stages in shared memory, asked for ahead.
+``se_launch_shape`` sizes the grid, the warpgroups and the stages from
+B, C and H at each launch; the kernel takes C a multiple of 8 up to
+``MAX_SE_CHANNELS`` and H up to ``MAX_SE_HIDDEN`` (the layout's shared
+memory, ``se_smem_bytes``, stays within ``SMEM_PER_BLOCK``).
+
 How far the kernels may be from their plain versions: ``bn_act`` not at
 all. ``se_residual`` rounds where its plain version rounds and takes the
-float32 sums of the pool and the dense layers in its own order; the plain
-version with ``f64_sums`` takes them in float64, then rounds through
-float32, which the kernel's sums of bf16 terms match but for a rare last
-bit. On the card ``se_residual`` is held to that: every element at most
-one step of bf16 away (``steps_apart``) and at most ``SE_UNEQUAL_SHARE``
-of them unequal. ``se_residual_bound`` is the looser bound between the
-plain version and another computation whose sums may each round to a
-neighbouring value, such as Flax's under XLA.
+sums of the pool and the dense layers in float64 in its own order, which
+depends on C and H alone (so a board's result does not depend on the
+batch), rounded through float32 as the plain version with ``f64_sums``
+takes them; the two differ only where a sum is not exact in float64 or
+the sigmoids differ in a last bit. On the card ``se_residual`` is held to
+that: every element at most one step of bf16 away (``steps_apart``) and
+at most ``SE_UNEQUAL_SHARE`` of them unequal. ``se_residual_bound`` is
+the looser bound between the plain version and another computation whose
+sums may each round to a neighbouring value, such as Flax's under XLA.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from alphazero_torch.cuda_build import load_library
 
 _LIB = "epilogue_kernels"
-# what se_residual's kernel takes: channels (a multiple of 8) and SE
-# hidden units, so that a block's shared memory stays within the default
-# 48 KB (the net has 128 and 16)
-MAX_SE_CHANNELS, MAX_SE_HIDDEN = 128, 32
+# a block's dynamic shared memory on an H100 after the kernel's opt-in
+SMEM_PER_BLOCK = 232_448
+# what se_residual's kernel takes: channels (a multiple of 8; a thread
+# holds its rows of a board in at most 16 vectors of registers) and SE
+# hidden units (at C 256, se_ratio 8's 32 units keep four stages beside two
+# warpgroups: 203,520 bytes). The net has 128 and 16.
+MAX_SE_CHANNELS, MAX_SE_HIDDEN = 256, 32
+_SE_MAX_STAGES = 8                      # a block's; its mbarriers hold 31
 # the share of se_residual's elements that may differ from
 # se_residual_plain(..., f64_sums=True) on the card, each by one step
 SE_UNEQUAL_SHARE = 1e-5
@@ -155,6 +169,49 @@ def se_residual_bound(y: torch.Tensor, x: torch.Tensor, fc1: Dense,
 
 
 # -----------------------------------------------------------------------------
+# se_residual's launch shape
+# -----------------------------------------------------------------------------
+
+def _align(n: int, a: int) -> int:
+    return (n + a - 1) // a * a
+
+
+def se_smem_bytes(C: int, H: int, waves: int, stages: int) -> int:
+    """A block's shared memory in ``se_residual_kernel``
+    (``epilogue_kernels.cu:se_layout``): 256 bytes of mbarriers, the bf16
+    weights w1 and w2, each warpgroup's scratch (float64: 1024 partial
+    column sums, pooled, hidden; bf16 gate and shift), then the stages, a
+    board's ``x`` each."""
+    scratch = 256 + _align(2 * C * H, 16) + _align(4 * C * H, 16)
+    per_wave = _align(8 * (1024 + C + H), 16) + 4 * C
+    return _align(scratch + waves * per_wave, 128) + stages * 128 * C
+
+
+def se_launch_shape(B: int, C: int, H: int, sms: int) -> Dict[str, int]:
+    """``se_residual_kernel``'s launch for B boards on a card of ``sms``
+    multiprocessors: ``grid`` blocks (one an SM at most), ``waves``
+    warpgroups a block (four; two past C 128, where a thread holds 16
+    vectors of a board; no more than the block's boards), ``stages``
+    boards in shared memory a block,
+    the same number for each warpgroup (as many as fit, up to its boards,
+    eight a block at most), and its ``smem`` bytes. Raises if no layout
+    fits."""
+    grid = max(1, min(B, sms))
+    per_block = -(-B // grid)
+    waves = min(4 if C <= 128 else 2, per_block)
+    for w in range(waves, 0, -1):
+        fit = (SMEM_PER_BLOCK - se_smem_bytes(C, H, w, 0)) // (128 * C)
+        own = min(fit, _SE_MAX_STAGES) // w
+        own = min(own, -(-per_block // w))
+        if own >= 1:
+            return {"grid": grid, "waves": w, "stages": w * own,
+                    "smem": se_smem_bytes(C, H, w, w * own)}
+    raise ValueError(f"se_residual's layout at C {C}, H {H} needs "
+                     f"{se_smem_bytes(C, H, 1, 1)} bytes of shared memory "
+                     f"for one stage, past {SMEM_PER_BLOCK}")
+
+
+# -----------------------------------------------------------------------------
 # Wrappers
 # -----------------------------------------------------------------------------
 
@@ -162,12 +219,30 @@ def _lib() -> ctypes.CDLL:
     lib = load_library(_LIB)
     if not getattr(lib, "_argtypes_set", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.bn_act_bf16.argtypes = [p, p, p, p, p, ll, i, p]
+        lib.se_residual_init.argtypes = [ctypes.POINTER(i)]
+        lib.se_residual_init.restype = i
+        lib.bn_act_bf16.argtypes = [p, p, p, p, p, ll, i, i, p]
         lib.bn_act_bf16.restype = i
-        lib.se_residual_bf16.argtypes = [p] * 10 + [i, i, i, p]
+        lib.se_residual_bf16.argtypes = [p] * 10 + [i] * 6 + [p]
         lib.se_residual_bf16.restype = i
         lib._argtypes_set = True
     return lib
+
+
+_SMS: Dict[int, int] = {}
+
+
+def multiprocessors(dev: torch.device) -> int:
+    """The card's multiprocessor count, from ``se_residual_init``, which
+    runs once a device (at its first launch of either kernel, before any
+    capture of one) and opts the kernel in to its shared memory."""
+    if dev.index not in _SMS:
+        n = ctypes.c_int(0)
+        rc = _lib().se_residual_init(ctypes.byref(n))
+        if rc != 0:
+            raise RuntimeError(f"se_residual_init failed: CUDA error {rc}")
+        _SMS[dev.index] = n.value
+    return _SMS[dev.index]
 
 
 def _check_map(name: str, t: torch.Tensor, like: torch.Tensor | None = None
@@ -223,7 +298,8 @@ def bn_act(y: torch.Tensor, bn: BN) -> torch.Tensor:
     out = torch.empty_like(y)
     rc = _lib().bn_act_bf16(
         y.data_ptr(), *(t.data_ptr() for t in bn), out.data_ptr(),
-        y.numel(), C, torch.cuda.current_stream(y.device).cuda_stream)
+        y.numel(), C, multiprocessors(y.device),
+        torch.cuda.current_stream(y.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bn_act kernel launch failed: CUDA error {rc}")
     bn_act.launches += 1
@@ -240,9 +316,10 @@ def se_residual(y: torch.Tensor, x: torch.Tensor, fc1: Dense, fc2: Dense,
     squeeze-excite with ``fc1`` = ((C, H) kernel, (H,) bias) and ``fc2`` =
     ((H, 2C), (2C,)) in the maps' dtype, then ``relu(y * gate + shift +
     x)``; a new map. On a CUDA tensor one launch of
-    ``se_residual_kernel``, which takes contiguous bfloat16 maps and
-    weights, C a multiple of 8 up to ``MAX_SE_CHANNELS`` and H up to
-    ``MAX_SE_HIDDEN``; on a CPU tensor ``se_residual_plain``."""
+    ``se_residual_kernel`` in ``se_launch_shape``, which takes contiguous
+    bfloat16 maps and weights, C a multiple of 8 up to ``MAX_SE_CHANNELS``
+    and H up to ``MAX_SE_HIDDEN``; on a CPU tensor
+    ``se_residual_plain``."""
     _check_map("y", y)
     _check_map("x", x, y)
     if y.device.type == "cpu":
@@ -264,13 +341,16 @@ def se_residual(y: torch.Tensor, x: torch.Tensor, fc1: Dense, fc2: Dense,
                          f"got C {C}, H {H}")
     _check_device(y)
     out = torch.empty_like(y)
+    if B == 0:
+        return out
+    shape = se_launch_shape(B, C, H, multiprocessors(dev))
     consts = (None, None, None) if bn is None else \
         tuple(t.data_ptr() for t in bn)
     rc = _lib().se_residual_bf16(
         y.data_ptr(), x.data_ptr(), out.data_ptr(), *consts,
         fc1[0].data_ptr(), fc1[1].data_ptr(), fc2[0].data_ptr(),
-        fc2[1].data_ptr(), B, C, H,
-        torch.cuda.current_stream(dev).cuda_stream)
+        fc2[1].data_ptr(), B, C, H, shape["grid"], shape["waves"],
+        shape["stages"], torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"se_residual kernel launch failed: CUDA error "
                            f"{rc}")

@@ -37,9 +37,12 @@ launches of the replays.
   ``se_residual`` tails), at 512 boards and at the web bot's 1 and 2:
   ``bn_act`` bit-equal; ``se_residual`` against its plain version with
   float64 sums, every element within one bf16 step and at most
-  ``epilogue.SE_UNEQUAL_SHARE`` of them unequal; their
+  ``epilogue.SE_UNEQUAL_SHARE`` of them unequal, and the same check at
+  C 256 and H 32 (random maps and weights, 512 boards and one); their
   times beside their bounds, their plain versions, the launch floor and,
   for ``bn_act``, ``F.batch_norm`` and ``F.relu`` on channels-last maps;
+  both ``se_residual`` tails also at 128 boards and at one, and the
+  kernel's launch shape (grid, warpgroups, stages) at each batch;
 - phase 3: the self-play search at full width (512 games x 800
   simulations) through ``selfplay_move`` on one tree: a warm-up move that
   captures the simulation, then one counted and timed move of 800
@@ -1826,9 +1829,79 @@ def phase_epilogue(dev, net):
                                         affine=False)[0],
         unequal=unequal["se_residual"], elements=elements["se_residual"],
         max_steps=steps["se_residual"])
-    print(f"epilogue kernels at {GAMES} boards, C 128 (b1_: one board; "
-          f"int8_: the int8 tail, no affine): {json.dumps(out)}", flush=True)
+    # both tails at the continuous self-play and trainer lanes' 128 boards
+    # and at the web bot's one (bn2 at one board is timed above), beside
+    # their bounds, with the launch shape each took
+    sms = epilogue.multiprocessors(dev)
+    se = out["se_residual"]
+    se["shape"] = epilogue.se_launch_shape(GAMES, C, H, sms)
+    for B in (128, 1):
+        se[f"b{B}_shape"] = epilogue.se_launch_shape(B, C, H, sms)
+        for tag, args, affine in (("", tail_args, True),
+                                  ("int8_", int8_tail, False)):
+            if f"{tag}b{B}_ms" in se:
+                continue
+            a = tuple(t[:B].contiguous() if i < 2 else t
+                      for i, t in enumerate(args))
+            se[f"{tag}b{B}_ms"] = cuda_ms(
+                lambda i: real["se_residual"](*a), what=f"se_residual {B}")
+            se[f"{tag}b{B}_bound_ms"] = epilogue_bound_ms(
+                "se_residual", B, C, H, affine=affine)[0]
+    se["wide"] = wide_se_check(dev, sms)
+    print(f"epilogue kernels at {GAMES} boards, C 128 (b1_, b128_: one "
+          f"and 128 boards; int8_: the int8 tail, no affine; wide: C 256, "
+          f"H 32): {json.dumps(out)}", flush=True)
+    print(f"se_residual launch shapes (grid, warpgroups, stages, shared "
+          f"bytes): {GAMES} boards {se['shape']}, 128 {se['b128_shape']}, "
+          f"1 {se['b1_shape']}; C 256 {se['wide']['shape']}", flush=True)
     return out
+
+
+WIDE_C, WIDE_H = 256, 32          # 256 filters at se_ratio 8
+
+
+def wide_se_check(dev, sms):
+    """``se_residual`` at C 256 and H 32 on random maps and weights from a
+    seed, with and without the BatchNorm, at 512 boards and at one, held
+    as at the net's sites: every element within one bf16 step of the plain
+    version with float64 sums, at most ``SE_UNEQUAL_SHARE`` unequal; and
+    its time at 512 boards beside its bound."""
+    from alphazero_torch.models import epilogue
+
+    g = torch.Generator().manual_seed(256)
+    C, H = WIDE_C, WIDE_H
+    w = lambda *s: (torch.randn(s, generator=g) * 0.3).to(dev,
+                                                          torch.bfloat16)
+    y = (torch.randn((GAMES, 8, 8, C), generator=g) * 2).to(
+        dev, torch.bfloat16)
+    x = torch.randn((GAMES, 8, 8, C), generator=g).relu().to(
+        dev, torch.bfloat16)
+    fc1, fc2 = (w(C, H), w(H)), (w(H, 2 * C), w(2 * C))
+    var = torch.rand(C, generator=g) * 3 + 0.05
+    bn = tuple(t.to(dev) for t in (
+        torch.randn(C, generator=g) * 0.5,
+        torch.rsqrt(var + 1e-5) * (torch.randn(C, generator=g) * 0.5 + 1),
+        torch.randn(C, generator=g)))
+    unequal = elements = 0
+    steps = 0.0
+    for affine in (bn, None):
+        for B in (GAMES, 1):
+            a = (y[:B].contiguous(), x[:B].contiguous(), fc1, fc2, affine)
+            got = epilogue.se_residual(*a)
+            want = epilogue.se_residual_plain(*a, f64_sums=True)
+            torch.cuda.synchronize()
+            unequal += int((got != want).sum())
+            elements += got.numel()
+            steps = max(steps, float(epilogue.steps_apart(got, want).max()))
+    check(steps <= 1.0 and unequal <= epilogue.SE_UNEQUAL_SHARE * elements,
+          f"se_residual at C {C}, H {H} against its plain version with "
+          f"float64 sums: {unequal} of {elements} elements unequal, up to "
+          f"{steps} bf16 steps apart")
+    return {"unequal": unequal, "elements": elements, "max_steps": steps,
+            "ms": cuda_ms(lambda i: epilogue.se_residual(y, x, fc1, fc2, bn),
+                          what="se_residual C 256"),
+            "bound_ms": epilogue_bound_ms("se_residual", GAMES, C, H)[0],
+            "shape": epilogue.se_launch_shape(GAMES, C, H, sms)}
 
 
 # -----------------------------------------------------------------------------

@@ -6,10 +6,12 @@
 # runs alone, and both quant_match batches start beside seed 2027's match
 # once its ratio is printed. The logs go to the directory given as the
 # first argument (default build/gates; this directory keeps a run's logs).
-# From the root of the repo:
-#     bash docs/logs/torch/run_gates.sh [log directory]
+# A second argument `no-anchor` leaves the anchor out (its score does not
+# depend on the evaluators' speed). From the root of the repo:
+#     bash docs/logs/torch/run_gates.sh [log directory] [no-anchor]
 set -u
 OUT=${1:-build/gates}
+ANCHOR=${2:-anchor}
 mkdir -p $OUT
 W=artifacts/model_r5_latest.npz
 { nvidia-smi --query-gpu=name,power.limit --format=csv,noheader; date -u
@@ -23,7 +25,7 @@ run() {
   local rc=$?
   echo "exit $rc at $(date -u +%T), wall $(python3 -c "print(round($(date +%s.%N) - $t0, 1))") s" >> $OUT/$log
 }
-run vs_baseline.log python3 -m alphazero_torch.strength.vs_baseline $W 20 2000 4
+[ "$ANCHOR" = no-anchor ] || run vs_baseline.log python3 -m alphazero_torch.strength.vs_baseline $W 20 2000 4
 run asym_2026.log env AZTPU_MATCH_SEED=2026 python3 -m alphazero_torch.strength.asym_match $W 16 300 200 --ratio-from-card
 run asym_2027.log env AZTPU_MATCH_SEED=2027 python3 -m alphazero_torch.strength.asym_match $W 16 300 200 --ratio-from-card &
 A=$!

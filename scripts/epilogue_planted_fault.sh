@@ -2,7 +2,8 @@
 # Shows that chip_smoke.py's phase 16 rejects a se_residual kernel whose
 # rounding points moved. It copies this checkout into a temporary
 # directory, takes the bf16 rounding of y * gate out of the copy's
-# se_residual_kernel (alphazero_torch/csrc/epilogue_kernels.cu), runs
+# se_residual_kernel (alphazero_torch/csrc/epilogue_kernels.cu: y * gate +
+# shift becomes one fused operation, rounded once), runs
 # `python3 chip_smoke.py epilogue` there and prints the phase's verdict.
 # Exits 0 only if that run failed on the se_residual check.
 #
@@ -15,8 +16,12 @@ trap 'rm -rf "$copy"' EXIT
 tar -C "$root" --exclude=./build --exclude=./chiprun_out --exclude=./.git \
     -cf - . | tar -C "$copy" -xf -
 src="$copy/alphazero_torch/csrc/epilogue_kernels.cu"
-sed -i 's/round_bf16(__fmul_rn(yf\.\([xy]\), gate\[\(c[^]]*\)\]))/__fmul_rn(yf.\1, gate[\2])/' "$src"
-if cmp -s "$root/alphazero_torch/csrc/epilogue_kernels.cu" "$src"; then
+# y * gate + shift as one fused bf16x2 operation, rounded once: the
+# product is no longer rounded on its own
+sed -i -e 's/bf2_add(bf2_mul(yw\[q\], gw\[q\]), sw\[q\])/bf2_fma(yw[q], gw[q], sw[q])/' \
+    -e 's/^\/\/ torch.relu.s, lane by lane: NaN stays NaN$/__device__ __forceinline__ uint32_t bf2_fma(uint32_t a, uint32_t b, uint32_t c) {\n  uint32_t d;\n  asm("fma.rn.bf16x2 %0, %1, %2, %3;\\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));\n  return d;\n}\n\n&/' "$src"
+if ! grep -q 'bf2_fma(yw\[q\], gw\[q\], sw\[q\])' "$src" \
+        || ! grep -q 'fma.rn.bf16x2' "$src"; then
     echo "planted fault: the rounding of y * gate was not found" >&2
     exit 2
 fi
