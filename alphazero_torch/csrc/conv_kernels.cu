@@ -1,0 +1,656 @@
+// bf16 3x3 SAME convolution with the BatchNorm as its epilogue, for Hopper
+// (sm_90a), bound to Python with ctypes.
+//
+// Replaces the tower's bf16 convolutions of the JAX package's net,
+// alphazero_tpu/models/network.py:66-67 (conv1), :71-72 (conv2) and
+// :151-152 (policy_conv), which XLA compiles; the JAX package's one TPU
+// kernel on this net computes the same conv in its body (the conv of
+// _tower_kernel, alphazero_tpu/models/fused.py:202-213: nine shifted
+// matmuls summed in f32). Per board b, square s = h*8 + w and output
+// channel co of NHWC bf16 maps (B, 8, 8, C):
+//   y[b,s,co]   = bf16(sum over the 3x3 taps and ci of x[b,s+tap,ci] *
+//                 w[co,ci,tap])            (f32 sums, zero off the board)
+//   out[b,s,co] = epi(y)
+// with epi one of: none (y); affine (bf16(((f32(y) - mean) * mul) + beta));
+// affine_relu (the same with ReLU before the cast). The conv's sum rounds
+// to bf16 first and only then does the affine run, where Flax rounds
+// (nn.Conv with dtype bf16, then nn.BatchNorm), and the affine is
+// bn_act_kernel's (epilogue_kernels.cu), with __fsub_rn, __fmul_rn and
+// __fadd_rn and no FMA: so the epilogue's output is bit-equal to
+// models/epilogue.py:bn_act_plain of the conv alone. C is 32, 128 or 256,
+// cin = cout = C.
+//
+// Bound on an H100, one 128 -> 128 conv at 512 boards: operations.
+// 2 x 512 x 64 x 128 x 1152 = 9.664e9 at 989 TFLOP/s take 0.00977 ms; the
+// bytes (8.39 MB in, 8.39 MB out, 294,912 of weights, 1,536 of BatchNorm
+// constants) take 0.0051 ms at 3.35 TB/s.
+//
+// Design: the tower kernel's mainloop (tower_kernel.cu), with the weights
+// streamed through a ring. At C 128 the bf16 weights are 288 KB, more than
+// a block's 227 KB of shared memory, so they cannot stay resident as the
+// s8 conv's 147 KB do (qconv_kernel.cu). One board is 64 rows, the M of
+// Hopper's warpgroup matrix multiply: a block has four consumer
+// warpgroups, a board each, and a producer warpgroup. The conv is a
+// product of the board's 64 squares by K = 9 taps x C (k = tap*C + ci,
+// zero past 9C) by the output channels, in tiles of N = 128 (C 32: one
+// tile of 32; C 256: two). A block walks over its pieces of work, every
+// grid-th: a group of `per` boards (a consumer warpgroup each) and a tile,
+// or half of one. The launch takes the smallest piece that fills one wave
+// (models/conv.py:conv_launch_shape): one board and half a tile for the
+// web bot's batch of one, one board and a tile at 128 boards, four boards
+// and a tile at 512 (128 pieces, one wave on 128 SMs). A board's chain of
+// products is bound by its latency (each group of two k-steps waits for
+// the group before it), so one board a block runs about as fast as four
+// boards' share of the tensor cores allows. Whatever the piece, the
+// products are wgmma.mma_async m64n64k16 (two a k-step for a whole tile,
+// each into its own 32 f32 accumulators a thread; m64n32k16 at C 32):
+// every output element goes through the same instructions in the same
+// order whatever the batch.
+//   B, the weights, is read by the tensor cores from shared memory through
+// a matrix descriptor. The host packs them once into the image the
+// descriptor reads (models/conv.py:weight_image): chunks of 64 K values
+// (128 bytes) for the tile's output channels, stored [n][64] (K-major)
+// with the 128-byte swizzle (the 16-byte piece j of row n lies at piece j
+// ^ (n % 8)); 16 KB a chunk at N 128, 18 chunks a tile at C 128 (one half
+// of a tap each), 5 at C 32 (two taps each; the last half zero). Half a
+// tile is the chunk's first or last 8 KB. One thread of the producer
+// warpgroup brings every chunk of the block's pieces through a ring of
+// four stages by bulk copies (cp.async.bulk) that complete on the stage's
+// full mbarrier; every consumer warp arrives on the stage's empty
+// mbarrier once the wgmma group that read it has completed (a warpgroup
+// without a board frees each chunk as it lands). The consumers of a block
+// read every chunk together, so at 512 boards the weights cross L2 once a
+// group of four boards (37.7 MB of L2 reads a launch at C 128).
+//   A, the activations, is fed from registers. A warpgroup brings its
+// board's 64 rows of x into shared memory by 16-byte loads, all in flight
+// at once, into rows padded by 16 bytes so that the eight row addresses
+// of an ldmatrix fall in distinct banks. (One bulk copy a row instead,
+// from a producer warp, took 0.0250 ms at 512 boards on an H100 against
+// 0.0191 with these loads, chip_smoke.py phase 17: the 256 small copies
+// of a block likely queue in the copy engine ahead of the weights.) For
+// tap (dy, dx) each lane points its ldmatrix at row (h+dy, w+dx) of the
+// board, or at a row of zeros off the board (and past tap 8), and the
+// m16k16 fragment that ldmatrix.x4 gives is wgmma's A fragment. The k-steps go in commit
+// groups of two with two sets of fragments, so one group's ldmatrix runs
+// while the group before it multiplies; no wgmma sits in a branch (ptxas
+// would serialise it): the piece's width is a template parameter.
+//   The order of the sums is fixed by C alone: every board's k-steps run
+// in k order in one warpgroup's accumulators; no split of K and no
+// atomics. So a board's output does not depend on the batch, the block or
+// the warpgroup that takes it.
+//   The epilogue runs on the accumulators: the four lanes of a quad trade
+// packed pairs by three shuffles so that each lane stores 16 bytes and a
+// warp's store covers 64 contiguous bytes of eight rows, whole 32-byte
+// sectors (qconv_kernel.cu's store). A second producer warp brings the
+// BatchNorm constants into shared memory while the products run.
+//   The 640 threads start with 96 registers; setmaxnreg gives the
+// consumers 112 and the producer 24. Shared memory at C 128: 64 KB of ring
+// and 68 KB of rows, 137 KB; at C 256, 199 KB: above 48 KB through the
+// opt-in that conv3x3_init makes once a device.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 17;
+// PERF.md has the runs): 0.0194 ms at 512 boards, C 128, with the affine
+// and ReLU (497 TFLOP/s, 2.0 times the bound), against 0.0253 for cuDNN's
+// conv alone in turns; 0.0090 at one board against cuDNN's 0.0072, where
+// one board's chain of products is latency-bound; C 256 at 512 boards
+// 0.0651 (bound 0.0391). What is left at 512 boards: in one wave a
+// block's four boards load, multiply and store in lockstep, so the loads
+// of x and the epilogue are not hidden behind products.
+//
+// The entry point launches on the given stream and returns
+// cudaGetLastError(); it never synchronises, allocates nothing and queries
+// nothing of the device.
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBoards = 4;              // consumer warpgroups a block
+constexpr int kConsumers = kBoards * 128;
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kConsumerRegs = 112;      // 640 threads start with 96 each
+constexpr int kProducerRegs = 24;
+constexpr int kChunkK = 64;             // K values in a row of the image
+constexpr int kStages = 4;              // weight ring
+constexpr int kSmemOptIn = 232448;      // a block's, after the opt-in
+
+enum Epilogue { kNone = 0, kAffine = 1, kAffineRelu = 2 };
+
+template <int C>
+struct Shape {
+  static constexpr int kTileN = C < 128 ? C : 128;     // image tile's rows
+  static constexpr int kTiles = C / kTileN;
+  static constexpr int kInstrN = C < 64 ? C : 64;      // a wgmma's N
+  static constexpr int kChunks = (9 * C + kChunkK - 1) / kChunkK;
+  static constexpr int kChunkBytes = kTileN * kChunkK * 2;
+  static constexpr int kStride = C + 8;                // padded row, bf16
+  static constexpr int kRowBytes = kStride * 2;
+};
+
+template <int C>
+struct Smem {
+  unsigned char w[kStages][Shape<C>::kChunkBytes];    // 1024-byte aligned
+  __nv_bfloat16 rows[kBoards][64 * Shape<C>::kStride];  // a board each
+  __nv_bfloat16 zero[Shape<C>::kStride];  // the off-board source row
+  float mean[C], mul[C], beta[C];       // the BatchNorm, if any
+  uint64_t full[kStages];               // mbarriers: chunk has landed
+  uint64_t empty[kStages];              // mbarriers: chunk has been read
+  uint64_t consts;                      // the BatchNorm constants are in
+};
+
+template <int C>
+constexpr int smem_bytes() {
+  return (int)sizeof(Smem<C>) + 1024;   // and the slack to align the ring
+}
+
+struct Args {
+  const __nv_bfloat16* x;               // (boards, 64, C)
+  const unsigned char* image;           // (tiles, chunks, N, 64) bf16
+  const float* mean;                    // [C] each, or null (epi none)
+  const float* mul;
+  const float* beta;
+  __nv_bfloat16* out;                   // (boards, 64, C)
+  int boards, epi;
+  int per;                              // boards a piece: 1, 2 or 4
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Returns once the barrier's phase of the given parity has completed. A
+// wait that cannot end (a fault in this kernel) traps after some 2^24
+// tries, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 24)) __trap();
+  }
+}
+
+// One contiguous block from device memory into shared memory; its bytes
+// count against the mbarrier's expected transactions.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void warpgroup_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int W>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(W) : "memory");
+}
+
+// Keeps the compiler from moving reads of the accumulators above a wait.
+template <int R>
+__device__ __forceinline__ void fence_accumulators(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// Descriptor of a K-major operand in 128-byte swizzled rows: eight rows
+// are 1024 bytes (the stride offset); the leading offset is not used in
+// this mode. The address must lie in a 1024-byte aligned tile; a k-step
+// of 16 bf16 moves it by 32 bytes (2 in the descriptor's units).
+__device__ __forceinline__ uint64_t swizzled_kmajor_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x N f32, this warpgroup's board) = a (this warp's m16k16 bf16
+// fragment) x b (16 x N bf16 in shared memory) + (scale_d ? d : 0).
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The conv's output: its f32 sum rounded to bf16, where Flax's nn.Conv
+// (dtype bf16) rounds, before any BatchNorm.
+__device__ __forceinline__ float conv_value(float sum) {
+  return round_bf16(sum);
+}
+
+// bn_act_kernel's BatchNorm: ((y - mean) * mul) + beta in f32, no FMA,
+// then torch.relu's ReLU (NaN stays NaN) when asked
+__device__ __forceinline__ float finish(float sum, float mean, float mul,
+                                        float beta, int epi) {
+  const float y = conv_value(sum);
+  if (epi == kNone) return y;
+  const float v = __fadd_rn(__fmul_rn(__fsub_rn(y, mean), mul), beta);
+  return (epi == kAffineRelu && v < 0.0f) ? 0.0f : v;
+}
+
+__device__ __forceinline__ uint32_t pick(uint32_t p0, uint32_t p1, uint32_t p2,
+                                         uint32_t p3, int i) {
+  return i == 0 ? p0 : i == 1 ? p1 : i == 2 ? p2 : p3;
+}
+
+// Keeps the compiler from loading every column's constants at once (it
+// would spill): the epilogue goes one group of 32 columns at a time.
+__device__ __forceinline__ void compiler_barrier() {
+  asm volatile("" ::: "memory");
+}
+
+// Rows c_row (at `out`, the tile's first column) and c_row + 8 of this
+// warpgroup's board, from the accumulator elements nt*4 + half*2 + e
+// (column nt*8 + 2t + e, row c_row + 8*half); rows are C apart. The
+// quad's lanes trade packed pairs so that lane t writes columns
+// (4q + t)*8 .. +7 of a row, 16 bytes. mean, mul, beta: the tile's.
+template <int C, int N>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[N / 2], int t,
+                                           const float* mean,
+                                           const float* mul,
+                                           const float* beta, int epi) {
+#pragma unroll
+  for (int q = 0; q < N / 32; ++q) {
+    uint32_t p[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int nt = 4 * q + j, col = nt * 8 + 2 * t;
+      float m0 = 0.f, m1 = 0.f, k0 = 0.f, k1 = 0.f, b0 = 0.f, b1 = 0.f;
+      if (epi != kNone) {
+        m0 = mean[col], m1 = mean[col + 1];
+        k0 = mul[col], k1 = mul[col + 1];
+        b0 = beta[col], b1 = beta[col + 1];
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(
+            finish(acc[nt * 4 + half * 2], m0, k0, b0, epi),
+            finish(acc[nt * 4 + half * 2 + 1], m1, k1, b1, epi));
+        p[half][j] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // lane u's pair for columns (4q + t)*8 + 2u is its p[t]; it arrives
+      // from lane t ^ k in r[k]
+      const uint32_t* ph = p[half];
+      uint32_t r[4];
+      r[0] = pick(ph[0], ph[1], ph[2], ph[3], t);
+#pragma unroll
+      for (int k = 1; k < 4; ++k)
+        r[k] = __shfl_xor_sync(0xffffffffu,
+                               pick(ph[0], ph[1], ph[2], ph[3], t ^ k), k);
+      *reinterpret_cast<uint4*>(out + half * 8 * C + (4 * q + t) * 8) =
+          make_uint4(pick(r[0], r[1], r[2], r[3], t),
+                     pick(r[0], r[1], r[2], r[3], t ^ 1),
+                     pick(r[0], r[1], r[2], r[3], t ^ 2),
+                     pick(r[0], r[1], r[2], r[3], t ^ 3));
+    }
+    compiler_barrier();
+  }
+}
+
+// One launch: pieces of NP output channels (a whole tile, or half of one
+// at C 128 and 256 for small batches) of groups of four boards.
+template <int C, int NP>
+__global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
+  using S = Shape<C>;
+  constexpr int kN = S::kInstrN;
+  constexpr int kInstr = NP / kN;       // wgmmas a k-step
+  constexpr int kParts = S::kTileN / NP;  // pieces a tile
+  constexpr int kPerGroup = S::kTiles * kParts;  // pieces a group of boards
+  constexpr int kPieceBytes = NP * kChunkK * 2;  // of a chunk
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle is a function of the address: the ring must start on a
+  // 1024-byte boundary (the launch asks for 1024 bytes of slack)
+  Smem<C>& s = *reinterpret_cast<Smem<C>*>(
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int pieces = (a.boards + a.per - 1) / a.per * kPerGroup;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(smem_addr(&s.full[i]), 1);                // the producer
+      mbar_init(smem_addr(&s.empty[i]), kConsumers / 32);  // every warp
+    }
+    mbar_init(smem_addr(&s.consts), 32);                  // a warp's lanes
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < S::kStride; i += kThreads)
+    s.zero[i] = __float2bfloat16(0.0f);
+  __syncthreads();                      // the only block-wide barrier
+
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    const int pwarp = (tid - kConsumers) >> 5;
+    if (pwarp == 0 && lane == 0) {
+      // the weights: every chunk of the block's pieces through the ring,
+      // as far ahead as the consumers have freed stages
+      int q = 0;
+      for (int piece = blockIdx.x; piece < pieces; piece += gridDim.x) {
+        const int sub = piece % kPerGroup;
+        const unsigned char* src =
+            a.image + ((size_t)(sub / kParts) * S::kChunks * S::kTileN +
+                       (sub % kParts) * NP) * (kChunkK * 2);
+        for (int c = 0; c < S::kChunks; ++c, ++q) {
+          const int stage = q % kStages;
+          if (q >= kStages)
+            mbar_wait(smem_addr(&s.empty[stage]), ((q / kStages) - 1) & 1);
+          const uint32_t full = smem_addr(&s.full[stage]);
+          mbar_arrive_expect_tx(full, kPieceBytes);
+          bulk_copy(smem_addr(s.w[stage]), src + (size_t)c * S::kChunkBytes,
+                    kPieceBytes, full);
+        }
+      }
+    } else if (pwarp == 1) {
+      // the BatchNorm constants, while the first products run
+      if (a.epi != kNone)
+        for (int c = lane; c < C; c += 32) {
+          s.mean[c] = a.mean[c];
+          s.mul[c] = a.mul[c];
+          s.beta[c] = a.beta[c];
+        }
+      mbar_arrive(smem_addr(&s.consts));
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg takes board group*per + wg of each piece.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kConsumerRegs));
+  const int wg = tid >> 7;
+  const int ch = tid & 127;
+  const int warp = ch >> 5;
+  const int bar_id = wg + 1;            // named barrier of this warpgroup
+  __nv_bfloat16* rows = s.rows[wg];
+  const uint32_t src = smem_addr(rows);
+  // ldmatrix lane roles for A: lane -> row (lane % 16) of the warp's 16
+  // rows and the 8-column half (lane / 16) of a k-step
+  const int a_m = warp * 16 + (lane & 15);
+  const int a_h = a_m >> 3, a_w = a_m & 7;
+  const uint32_t a_half = (lane >> 4) * 16;                 // bytes
+  const uint32_t zero_addr = smem_addr(s.zero) + a_half;
+  // this lane's A row for a tap: (h+dy, w+dx) of the board, or the zero
+  // row off the board and past the ninth tap
+  auto tap_row = [&](int tap) -> uint32_t {
+    const int hs = a_h + tap / 3 - 1, ws = a_w + tap % 3 - 1;
+    return (tap < 9 && hs >= 0 && hs < 8 && ws >= 0 && ws < 8)
+               ? src + (hs * 8 + ws) * S::kRowBytes + a_half
+               : zero_addr;
+  };
+  // accumulator element nt*4 + half*2 + e of a wgmma: row warp*16 +
+  // lane/4 + half*8, column nt*8 + (lane%4)*2 + e of its kN
+  const int c_row = warp * 16 + (lane >> 2);
+  const int t = lane & 3;
+
+  float acc[kInstr][kN / 2];
+  uint32_t frag[2][2][4];               // two sets of two k-steps
+  int q = 0;                            // running weight chunk
+  for (int piece = blockIdx.x; piece < pieces; piece += gridDim.x) {
+    const int board = piece / kPerGroup * a.per + wg;
+    if (wg >= a.per || board >= a.boards) {
+      // no board for this warpgroup: free each chunk as it lands
+      for (int c = 0; c < S::kChunks; ++c, ++q) {
+        const int stage = q % kStages;
+        mbar_wait(smem_addr(&s.full[stage]), (q / kStages) & 1);
+        if (lane == 0) mbar_arrive(smem_addr(&s.empty[stage]));
+      }
+      continue;
+    }
+    // the board's 64 rows of x, C/8 16-byte pieces a row, into the padded
+    // rows (the warpgroup's products of its last piece have completed)
+    warpgroup_barrier(bar_id);
+    {
+      constexpr int kSegs = C / 8;
+      constexpr int kPer = 64 * kSegs / 128;        // pieces a thread
+      const uint4* xb = reinterpret_cast<const uint4*>(
+          a.x + (size_t)board * 64 * C);
+      uint4 v[kPer < 8 ? kPer : 8];
+#pragma unroll
+      for (int i0 = 0; i0 < kPer; i0 += 8) {
+#pragma unroll
+        for (int i = 0; i < 8 && i0 + i < kPer; ++i)
+          v[i] = __ldg(xb + (i0 + i) * 128 + ch);
+#pragma unroll
+        for (int i = 0; i < 8 && i0 + i < kPer; ++i) {
+          const int p = (i0 + i) * 128 + ch;
+          *reinterpret_cast<uint4*>(
+              &rows[(p / kSegs) * S::kStride + (p % kSegs) * 8]) = v[i];
+        }
+      }
+    }
+    warpgroup_barrier(bar_id);
+
+    for (int c = 0; c < S::kChunks; ++c, ++q) {
+      // this lane's A address for k-step m of the chunk, K values
+      // 64c + 16m .. +15: tap (64c + 16m) / C, channel (64c + 16m) % C
+      uint32_t r0, r1;
+      if constexpr (C >= kChunkK) {     // a chunk within one tap
+        constexpr int kPerTap = C / kChunkK;
+        r0 = tap_row(c / kPerTap) + (c % kPerTap) * kChunkK * 2;
+        r1 = r0 + 64;
+      } else {                          // C 32: two taps a chunk
+        r0 = tap_row(2 * c);
+        r1 = tap_row(2 * c + 1);
+      }
+      const int stage = q % kStages;
+      mbar_wait(smem_addr(&s.full[stage]), (q / kStages) & 1);
+      // wgmma i reads rows i*kN.. of the stage: 1024 bytes an eight rows
+      const uint64_t desc = swizzled_kmajor_desc(smem_addr(s.w[stage]));
+      constexpr uint64_t kNext = kN * kChunkK * 2 / 16;
+
+      // k-steps 0 and 1; the group before the last has completed, so its
+      // fragments (set 0) are free
+      ldmatrix_x4(frag[0][0], r0);
+      ldmatrix_x4(frag[0][1], r0 + 32);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < kInstr; ++i)
+        wgmma_bf16<kN>(acc[i], frag[0][0], desc + i * kNext, c != 0);
+#pragma unroll
+      for (int i = 0; i < kInstr; ++i)
+        wgmma_bf16<kN>(acc[i], frag[0][1], desc + i * kNext + 2, 1);
+      wgmma_commit();
+      wgmma_wait<1>();                  // the previous chunk has been read
+      if (c > 0 && lane == 0)
+        mbar_arrive(smem_addr(&s.empty[(q - 1) % kStages]));
+
+      // k-steps 2 and 3
+      ldmatrix_x4(frag[1][0], r1);
+      ldmatrix_x4(frag[1][1], r1 + 32);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < kInstr; ++i)
+        wgmma_bf16<kN>(acc[i], frag[1][0], desc + i * kNext + 4, 1);
+#pragma unroll
+      for (int i = 0; i < kInstr; ++i)
+        wgmma_bf16<kN>(acc[i], frag[1][1], desc + i * kNext + 6, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(smem_addr(&s.empty[(q - 1) % kStages]));
+#pragma unroll
+    for (int i = 0; i < kInstr; ++i) fence_accumulators(acc[i]);
+
+    mbar_wait(smem_addr(&s.consts), 0);
+    const int sub = piece % kPerGroup;
+    const int col0 = (sub / kParts) * S::kTileN + (sub % kParts) * NP;
+#pragma unroll
+    for (int i = 0; i < kInstr; ++i) {
+      const int col = col0 + i * kN;
+      store_rows<C, kN>(a.out + ((size_t)board * 64 + c_row) * C + col,
+                        acc[i], t, s.mean + col, s.mul + col, s.beta + col,
+                        a.epi);
+    }
+  }
+}
+
+template <int C, int NP>
+cudaError_t opt_in() {
+  return cudaFuncSetAttribute(conv3x3_kernel<C, NP>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<C>());
+}
+
+template <int C, int NP>
+int launch(const Args& a, int grid, cudaStream_t stream) {
+  conv3x3_kernel<C, NP><<<grid, kThreads, smem_bytes<C>(), stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+static_assert(smem_bytes<256>() <= kSmemOptIn, "C 256 does not fit");
+
+}  // namespace
+
+extern "C" {
+
+// Once a device, before its first launch and outside any stream capture:
+// lets every instantiation take its shared memory past 48 KB, and gives
+// the device's multiprocessor count, which sizes the grid.
+int conv3x3_init(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = opt_in<32, 32>();
+  if (err == cudaSuccess) err = opt_in<128, 128>();
+  if (err == cudaSuccess) err = opt_in<128, 64>();
+  if (err == cudaSuccess) err = opt_in<256, 128>();
+  if (err == cudaSuccess) err = opt_in<256, 64>();
+  return (int)err;
+}
+
+// A block's dynamic shared memory at width C (0 for a width the kernel
+// does not take): models/conv.py checks its own count against it.
+int conv3x3_smem_bytes(int C) {
+  return C == 32 ? smem_bytes<32>() : C == 128 ? smem_bytes<128>()
+       : C == 256 ? smem_bytes<256>() : 0;
+}
+
+// x, out: bf16 NHWC maps (boards, 8, 8, C), 16-byte aligned; image: the
+// weight image (models/conv.py:weight_image), (C / N, ceil(9C / 64), N, 64)
+// bf16 with N = min(C, 128), 16-byte aligned; mean, mul, beta: f32 [C], or
+// null with epi 0 (none; 1 affine, 2 affine and ReLU). C is 32, 128 or
+// 256; grid blocks, half (pieces of half a tile, C 128 and 256 only) and
+// per (boards a piece, 1 to 4) as models/conv.py:conv_launch_shape gives
+// them; conv3x3_init has run on the device.
+int conv3x3_bf16(const void* x, const void* image, const void* mean,
+                 const void* mul, const void* beta, void* out, int boards,
+                 int C, int epi, int grid, int half, int per, void* stream) {
+  if (boards < 0 || grid <= 0 || epi < kNone || epi > kAffineRelu ||
+      (epi != kNone && (!mean || !mul || !beta)) || per < 1 ||
+      per > kBoards)
+    return (int)cudaErrorInvalidValue;
+  if ((C != 32 && C != 128 && C != 256) || (half && C == 32))
+    return (int)cudaErrorInvalidValue;
+  if (boards == 0) return (int)cudaGetLastError();
+  const Args a{static_cast<const __nv_bfloat16*>(x),
+               static_cast<const unsigned char*>(image),
+               static_cast<const float*>(mean), static_cast<const float*>(mul),
+               static_cast<const float*>(beta),
+               static_cast<__nv_bfloat16*>(out), boards, epi, per};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (C == 32) return launch<32, 32>(a, grid, st);
+  if (C == 128)
+    return half ? launch<128, 64>(a, grid, st) : launch<128, 128>(a, grid, st);
+  return half ? launch<256, 64>(a, grid, st) : launch<256, 128>(a, grid, st);
+}
+
+}  // extern "C"

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from alphazero_torch.cuda_build import load_library
+from alphazero_torch.models.conv import weight_image_kmajor
 
 # Games per thread block of the CUDA kernel: a batch must be a multiple of
 # it. A game is the 64 rows of one warpgroup's matrix multiply and a thread
@@ -92,20 +93,20 @@ def wconv_smem_image(wconv: torch.Tensor) -> torch.Tensor:
     kernel copies into shared memory chunk by chunk and its tensor cores
     read by descriptor: ``(n, 2, 9, 2, 128, 64)``, any dtype.
 
-    A chunk is one half of a tap's input channels, stored ``[cout][cin]``
-    (K-major) in rows of 64 values, 128 bytes in bf16, with the card's
-    128-byte swizzle applied: the 8-value piece ``j`` of row ``cout`` lies
-    at piece ``j ^ (cout % 8)``. So element ``[i, j, tap, half, cout, p,
-    e]`` of the image (row pieces ``p``, ``e`` within a piece) is
-    ``wconv[i, j, tap, half*64 + (p ^ (cout % 8))*8 + e, cout]``."""
+    Each conv's image is ``conv.weight_image_kmajor`` of its (cout, K)
+    matrix (k = tap*128 + cin) at a tile of 128 output channels, the
+    layout the bf16 conv kernel reads too: a chunk is one half of a tap's
+    input channels, stored ``[cout][cin]`` (K-major) in rows of 64 values,
+    128 bytes in bf16, with the card's 128-byte swizzle applied: the
+    8-value piece ``j`` of row ``cout`` lies at piece ``j ^ (cout % 8)``.
+    So element ``[i, j, tap, half, cout, p, e]`` of the image (row pieces
+    ``p``, ``e`` within a piece) is ``wconv[i, j, tap, half*64 + (p ^
+    (cout % 8))*8 + e, cout]``."""
     n = wconv.shape[0]
-    halves = _C // _CHUNK_K
-    w = wconv.reshape(n, 2, 9, halves, _CHUNK_K // 8, 8, _C)
-    w = w.permute(0, 1, 2, 3, 6, 4, 5)               # [.., cout, piece, e]
-    cout = torch.arange(_C, device=wconv.device)[:, None]
-    piece = torch.arange(_CHUNK_K // 8, device=wconv.device)[None, :]
-    w = w[:, :, :, :, cout, piece ^ (cout % 8)]
-    return w.reshape(n, 2, 9, halves, _C, _CHUNK_K).contiguous()
+    # every conv's (cout, K) rows stacked: one tile of 128 rows a conv
+    wk = wconv.reshape(n * 2, 9 * _C, _C).transpose(1, 2)
+    image = weight_image_kmajor(wk.reshape(n * 2 * _C, 9 * _C), _C)
+    return image.reshape(n, 2, 9, _C // _CHUNK_K, _C, _CHUNK_K)
 
 
 def pack_weights(net) -> Dict[str, Any]:

@@ -14,17 +14,21 @@ same for the port's ``AlphaZeroNet``:
   package's (h, w, c) input order (``fused._hwc_dense``), since an NHWC
   flatten is (h, w, c) while ``models/convert.py`` permuted those two for
   the NCHW module;
-- ``inference_apply`` runs the forward on NHWC maps: each convolution is
-  ``F.conv2d`` on channels-last operands (cuDNN on the card, as the JAX
-  package leaves its convolutions to XLA), so nothing is transposed;
-  ``epilogue.bn_act`` follows the input, ``conv1``, policy and value
-  convolutions and ``epilogue.se_residual`` ends each block; the dense
+- ``inference_apply`` runs the forward on NHWC maps, so nothing is
+  transposed: each block's two 3x3 convolutions and the policy head's
+  are ``conv.conv3x3`` with their BatchNorm as its epilogue (``conv1``
+  and the policy conv with ReLU, ``conv2`` the affine alone), and
+  ``epilogue.se_residual`` ends each block; the input conv (cin 3) and
+  the value head's 1x1 conv are ``F.conv2d`` on channels-last operands
+  (cuDNN on the card), each followed by ``epilogue.bn_act``; the dense
   layers are matrix products, each product and each bias add rounded
   apart as Flax's ``nn.Dense`` rounds.
 
-On the card the two epilogues are hand-written kernels and take bfloat16
-only; on the CPU their plain versions run, in any float dtype (the tests
-run float32 against Flax).
+On the card ``conv3x3`` and the two epilogues are hand-written kernels
+and take bfloat16 only (``conv3x3`` reads its weights in an image that
+``prepare_inference`` packs once, ``conv.weight_image``); on the CPU
+their plain versions run, in any float dtype (the tests run float32
+against Flax).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from alphazero_torch.models import conv as cv
 from alphazero_torch.models import epilogue, fused
 from alphazero_torch.models.network import AlphaZeroNet
 
@@ -47,11 +52,23 @@ def _copy(t: torch.Tensor, dev: torch.device, dtype: torch.dtype,
 def prepare_inference(net: AlphaZeroNet, dtype: torch.dtype = torch.bfloat16
                       ) -> Dict[str, Any]:
     """The net's weights for ``inference_apply`` in ``dtype``, on the net's
-    device: a snapshot that later training does not change."""
+    device: a snapshot that later training does not change. Each
+    ``conv3x3`` site keeps its channels-last OIHW weights (the CPU's plain
+    version reads them) and, on a card in bfloat16 at a width the kernel
+    takes, their image under ``<name>_image`` (else None)."""
     dev = next(net.parameters()).device
 
     def conv(c: torch.nn.Conv2d) -> torch.Tensor:
         return _copy(c.weight, dev, dtype, memory_format=torch.channels_last)
+
+    def image(w: torch.Tensor):
+        return (cv.weight_image(w) if dev.type == "cuda"
+                and dtype == torch.bfloat16 and w.shape[0] in cv.CHANNELS
+                else None)
+
+    def conv3x3(name: str, c: torch.nn.Conv2d) -> Dict[str, Any]:
+        w = conv(c)
+        return {name: w, f"{name}_image": image(w)}
 
     def bn(b: torch.nn.BatchNorm2d):
         # on the host in float32, so that the card's constants are the CPU's
@@ -68,11 +85,12 @@ def prepare_inference(net: AlphaZeroNet, dtype: torch.dtype = torch.bfloat16
     return {
         "dtype": dtype,
         "input_conv": conv(net.input_conv), "input_bn": bn(net.input_bn),
-        "blocks": [{"conv1": conv(b.conv1), "bn1": bn(b.bn1),
-                    "conv2": conv(b.conv2), "bn2": bn(b.bn2),
+        "blocks": [{**conv3x3("conv1", b.conv1), "bn1": bn(b.bn1),
+                    **conv3x3("conv2", b.conv2), "bn2": bn(b.bn2),
                     "fc1": dense(b.se.fc1), "fc2": dense(b.se.fc2)}
                    for b in net.blocks],
-        "policy_conv": conv(net.policy_conv), "policy_bn": bn(net.policy_bn),
+        **conv3x3("policy_conv", net.policy_conv),
+        "policy_bn": bn(net.policy_bn),
         "policy_fc": dense(net.policy_fc, flattened=True),
         "value_conv": conv(net.value_conv), "value_bn": bn(net.value_bn),
         "value_fc1": dense(net.value_fc1, flattened=True),
@@ -101,12 +119,14 @@ def inference_apply(prep: Dict[str, Any], planes: torch.Tensor
                                       memory_format=torch.contiguous_format)
     x = epilogue.bn_act(_conv(x, prep["input_conv"]), prep["input_bn"])
     for b in prep["blocks"]:
-        y = epilogue.bn_act(_conv(x, b["conv1"]), b["bn1"])
-        x = epilogue.se_residual(_conv(y, b["conv2"]), x, b["fc1"],
-                                 b["fc2"], b["bn2"])
+        y = cv.conv3x3(x, b["conv1"], b["bn1"], relu=True,
+                       image=b["conv1_image"])
+        y = cv.conv3x3(y, b["conv2"], b["bn2"], image=b["conv2_image"])
+        x = epilogue.se_residual(y, x, b["fc1"], b["fc2"])
 
     B = x.shape[0]
-    p = epilogue.bn_act(_conv(x, prep["policy_conv"]), prep["policy_bn"])
+    p = cv.conv3x3(x, prep["policy_conv"], prep["policy_bn"], relu=True,
+                   image=prep["policy_conv_image"])
     policy_logits = _dense(p.reshape(B, -1), prep["policy_fc"])
     v = epilogue.bn_act(_conv(x, prep["value_conv"]), prep["value_bn"])
     v = torch.relu(_dense(v.reshape(B, -1), prep["value_fc1"]))

@@ -66,6 +66,7 @@ _COUNTED = {
                                        "descend"),
     "alphazero_torch.models.quant": ("qconv3x3",),
     "alphazero_torch.models.epilogue": ("bn_act", "se_residual"),
+    "alphazero_torch.models.conv": ("conv3x3",),
     "alphazero_torch.models.fused": ("tower_forward",),
 }
 

@@ -32,9 +32,11 @@ launches of the replays.
   bf16 net's tower blocks in eager mode;
 - phase 16 (``epilogue``): the epilogue kernels of the evaluators'
   forwards (``csrc/epilogue_kernels.cu``) against their plain versions at
-  every site of the archived net (the bf16 forward's 23 ``bn_act`` and 20
-  ``se_residual`` with its BatchNorm, the int8-static forward's 20
-  ``se_residual`` tails), at 512 boards and at the web bot's 1 and 2:
+  every site of the archived net (the bf16 forward's 2 ``bn_act``, after
+  the input and value convs, and 20 ``se_residual`` without an affine,
+  each also with its block's BatchNorm, which the kernel still takes; the
+  int8-static forward's 20 ``se_residual`` tails), at 512 boards and at
+  the web bot's 1 and 2:
   ``bn_act`` bit-equal; ``se_residual`` against its plain version with
   float64 sums, every element within one bf16 step and at most
   ``epilogue.SE_UNEQUAL_SHARE`` of them unequal, and the same check at
@@ -43,15 +45,33 @@ launches of the replays.
   for ``bn_act``, ``F.batch_norm`` and ``F.relu`` on channels-last maps;
   both ``se_residual`` tails also at 128 boards and at one, and the
   kernel's launch shape (grid, warpgroups, stages) at each batch;
+- phase 17 (``conv``): the bf16 3x3 conv kernel (``conv3x3``,
+  ``csrc/conv_kernels.cu``, ``wgmma`` with the BatchNorm as its epilogue)
+  at every ``conv3x3`` site of one bf16 forward of the archived net (41:
+  two a block and the policy conv) at 512 boards and at the web bot's 1
+  and 2, in its three epilogues (none, affine, affine and ReLU): the conv
+  against ``conv3x3_plain`` with float64 sums, every element within one
+  bf16 step or, where the terms cancel, the float32 sum's bound beside it
+  (``conv.card_check``), and at most ``max(2 x cuDNN's share,
+  conv.CONV_UNEQUAL_SHARE)`` unequal, cuDNN's share measured on the same
+  operands; each epilogue bit-equal to ``bn_act_plain`` of the conv
+  alone; the 1- and 2-board launches bit-equal to the 512-board launch's
+  first boards, and one site's 512 boards each launched alone; the same
+  at C 32 and 256 on random maps and weights; its ``ptxas`` report (no
+  spill, no C75xx remark); its times at 512 boards and at one in turns
+  with ``F.conv2d`` (cuDNN, channels-last bf16), beside its bound, its
+  plain version and the launch floor;
 - phase 3: the self-play search at full width (512 games x 800
   simulations) through ``selfplay_move`` on one tree: a warm-up move that
   captures the simulation, then one counted and timed move of 800
   replays, each one ``descend`` and one ``commit_edges`` launch and no
-  read of the card, and each forward of the bf16 evaluator 23 ``bn_act``
-  and 20 ``se_residual`` launches; then one eager search and one captured
-  from the same position, timed and bit-equal; device kernels a forward;
-  profiles of both, the captured one without cuDNN layout transposes or
-  eager BatchNorm kernels;
+  read of the card, and each forward of the bf16 evaluator 41
+  ``conv3x3``, 2 ``bn_act`` and 20 ``se_residual`` launches; then one
+  eager search and one captured from the same position, timed and
+  bit-equal; device kernels a forward; profiles of both, the captured one
+  without cuDNN layout transposes or eager BatchNorm kernels, with 41
+  ``conv3x3_kernel`` a forward and at most two cuDNN convs (the input and
+  value convs) and two memsets;
 - phase 4: the card's search against the CPU's;
 - phase 15 (``graph``): the captured search against the eager one, trees
   bit-equal over two consecutive moves each: bf16 and int8-static at 512
@@ -92,7 +112,8 @@ launches of the replays.
   baseline engine (its budget cut to 150 ms a move, from 2000) for at
   most 40 plies; every move legal, ``/api/state`` equal to the last
   answer, each AlphaZero move 200 ``descend`` and 200 ``commit_edges``
-  launches and 201 forwards' ``bn_act`` and ``se_residual`` launches
+  launches and 201 forwards' ``conv3x3``, ``bn_act`` and ``se_residual``
+  launches
   (their sums go into the ``kernels`` line as ``web_launches``); the
   seconds of both players' moves; then the bot's
   move on the initial position captured and eagerly, timed and
@@ -752,8 +773,9 @@ def phase_network(dev):
     n_params = count_params(net_cpu)
     check(n_params == 8_027_970, f"count_params {n_params}")
     net = copy.deepcopy(net_cpu).to(dev)
-    # the bf16 search evaluator's forward (models/inference.py: NHWC,
-    # cuDNN convs on channels-last operands, the epilogue kernels)
+    # the bf16 search evaluator's forward (models/inference.py: NHWC, the
+    # conv3x3 kernel with its BatchNorm epilogue, the epilogue kernels,
+    # cuDNN for the input and value convs)
     prep = inference.prepare_inference(net, torch.bfloat16)
     planes = env.encoded_state(random_positions(64, 11))
     with torch.no_grad():
@@ -788,7 +810,7 @@ def phase_network(dev):
 def phase_search(dev, net, card):
     from alphazero_torch.config import Config
     from alphazero_torch.env import breakthrough as env
-    from alphazero_torch.models import epilogue
+    from alphazero_torch.models import conv, epilogue
     from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
@@ -796,9 +818,9 @@ def phase_search(dev, net, card):
 
     cfg = Config(num_simulations=SIMS, parallel_games=GAMES)
     eval_fn = mcts.make_net_evaluator(net, getattr(torch, cfg.inference_dtype))
-    # epilogues a forward: input, conv1 of each block, policy and value
-    # BatchNorms; a tail a block
-    n_bn, n_tail = len(net.blocks) + 3, len(net.blocks)
+    # a forward: conv3x3 twice a block and for the policy head, each with
+    # its BatchNorm; bn_act after the input and value convs; a tail a block
+    n_conv, n_bn, n_tail = 2 * len(net.blocks) + 1, 2, len(net.blocks)
     spec = selfplay.search_spec(cfg)
     gen = torch.Generator(device=dev).manual_seed(1)
     states = env.initial_state((GAMES,), device=dev)
@@ -832,6 +854,7 @@ def phase_search(dev, net, card):
     K.fetch_rows.launches = 0
     K.descend.launches = 0
     K.commit_edges.launches = 0
+    conv.conv3x3.launches = 0
     epilogue.bn_act.launches = 0
     epilogue.se_residual.launches = 0
     mcts.STATS.reset()
@@ -854,15 +877,17 @@ def phase_search(dev, net, card):
     launches = {"descend": K.descend.launches,
                 "fetch_rows": K.fetch_rows.launches,
                 "commit_edges": K.commit_edges.launches,
+                "conv3x3": conv.conv3x3.launches,
                 "bn_act": epilogue.bn_act.launches,
                 "se_residual": epilogue.se_residual.launches}
     check(launches["descend"] > 0 and launches["commit_edges"] > 0,
           f"a kernel was not launched on the main path: {launches}")
     # the root's evaluation and one a simulation, replays counted
-    check(launches["bn_act"] == n_bn * moves * (SIMS + 1)
+    check(launches["conv3x3"] == n_conv * moves * (SIMS + 1)
+          and launches["bn_act"] == n_bn * moves * (SIMS + 1)
           and launches["se_residual"] == n_tail * moves * (SIMS + 1),
-          f"{launches}: the bf16 evaluator's forward is {n_bn} bn_act and "
-          f"{n_tail} se_residual launches")
+          f"{launches}: the bf16 evaluator's forward is {n_conv} conv3x3, "
+          f"{n_bn} bn_act and {n_tail} se_residual launches")
     st = mcts.STATS
     check(launches["descend"] == launches["commit_edges"] == moves * SIMS
           == st.simulations == graph.STATS.replays
@@ -899,22 +924,52 @@ def phase_search(dev, net, card):
     out["profile"] = {mode: profile_search(states, eval_fn, capture=c,
                                            tag=f"{GAMES}_{mode}")
                       for mode, c in (("captured", None), ("eager", False))}
-    # the forward keeps NHWC and runs its BatchNorms in bn_act: no layout
-    # transposes around cuDNN and no eager BatchNorm are left
-    left = sorted(k for k in out["profile"]["captured"]["kernels_ms"]
+    # the forward keeps NHWC and runs its BatchNorms in conv3x3 and bn_act:
+    # no layout transposes and no eager BatchNorm are left; cuDNN runs the
+    # input and value convs alone, each with its memset
+    captured = out["profile"]["captured"]
+    left = sorted(k for k in captured["kernels_ms"]
                   if any(w in k for w in LAYOUT_KERNELS))
     check(not left, f"the bf16 captured profile runs {left}")
+    forwards = PROFILE_SIMS + 1
+    calls = captured["kernel_calls"]
+    cudnn = {k: n for k, n in calls.items() if is_library_conv(k)}
+    helpers = sum(n for k, n in calls.items()
+                  if "cudnn" in k.lower() and k not in cudnn)
+    memsets = sum(n for k, n in calls.items() if "Memset" in k)
+    ours = sum(n for k, n in calls.items() if "conv3x3_kernel" in k)
+    out["profile_convs"] = {"conv3x3": ours, "cudnn": sum(cudnn.values()),
+                            "cudnn_helpers": helpers, "memset": memsets,
+                            "forwards": forwards}
+    check(ours == n_conv * forwards and sum(cudnn.values()) <= 2 * forwards
+          and memsets <= 2 * forwards,
+          f"captured profile of {forwards} forwards: {ours} conv3x3_kernel, "
+          f"cuDNN convs {cudnn}, {memsets} memsets (at most two a forward: "
+          f"the input and value convs)")
     print(f"bf16 captured profile: {out['launches_per_forward']} device "
-          f"kernels a forward; none of {LAYOUT_KERNELS}", flush=True)
+          f"kernels a forward; none of {LAYOUT_KERNELS}; over {forwards} "
+          f"forwards {ours} conv3x3_kernel, {sum(cudnn.values())} cuDNN "
+          f"convs ({sorted(cudnn)}), {helpers} other cuDNN kernels, "
+          f"{memsets} memsets", flush=True)
     return launches, out
 
 
 STAGES = ("mcts.descend", "mcts.evaluate", "mcts.expand", "mcts.backprop")
 # kernels the bf16 forward ran before it kept NHWC and fused its BatchNorms
 LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "batch_norm_transform_input")
+PROFILE_SIMS = 16
 
 
-def profile_search(states, eval_fn, sims=16, tag=None, capture=None):
+def is_library_conv(name):
+    """A cuDNN convolution's compute kernel, by its name (not its helpers,
+    such as the padding kernel cuDNN runs before the input conv)."""
+    low = name.lower()
+    return "conv3x3_kernel" not in low and any(
+        w in low for w in ("implicit_gemm", "fprop", "convolve"))
+
+
+def profile_search(states, eval_fn, sims=PROFILE_SIMS, tag=None,
+                   capture=None):
     """One ``sims``-simulation search under ``torch.profiler``, captured
     (the default, on a tree that captured in a search before it, so
     that the profiled one only replays) or eager (``capture=False``): wall
@@ -990,7 +1045,8 @@ def profile_search(states, eval_fn, sims=16, tag=None, capture=None):
     return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
             "host_ms_per_sim": host * 1e3 / sims,
             "stages_host_device_ms_per_sim": stage,
-            "kernels_ms": {key: us / 1e3 for us, key, _ in kern}}
+            "kernels_ms": {key: us / 1e3 for us, key, _ in kern},
+            "kernel_calls": {key: count for _, key, count in kern}}
 
 
 # -----------------------------------------------------------------------------
@@ -1704,7 +1760,8 @@ def phase_epilogue(dev, net):
                  "se_residual": lambda *a: epilogue.se_residual_plain(
                      *a, f64_sums=True)}
     # the inputs of every epilogue of the archived net in one forward of
-    # each evaluator: bf16 (23 bn_act, 20 se_residual with bn2) and
+    # each evaluator: bf16 (2 bn_act, after the input and value convs, and
+    # 20 se_residual with no affine: bn2 is conv3x3's epilogue) and
     # int8-static (20 se_residual, no affine)
     planes = env.encoded_state(random_positions(GAMES, 81)).to(dev)
     prep = inference.prepare_inference(net, torch.bfloat16)
@@ -1734,10 +1791,15 @@ def phase_epilogue(dev, net):
     n_blocks = len(net.blocks)
     count = {(p, k): sum(1 for s in sites if s[:2] == (p, k))
              for p in ("bf16", "int8") for k in kinds}
-    check(count == {("bf16", "bn_act"): n_blocks + 3,
+    check(count == {("bf16", "bn_act"): 2,
                     ("bf16", "se_residual"): n_blocks,
                     ("int8", "bn_act"): 0, ("int8", "se_residual"): n_blocks},
           f"epilogue sites of the two forwards: {count}")
+    # the affine the kernel still takes (se_residual's bn), held at the
+    # net's sites as before: each bf16 tail's inputs with its block's bn2
+    tails = [s[2] for s in sites if s[:2] == ("bf16", "se_residual")]
+    sites += [("bf16+bn2", "se_residual", tuple(args) + (b["bn2"],))
+              for args, b in zip(tails, prep["blocks"])]
 
     # each site at 512 boards and at the web bot's 1 and 2: bn_act
     # bit-equal; se_residual each element within one bf16 step and at most
@@ -1778,10 +1840,13 @@ def phase_epilogue(dev, net):
     # times at 512 boards (and at 1) of block 0's sites; yardsticks the
     # path never calls: F.batch_norm (channels-last, f32 statistics) then
     # F.relu for bn_act; no one PyTorch call computes se_residual
-    bf16 = [s[2] for s in sites if s[0] == "bf16"]
-    bn_args, tail_args = bf16[1], bf16[2]              # block 0: bn1, tail
+    # the input's bn_act; block 0's tail with its bn2, the form the
+    # kernel's earlier times took (the bf16 tail without it: bf16_tail_)
+    bn_args = next(s[2] for s in sites if s[:2] == ("bf16", "bn_act"))
+    tail_args = next(s[2] for s in sites if s[0] == "bf16+bn2")
+    bf16_tail = tail_args[:4]
     int8_tail = next(s[2] for s in sites if s[0] == "int8")
-    m = net.blocks[0].bn1
+    m = net.input_bn
     y_cl = bn_args[0].permute(0, 3, 1, 2)              # channels-last view
     library = lambda i: torch.nn.functional.relu(
         torch.nn.functional.batch_norm(y_cl, m.running_mean, m.running_var,
@@ -1825,6 +1890,8 @@ def phase_epilogue(dev, net):
     out["se_residual"].update(
         int8_ms=cuda_ms(lambda i: real["se_residual"](*int8_tail),
                         what="se_residual int8"),
+        bf16_tail_ms=cuda_ms(lambda i: real["se_residual"](*bf16_tail),
+                             what="se_residual bf16 tail"),
         int8_bound_ms=epilogue_bound_ms("se_residual", GAMES, C, H,
                                         affine=False)[0],
         unequal=unequal["se_residual"], elements=elements["se_residual"],
@@ -1848,9 +1915,10 @@ def phase_epilogue(dev, net):
             se[f"{tag}b{B}_bound_ms"] = epilogue_bound_ms(
                 "se_residual", B, C, H, affine=affine)[0]
     se["wide"] = wide_se_check(dev, sms)
-    print(f"epilogue kernels at {GAMES} boards, C 128 (b1_, b128_: one "
-          f"and 128 boards; int8_: the int8 tail, no affine; wide: C 256, "
-          f"H 32): {json.dumps(out)}", flush=True)
+    print(f"epilogue kernels at {GAMES} boards, C 128 (se_residual with "
+          f"block 0's bn2; bf16_tail_: the bf16 path's tail, no affine; "
+          f"int8_: the int8 tail, no affine; b1_, b128_: one and 128 boards; "
+          f"wide: C 256, H 32): {json.dumps(out)}", flush=True)
     print(f"se_residual launch shapes (grid, warpgroups, stages, shared "
           f"bytes): {GAMES} boards {se['shape']}, 128 {se['b128_shape']}, "
           f"1 {se['b1_shape']}; C 256 {se['wide']['shape']}", flush=True)
@@ -1905,6 +1973,225 @@ def wide_se_check(dev, sms):
 
 
 # -----------------------------------------------------------------------------
+# Phase 17: the bf16 evaluator's 3x3 convolutions on conv3x3_kernel
+# -----------------------------------------------------------------------------
+
+CONV_BATCHES = (GAMES, 1, 2)       # the main path's, and the web bot's
+CONV_WIDE = (32, 256)              # the other widths the kernel takes
+
+
+def conv_bound_ms(B, C, affine=True):
+    """The least time the card could take for one ``conv3x3`` of B boards
+    at width C: its bytes (the map read once and written once, the bf16
+    weights and the float32 BatchNorm constants once) at the memory rate,
+    or its bf16 operations (two per multiply-add) at the dense bf16 rate,
+    whichever is larger."""
+    n = B * 64 * C
+    nbytes = 2 * n * 2 + 9 * C * C * 2 + (3 * C * 4 if affine else 0)
+    ops = 2 * n * 9 * C
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / BF16_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations"), nbytes, ops
+
+
+def conv_sites(prep, planes):
+    """(x, w, bn, relu, image) of every ``conv3x3`` call of one bf16
+    forward: the forward reaches the wrapper as ``inference.cv.conv3x3``,
+    and a stand-in records each call's inputs and passes it on."""
+    from alphazero_torch.models import conv, inference
+
+    sites = []
+
+    def record(x, w, bn=None, relu=False, image=None):
+        sites.append((x, w, bn, relu, image))
+        return conv.conv3x3(x, w, bn, relu, image)
+
+    inference.cv = types.SimpleNamespace(conv3x3=record)
+    try:
+        inference.inference_apply(prep, planes)
+    finally:
+        inference.cv = conv
+    return sites
+
+
+def conv_site_check(x, w, bn, image, full=None):
+    """One site at ``x``'s boards: ``conv3x3`` in its three epilogues,
+    ``conv.card_check``'s counts, cuDNN's (``F.conv2d`` on the same
+    channels-last bf16 operands) against the same float64 sums, and, given
+    the 512-board launch's outputs ``full``, the boards that differ from
+    its first boards."""
+    from alphazero_torch.models import conv, epilogue
+
+    outs = {k: conv.conv3x3(x, w, bn if affine else None, relu, image)
+            for k, (affine, relu) in conv.EPILOGUES.items()}
+    torch.cuda.synchronize()
+    r = conv.card_check(x, w, bn, outs, 1.0)
+    ref = conv.conv3x3_plain(x, w, f64_sums=True)
+    cudnn = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w,
+                                       padding=1).permute(0, 2, 3, 1)
+    r["cudnn_unequal"] = int((cudnn != ref).sum())
+    r["cudnn_beyond_one_step"] = int(
+        (epilogue.steps_apart(cudnn, ref) > 1).sum())
+    plain = conv.conv3x3_plain(x, w, bn, True, f64_sums=True)
+    r["max_abs_err"] = float((outs["affine_relu"].float() - plain.float())
+                             .abs().max())
+    B = x.shape[0]
+    r["batch_unequal"] = 0 if full is None else sum(
+        int((outs[k] != full[k][:B]).sum()) for k in outs)
+    return r, outs
+
+
+def add_counts(total, r):
+    for k, v in r.items():
+        if k in ("max_steps", "max_abs_err"):
+            total[k] = max(total.get(k, 0.0), v)
+        elif k != "ok":
+            total[k] = total.get(k, 0) + v
+
+
+def conv_verdict(total, what):
+    """``conv.card_check``'s rule on counts summed over sites: nothing
+    outside the float32 bound, at most ``max(2 x cuDNN's share,
+    CONV_UNEQUAL_SHARE)`` unequal, epilogues and batches bit-equal."""
+    from alphazero_torch.models import conv
+
+    share = total["unequal"] / total["elements"]
+    cudnn_share = total["cudnn_unequal"] / total["elements"]
+    limit = max(2 * cudnn_share, conv.CONV_UNEQUAL_SHARE)
+    total.update(share=share, cudnn_share=cudnn_share, limit=limit)
+    check(total["outside_bound"] == 0 and share <= limit
+          and total["epilogue_unequal"] == 0
+          and total["batch_unequal"] == 0,
+          f"conv3x3 against its plain version with float64 sums {what}: "
+          f"{json.dumps(total)} (unequal share at most {limit}; none "
+          f"outside the f32 bound; epilogues and batches bit-equal)")
+    return total
+
+
+@phase("phase 17 conv kernel")
+def phase_conv(dev, net):
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import conv, inference
+    from alphazero_torch.search import kernels as K
+
+    lines = ptxas_lines("conv_kernels", "conv3x3_kernel")
+    for line in lines:
+        print(f"[phase 17] ptxas: {line}", flush=True)
+    check(len(lines) >= 6 and not any("(C7" in l for l in lines)
+          and all(" 0 bytes spill stores, 0 bytes spill loads" in l
+                  for l in lines if "spill" in l),
+          "conv3x3_kernel's ptxas report shows a spill or a C75xx remark")
+
+    # every conv3x3 site of one bf16 forward of 512 random-play positions
+    prep = inference.prepare_inference(net, torch.bfloat16)
+    planes = env.encoded_state(random_positions(GAMES, 81)).to(dev)
+    sites = conv_sites(prep, planes)
+    check(len(sites) == 2 * len(net.blocks) + 1,
+          f"{len(sites)} conv3x3 sites in a forward")
+    total = {}
+    for x, w, bn, _, image in sites:
+        full = None
+        for B in CONV_BATCHES:
+            r, outs = conv_site_check(x[:B].contiguous(), w, bn, image, full)
+            if full is None:
+                full = outs
+            add_counts(total, r)
+    conv_verdict(total, f"at {len(sites)} sites x {CONV_BATCHES} boards")
+    # one site's every board alone against the 512-board launch
+    x, w, bn, relu, image = sites[0]
+    got = conv.conv3x3(x, w, bn, relu, image)
+    alone = torch.cat([conv.conv3x3(x[b:b + 1].contiguous(), w, bn, relu,
+                                    image) for b in range(GAMES)])
+    check(torch.equal(got, alone), "a board of the 512-board launch differs "
+                                   "from the same board launched alone")
+    print(f"conv3x3 against its plain version with float64 sums at "
+          f"{len(sites)} sites x {CONV_BATCHES} boards, three epilogues: "
+          f"{json.dumps(total)}; block 0's conv1 at {GAMES} boards "
+          f"bit-equal to each board alone", flush=True)
+
+    # the other widths on random maps and weights from a seed
+    g = torch.Generator().manual_seed(17)
+    wide = {}
+    for C in CONV_WIDE:
+        x = torch.randn((GAMES, 8, 8, C), generator=g).to(dev, torch.bfloat16)
+        w = (torch.randn((C, C, 3, 3), generator=g) * (9 * C) ** -0.5).to(
+            dev, torch.bfloat16, memory_format=torch.channels_last)
+        var = torch.rand(C, generator=g) * 3 + 0.05
+        bn = tuple(t.to(dev) for t in (
+            torch.randn(C, generator=g) * 0.5,
+            torch.rsqrt(var + 1e-5) * (torch.randn(C, generator=g) * 0.5 + 1),
+            torch.randn(C, generator=g)))
+        image = conv.weight_image(w)
+        t, full = {}, None
+        for B in (GAMES, 1):
+            r, outs = conv_site_check(x[:B].contiguous(), w, bn, image, full)
+            if full is None:
+                full = outs
+            add_counts(t, r)
+        conv_verdict(t, f"at C {C}, {GAMES} and 1 boards")
+        t["ms"] = cuda_ms(lambda i: conv.conv3x3(x, w, bn, True, image),
+                          what=f"conv3x3 C {C}")
+        t["bound_ms"] = conv_bound_ms(GAMES, C)[0]
+        t["shape"] = conv.conv_launch_shape(GAMES, C,
+                                            conv.multiprocessors(dev))
+        wide[C] = t
+
+    # times at block 0's conv1 (affine and ReLU), at 512 boards and at 1,
+    # in turns with F.conv2d (cuDNN, channels-last bf16): the call this
+    # kernel took off the path, which the path never calls now
+    x, w, bn, relu, image = sites[0]
+    x1 = x[:1].contiguous()
+    x_cl, x1_cl = x.permute(0, 3, 1, 2), x1.permute(0, 3, 1, 2)
+    kernel = lambda i: conv.conv3x3(x, w, bn, True, image)
+    kernel1 = lambda i: conv.conv3x3(x1, w, bn, True, image)
+    library = lambda i: torch.nn.functional.conv2d(x_cl, w, padding=1)
+    library1 = lambda i: torch.nn.functional.conv2d(x1_cl, w, padding=1)
+    turns = [cuda_ms(kernel, what="conv3x3"),
+             cuda_ms(library, what="cuDNN"), cuda_ms(library, what="cuDNN"),
+             cuda_ms(kernel, what="conv3x3")]
+    turns1 = [cuda_ms(kernel1, what="conv3x3 1"),
+              cuda_ms(library1, what="cuDNN 1"),
+              cuda_ms(library1, what="cuDNN 1"),
+              cuda_ms(kernel1, what="conv3x3 1")]
+    lib = K._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plain = lambda i: conv.conv3x3_plain(x, w, bn, True)
+    t = {"ms": (turns[0] + turns[3]) / 2, "ms_turns": turns,
+         "call_ms": cuda_ms(kernel, queued=False),
+         "none_ms": cuda_ms(lambda i: conv.conv3x3(x, w, image=image),
+                            what="conv3x3 none"),
+         "plain_ms": cuda_ms(plain, iters=20, what="conv3x3_plain"),
+         "plain_call_ms": cuda_ms(plain, iters=20, queued=False),
+         "library_ms": (turns[1] + turns[2]) / 2,
+         "library_call_ms": cuda_ms(library, queued=False),
+         "b1_ms": (turns1[0] + turns1[3]) / 2, "b1_ms_turns": turns1,
+         "b1_call_ms": cuda_ms(kernel1, queued=False),
+         "b1_library_ms": (turns1[1] + turns1[2]) / 2,
+         "b1_library_call_ms": cuda_ms(library1, queued=False),
+         "floor_ms": cuda_ms(lambda i: lib.launch_floor(stream),
+                             what="launch floor"),
+         "floor_call_ms": cuda_ms(lambda i: lib.launch_floor(stream),
+                                  queued=False)}
+    bound, by, nbytes, ops = conv_bound_ms(GAMES, 128)
+    t.update(bound_ms=bound, bound_by=by, bytes=nbytes, operations=ops,
+             tflops=ops / t["ms"] / 1e9,
+             b1_bound_ms=conv_bound_ms(1, 128)[0],
+             shape=conv.conv_launch_shape(GAMES, 128,
+                                          conv.multiprocessors(dev)),
+             max_abs_err=total["max_abs_err"], unequal=total["unequal"],
+             elements=total["elements"], share=total["share"],
+             cudnn_share=total["cudnn_share"],
+             beyond_one_step=total["beyond_one_step"],
+             cudnn_beyond_one_step=total["cudnn_beyond_one_step"],
+             max_steps=total["max_steps"], wide=wide)
+    print(f"conv3x3 at {GAMES} boards, C 128, affine and ReLU (b1_: one "
+          f"board; library: F.conv2d, cuDNN, in turns; wide: C 32 and 256 "
+          f"at {GAMES} boards): {json.dumps(t)}", flush=True)
+    return t
+
+
+# -----------------------------------------------------------------------------
 # Phase 10: the int8-static evaluator on the main path
 # -----------------------------------------------------------------------------
 
@@ -1927,7 +2214,7 @@ def launches_per_forward(eval_fn, planes):
 def phase_quant_search(dev, net, card, qp, act):
     from alphazero_torch.config import Config
     from alphazero_torch.env import breakthrough as env
-    from alphazero_torch.models import epilogue, quant
+    from alphazero_torch.models import conv, epilogue, quant
     from alphazero_torch.models.network import wl_to_value
     from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
@@ -1935,7 +2222,7 @@ def phase_quant_search(dev, net, card, qp, act):
     from alphazero_torch.train import selfplay
 
     cfg = Config(num_simulations=SIMS, parallel_games=GAMES)
-    n_bn, n_tail = len(net.blocks) + 3, len(net.blocks)
+    n_bn, n_tail = 2, len(net.blocks)           # the bf16 forward's
     evals = {"int8": quant.make_quant_evaluator(net, act_scales=act, qp=qp),
              "bf16": mcts.make_net_evaluator(net, torch.bfloat16)}
     spec = selfplay.search_spec(cfg)
@@ -1965,6 +2252,7 @@ def phase_quant_search(dev, net, card, qp, act):
            "int8_sims_per_s": [], "bf16_sims_per_s": []}
     for name in ("int8", "bf16", "bf16", "int8"):
         quant.qconv3x3.launches = 0
+        conv.conv3x3.launches = 0
         K.descend.launches = 0
         K.commit_edges.launches = 0
         epilogue.bn_act.launches = 0
@@ -1992,15 +2280,19 @@ def phase_quant_search(dev, net, card, qp, act):
             check(launches["qconv3x3"] == n_conv * (SIMS + 1)
                   and launches["se_residual"] == n_tail * (SIMS + 1)
                   and epilogue.bn_act.launches == 0
+                  and conv.conv3x3.launches == 0
                   and launches["descend"] == launches["commit_edges"]
                   == SIMS and mcts.STATS.host_syncs == 0,
                   f"int8 move: {launches}, {epilogue.bn_act.launches} "
-                  f"bn_act, {mcts.STATS.host_syncs} syncs")
+                  f"bn_act, {conv.conv3x3.launches} conv3x3, "
+                  f"{mcts.STATS.host_syncs} syncs")
         else:
             check(quant.qconv3x3.launches == 0, "bf16 move ran an s8 conv")
-            check(epilogue.bn_act.launches == n_bn * (SIMS + 1)
+            check(conv.conv3x3.launches == n_conv * (SIMS + 1)
+                  and epilogue.bn_act.launches == n_bn * (SIMS + 1)
                   and epilogue.se_residual.launches == n_tail * (SIMS + 1),
-                  f"bf16 move: {epilogue.bn_act.launches} bn_act, "
+                  f"bf16 move: {conv.conv3x3.launches} conv3x3, "
+                  f"{epilogue.bn_act.launches} bn_act, "
                   f"{epilogue.se_residual.launches} se_residual launches")
     out["int8_over_bf16"] = (sum(out["int8_sims_per_s"])
                              / sum(out["bf16_sims_per_s"]))
@@ -2149,7 +2441,7 @@ def phase_web(dev, net, card):
 
     from alphazero_torch.env import OracleGame
     from alphazero_torch.env.oracle import live_states
-    from alphazero_torch.models import epilogue
+    from alphazero_torch.models import conv, epilogue
     from alphazero_torch.models.convert import config_from_archive
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
@@ -2158,7 +2450,7 @@ def phase_web(dev, net, card):
     from alphazero_torch.web import server
 
     sims = WEB_SIMS
-    n_bn, n_tail = len(net.blocks) + 3, len(net.blocks)
+    n_bn, n_tail, n_conv = 2, len(net.blocks), 2 * len(net.blocks) + 1
     with tempfile.TemporaryDirectory() as tmp:
         # the archive as the port's model_best, which the bot loads first
         cfg = config_from_archive(ARCHIVE).replace(checkpoint_dir=tmp)
@@ -2178,9 +2470,9 @@ def phase_web(dev, net, card):
                                             WEB_BASELINE_MS)
         az_s, base_s, base_nodes, evals = [], [], [], []
         total = {"descend": 0, "commit_edges": 0, "bn_act": 0,
-                 "se_residual": 0}
+                 "se_residual": 0, "conv3x3": 0}
         counted = (K.descend, K.commit_edges, epilogue.bn_act,
-                   epilogue.se_residual)
+                   epilogue.se_residual, conv.conv3x3)
         try:
             check(http_json(base, "/api/models")["current"]
                   == cfg.best_model, "/api/models")
@@ -2206,13 +2498,14 @@ def phase_web(dev, net, card):
                 if az_turn:
                     # the root's evaluation and one a simulation
                     check(launches == (sims, sims, n_bn * (sims + 1),
-                                       n_tail * (sims + 1))
+                                       n_tail * (sims + 1),
+                                       n_conv * (sims + 1))
                           and "engine" not in r,
                           f"AlphaZero move {plies}: {launches} launches")
                     az_s.append(dt)
                     evals.append(r["evaluation"])
                 else:
-                    check(launches == (0, 0, 0, 0)
+                    check(launches == (0,) * len(counted)
                           and r["engine"]["nodes"] > 0,
                           f"baseline move {plies}: {launches}, {r}")
                     base_s.append(dt)
@@ -2729,7 +3022,7 @@ def phase_distributed(card, single_step_ms):
 
 def main(argv=None) -> int:
     """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
-    kernels, tower, epilogue, search, cpu, graph, continuous, fused,
+    kernels, tower, epilogue, conv, search, cpu, graph, continuous, fused,
     trainer, qconv, quant, arena, bench, web, dist) runs only those, for
     work on one of them, and then
     prints no ``kernels`` line (quant and arena run the qconv phase first,
@@ -2752,7 +3045,7 @@ def main(argv=None) -> int:
     card = device_line(dev)
     t0 = time.time()
     libs = cuda_build.build(["tree_kernels", "tower_kernel", "qconv_kernel",
-                             "epilogue_kernels"])
+                             "epilogue_kernels", "conv_kernels"])
     build_s = time.time() - t0
     print(f"[phase 0] card: {card}; torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}); kernel build {build_s:.1f} s", flush=True)
@@ -2769,6 +3062,8 @@ def main(argv=None) -> int:
         tower_err, tower_t, tower_bound = phase_tower(dev, net)
     if want("epilogue"):
         epilogue_t = phase_epilogue(dev, net)
+    if want("conv"):
+        conv_t = phase_conv(dev, net)
     if want("search"):
         launches.update(phase_search(dev, net, card)[0])
     if want("cpu"):
@@ -2802,7 +3097,7 @@ def main(argv=None) -> int:
         # plain descent that phase 1 holds descend against ("check_launches")
         # and nowhere on the search path
         on_path = ("descend", "commit_edges", "tower_forward", "qconv3x3",
-                   "bn_act", "se_residual")
+                   "conv3x3", "bn_act", "se_residual")
         check(all(launches[k] > 0 for k in on_path)
               and all(v > 0 for v in trainer_launches.values())
               and all(v > 0 for v in web_launches.values())
@@ -2866,6 +3161,25 @@ def main(argv=None) -> int:
                 "bound_by": t.pop("bound_by"),
                 "library_ms": t.pop("library_ms"), **t})
         kernels[-1]["int8_launches"] = int8_tail_launches
+        # the bf16 forward's 3x3 convs (XLA's, not a Pallas kernel; the
+        # fused tower's TPU kernel computes the same conv in its body);
+        # launches are phase 3's bf16 move, web_launches phase 13's bot
+        t = dict(conv_t)
+        kernels.append({
+            "name": "conv3x3", "route": "cuda",
+            "source": "alphazero_torch/csrc/conv_kernels.cu",
+            "replaces": "alphazero_tpu/models/network.py:66-67, 71-72, "
+                        "151-152; conv body of "
+                        "alphazero_tpu/models/fused.py:202-213",
+            "launches": launches["conv3x3"],
+            "web_launches": web_launches["conv3x3"],
+            "tolerance": "float64 sums: 1 bf16 step or the f32 sum's bound, "
+                         "max(2 x cuDNN's share, conv.CONV_UNEQUAL_SHARE) "
+                         "unequal; epilogue bit-equal",
+            "max_abs_err": t.pop("max_abs_err"), "ms": t.pop("ms"),
+            "plain_ms": t.pop("plain_ms"), "bound_ms": t.pop("bound_ms"),
+            "bound_by": t.pop("bound_by"),
+            "library_ms": t.pop("library_ms"), **t})
         print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@
 # budget) runs first and alone on the host. Then each asym_match batch
 # measures its own int8/bf16 sims/s ratio alone on the card: seed 2026
 # runs alone, and both quant_match batches start beside seed 2027's match
-# once its ratio is printed. The logs go to the directory given as the
+# once its ratio is printed; then a captured profile of each evaluator at
+# the matches' 32 games (scripts/gate_profiles.py), alone on the card.
+# The logs go to the directory given as the
 # first argument (default build/gates; this directory keeps a run's logs).
 # A second argument `no-anchor` leaves the anchor out (its score does not
 # depend on the evaluators' speed). From the root of the repo:
@@ -35,5 +37,7 @@ B=$!
 run quant_2027.log env AZTPU_MATCH_SEED=2027 python3 -m alphazero_torch.strength.quant_match $W 16 200 &
 C=$!
 wait $A $B $C
+# a captured 16-simulation profile of each evaluator at the gates' 32 games
+run gate_profiles.log python3 scripts/gate_profiles.py $W
 for f in $OUT/*.log; do echo "== $f"; grep -v '^game ' $f | tail -n 6; done
 cat $OUT/card.txt

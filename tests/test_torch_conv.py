@@ -1,0 +1,446 @@
+"""The bf16 evaluator's 3x3 convolutions (``models/conv.py``) held against
+the JAX package and against their plain version.
+
+On the CPU, where ``conv3x3`` runs its plain version:
+
+- ``conv3x3_plain`` with float64 sums is Flax's ``nn.Conv(dtype=bf16)``
+  of the same weights within one bf16 step an element (or, where the
+  terms cancel, within the float32 sum's own bound beside it: Flax's sums
+  are float32); without them it is the ``F.conv2d`` the evaluator ran
+  before, bit for bit, and its epilogue is ``bn_act_plain`` of the conv;
+- a block through ``conv3x3(bn2)`` and ``se_residual(bn=None)`` is the
+  block through ``se_residual(..., bn2)`` bit for bit;
+- ``weight_image`` is a permutation that ``image_weights`` inverts;
+- ``card_check`` (what ``chip_smoke.py`` holds the kernel to) accepts
+  float32 sums in the kernel's order on the archived net's sites and
+  rejects an epilogue that runs the affine on the unrounded sum.
+
+The tests marked ``gpu`` hold the kernel against its plain version on the
+card and import no JAX: ``python -m pytest --noconftest -m gpu
+tests/test_torch_conv.py``.
+"""
+
+import copy
+import os
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+torch.set_num_threads(1)
+
+from alphazero_torch.models import conv, epilogue, inference
+from alphazero_torch.models.network import AlphaZeroNet
+
+ARCHIVE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "artifacts", "model_r5_latest.npz")
+EPS = 1e-5
+EPILOGUES = conv.EPILOGUES
+
+
+def _inputs(B, C, seed, dev="cpu"):
+    """An NHWC bf16 map and OIHW bf16 weights (channels-last) made from a
+    seed with numpy, the weights scaled by the fan-in."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (B, 8, 8, C)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, (9 * C) ** -0.5, (C, C, 3, 3))
+                         .astype(np.float32))
+    return (x.to(dev, torch.bfloat16),
+            w.to(dev, torch.bfloat16, memory_format=torch.channels_last))
+
+
+def _bn(C, seed, dev="cpu"):
+    rng = np.random.default_rng(seed)
+    var = rng.uniform(0.05, 3.0, C)
+    mul = (var + EPS) ** -0.5 * rng.normal(1, 0.5, C)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.normal(0, 0.5, C), mul, rng.normal(0, 0.5, C)))
+
+
+# -----------------------------------------------------------------------------
+# The plain version against Flax and against the old path
+# -----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C,seed", [(8, 0), (32, 1), (128, 2)])
+def test_conv3x3_plain_f64_is_flax_conv(C, seed):
+    import flax.linen as nn
+    import jax.numpy as jnp
+
+    x, w = _inputs(6, C, seed)
+    want = nn.Conv(C, (3, 3), padding="SAME", use_bias=False,
+                   dtype=jnp.bfloat16).apply(
+        {"params": {"kernel": jnp.asarray(
+            w.float().permute(2, 3, 1, 0).numpy())}},
+        jnp.asarray(x.float().numpy(), jnp.bfloat16))
+    assert want.dtype == jnp.bfloat16
+    want = torch.from_numpy(np.asarray(want, np.float32)).to(torch.bfloat16)
+    assert conv.conv3x3_plain(x, w, f64_sums=True).shape == want.shape
+    # card_check holds Flax's conv to the float64 sums as the card holds
+    # the kernel: one step, or the float32 sum's bound where terms cancel;
+    # most elements equal (they differ where a float32 sum rounds to the
+    # other side)
+    r = conv.card_check(x, w, None, {"none": want}, 1e-2)
+    assert r["ok"] and r["outside_bound"] == 0, r
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3x3_plain_is_the_old_conv(dtype):
+    """Without ``f64_sums`` the plain version is ``inference._conv`` (the
+    ``F.conv2d`` on channels-last operands the evaluator ran before), bit
+    for bit, and with a BatchNorm it is ``bn_act_plain`` of it."""
+    x, w = _inputs(5, 32, 3)
+    x, w = x.to(dtype), w.to(dtype)
+    old = inference._conv(x, w)
+    assert torch.equal(conv.conv3x3_plain(x, w), old)
+    assert torch.equal(conv.conv3x3(x, w), old)
+    bn = _bn(32, 4)
+    for name, (_, relu) in list(EPILOGUES.items())[1:]:
+        want = epilogue.bn_act_plain(old, bn, relu)
+        assert torch.equal(conv.conv3x3_plain(x, w, bn, relu), want), name
+        assert torch.equal(conv.conv3x3(x, w, bn, relu), want), name
+    assert torch.equal(conv.conv3x3(x, w, bn, relu=True),
+                       epilogue.bn_act(old, bn))
+
+
+@pytest.mark.parametrize("C", [16, 128])
+def test_block_through_conv3x3_is_the_old_block(C):
+    """``conv3x3(y, w2, bn2)`` then ``se_residual(bn=None)`` is the old
+    ``se_residual(conv(y, w2), x, fc1, fc2, bn2)``, and ``conv3x3(x, w1,
+    bn1, relu=True)`` the old ``bn_act(conv(x, w1), bn1)``, bit for bit."""
+    x, w1 = _inputs(7, C, 5)
+    _, w2 = _inputs(1, C, 6)
+    bn1, bn2 = _bn(C, 7), _bn(C, 8)
+    g = torch.Generator().manual_seed(C)
+    H = C // 8
+    fc = lambda *s: (torch.randn(s, generator=g) * 0.3).to(torch.bfloat16)
+    fc1, fc2 = (fc(C, H), fc(H)), (fc(H, 2 * C), fc(2 * C))
+    x = x.relu()
+    y_old = epilogue.bn_act(inference._conv(x, w1), bn1)
+    out_old = epilogue.se_residual(inference._conv(y_old, w2), x, fc1, fc2,
+                                   bn2)
+    y = conv.conv3x3(x, w1, bn1, relu=True)
+    out = epilogue.se_residual(conv.conv3x3(y, w2, bn2), x, fc1, fc2)
+    assert torch.equal(y, y_old)
+    assert torch.equal(out, out_old)
+
+
+# -----------------------------------------------------------------------------
+# The weight image
+# -----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C", conv.CHANNELS)
+def test_weight_image_inverts(C):
+    """Every weight once in the image, zeros past 9C, each where the
+    kernel's descriptor reads it; ``image_weights`` gives them back."""
+    n = conv.tile_width(C)
+    index = torch.arange(1, 9 * C * C + 1, dtype=torch.int32).view(
+        C, C, 3, 3)
+    image = conv.weight_image(index)
+    chunks = -(-9 * C // conv.CHUNK_K)
+    assert image.shape == (C // n, chunks, n, conv.CHUNK_K) \
+        and image.is_contiguous()
+    flat = np.sort(image.numpy().ravel())
+    pad = image.numel() - 9 * C * C
+    np.testing.assert_array_equal(flat[:pad], 0)
+    np.testing.assert_array_equal(flat[pad:], np.arange(1, 9 * C * C + 1))
+    assert torch.equal(conv.image_weights(image), index)
+    # element [t, c, r, p*8 + e] is K value 64c + (p ^ (r % 8))*8 + e of
+    # output channel t*n + r, k = tap*C + ci
+    rng = np.random.default_rng(C)
+    for _ in range(200):
+        t, c, r, j = (int(rng.integers(s)) for s in image.shape)
+        k = 64 * c + ((j >> 3) ^ (r % 8)) * 8 + (j & 7)
+        want = 0 if k >= 9 * C else int(
+            index[t * n + r, k % C, (k // C) // 3, (k // C) % 3])
+        assert int(image[t, c, r, j]) == want
+
+
+def test_weight_image_refuses_other_widths():
+    for shape in ((64, 64, 3, 3), (32, 16, 3, 3), (128, 128, 1, 1)):
+        with pytest.raises(ValueError, match="C one of"):
+            conv.weight_image(torch.zeros(shape))
+
+
+# -----------------------------------------------------------------------------
+# The card's check
+# -----------------------------------------------------------------------------
+
+def _archive_sites(positions):
+    """(x, w, bn, relu, image) of every conv3x3 call of one bf16 forward
+    of the archived net over random-play positions, on the CPU, recorded
+    as ``chip_smoke.py`` phase 17 records them."""
+    import chip_smoke
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models.convert import load_archive
+
+    prep = inference.prepare_inference(
+        load_archive(ARCHIVE, device="cpu"), torch.bfloat16)
+    planes = env.encoded_state(chip_smoke.random_positions(positions, 81))
+    return chip_smoke.conv_sites(prep, planes)
+
+
+def test_card_check_accepts_kernel_order_sums_and_rejects_a_moved_rounding():
+    """At all 41 sites of the archived net: float32 sums in the kernel's
+    order, rounded to bf16, and the epilogue on that rounded output pass
+    ``card_check``, at ``CONV_UNEQUAL_SHARE`` over all sites (as
+    ``chip_smoke.py`` counts); the affine run on the unrounded float32 sum
+    (the rounding point moved) fails it: over all sites, and at most of
+    them alone."""
+    sites = _archive_sites(6)
+    assert len(sites) == 41
+    unequal = elements = 0
+    rejected = moved_unequal = 0
+    for x, w, bn, _, _ in sites:
+        sums = conv.conv3x3_kernel_order(x.float(), w)        # float32
+        none = sums.to(torch.bfloat16)
+        outs = {k: none if k == "none" else
+                epilogue.bn_act_plain(none, bn, relu)
+                for k, (_, relu) in EPILOGUES.items()}
+        r = conv.card_check(x, w, bn, outs, 1.0)
+        assert r["ok"] and r["outside_bound"] == 0, r
+        unequal, elements = unequal + r["unequal"], elements + r["elements"]
+        moved = dict(outs, affine=epilogue.bn_act_plain(sums, bn, False)
+                     .to(torch.bfloat16))
+        bad = conv.card_check(x, w, bn, moved, 1.0)
+        rejected += not bad["ok"]
+        moved_unequal += bad["epilogue_unequal"]
+    assert unequal <= conv.CONV_UNEQUAL_SHARE * elements
+    assert moved_unequal > 0 and rejected > len(sites) // 2
+
+
+def test_card_check_rejects_sums_off_by_more_than_the_bound():
+    x, w = _inputs(4, 32, 9)
+    ref = conv.conv3x3_plain(x, w, f64_sums=True)
+    outs = {"none": ref.clone()}
+    assert conv.card_check(x, w, None, outs, 0.0)["ok"]
+    outs["none"][0, 0, 0, 0] = ref[0, 0, 0, 0] * 1.5 + 1
+    r = conv.card_check(x, w, None, outs, 1.0)
+    assert not r["ok"] and r["outside_bound"] == 1
+    # one element one step off: unequal, within the check, and over a
+    # share of zero
+    near = ref.clone()
+    near.view(torch.int16).view(-1)[0] += 1          # the next bf16 value
+    near_r = conv.card_check(x, w, None, {"none": near}, 0.0)
+    assert near_r["unequal"] == 1 and not near_r["ok"]
+    assert conv.card_check(x, w, None, {"none": near}, 1e-3)["ok"]
+
+
+# -----------------------------------------------------------------------------
+# Launch shape, refusals, the forward's sites
+# -----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,C,want", [
+    # (grid, pieces, half, per)
+    (512, 128, (128, 128, 0, 4)), (1, 128, (2, 2, 1, 1)),
+    (2, 32, (2, 2, 0, 1)), (37, 128, (74, 74, 1, 1)),
+    (128, 128, (128, 128, 0, 1)), (264, 128, (132, 132, 0, 2)),
+    (268, 128, (67, 67, 0, 4)), (512, 256, (132, 256, 0, 4)),
+    (1, 256, (4, 4, 1, 1)), (1031, 128, (132, 258, 0, 4)),
+    (512, 32, (128, 128, 0, 4)),
+])
+def test_conv_launch_shape(B, C, want):
+    """A block's work as small as one wave allows: one board and half a
+    tile for the web bot, four boards and a whole tile at 512."""
+    shape = conv.conv_launch_shape(B, C, 132)
+    assert (shape["grid"], shape["pieces"], shape["half"],
+            shape["per"]) == want
+    assert shape["smem"] == conv.conv_smem_bytes(C)
+
+
+def test_conv_widths_fit_the_shared_memory():
+    """The layout of each width (``conv_kernels.cu:Smem``, counted by
+    hand) within a block's opt-in shared memory."""
+    assert {C: conv.conv_smem_bytes(C) for C in conv.CHANNELS} == {
+        32: 37_400 + 1024, 128: 137_048 + 1024, 256: 204_376 + 1024}
+    assert max(conv.conv_smem_bytes(C) for C in conv.CHANNELS) \
+        <= epilogue.SMEM_PER_BLOCK
+
+
+def test_wrapper_refuses_other_shapes():
+    x, w = _inputs(2, 32, 10)
+    with pytest.raises(ValueError, match=r"\(B, 8, 8, C\)"):
+        conv.conv3x3(x.reshape(2, 64, 32), w)
+    with pytest.raises(ValueError, match=r"w must be \(32, 32, 3, 3\)"):
+        conv.conv3x3(x, w[:16])
+    with pytest.raises(ValueError, match=r"w must be"):
+        conv.conv3x3(x, torch.zeros(32, 32, 1, 1))
+    with pytest.raises(ValueError, match="relu needs bn"):
+        conv.conv3x3(x, w, relu=True)
+    with pytest.raises(ValueError, match="relu needs bn"):
+        conv.conv3x3_plain(x, w, relu=True)
+
+
+def test_forward_runs_its_tower_and_policy_convs_through_conv3x3():
+    """One bf16 forward of a 2 x 32 net: 5 ``conv3x3`` sites (two a block
+    and the policy conv, the BatchNorms as epilogues), no weight images
+    on the CPU, and the logits the old path gave."""
+    gen = torch.Generator().manual_seed(11)
+    net = AlphaZeroNet(2, 32, 8).eval()
+    with torch.no_grad():
+        for p in net.parameters():
+            p.normal_(0, 0.2, generator=gen)
+    prep = inference.prepare_inference(net, torch.bfloat16)
+    assert all(prep["blocks"][0][k] is None
+               for k in ("conv1_image", "conv2_image"))
+    assert prep["policy_conv_image"] is None
+    import chip_smoke
+
+    x = torch.from_numpy((np.random.default_rng(12).random((9, 3, 8, 8))
+                          > 0.5).astype(np.float32))
+    sites = chip_smoke.conv_sites(prep, x)
+    assert [(relu, bn is not None) for _, _, bn, relu, _ in sites] == \
+        [(True, True), (False, True)] * 2 + [(True, True)]
+    got = inference.inference_apply(prep, x)
+
+    def old_apply(prep, planes):
+        """The forward before conv3x3: F.conv2d and the two epilogues."""
+        h = planes.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
+        h = epilogue.bn_act(inference._conv(h, prep["input_conv"]),
+                            prep["input_bn"])
+        for b in prep["blocks"]:
+            y = epilogue.bn_act(inference._conv(h, b["conv1"]), b["bn1"])
+            h = epilogue.se_residual(inference._conv(y, b["conv2"]), h,
+                                     b["fc1"], b["fc2"], b["bn2"])
+        B = h.shape[0]
+        p = epilogue.bn_act(inference._conv(h, prep["policy_conv"]),
+                            prep["policy_bn"])
+        pl = inference._dense(p.reshape(B, -1), prep["policy_fc"])
+        v = epilogue.bn_act(inference._conv(h, prep["value_conv"]),
+                            prep["value_bn"])
+        v = torch.relu(inference._dense(v.reshape(B, -1), prep["value_fc1"]))
+        return pl.float(), inference._dense(v, prep["value_fc2"]).float()
+
+    for g, w in zip(got, old_apply(prep, x)):
+        assert torch.equal(g, w)
+
+
+# -----------------------------------------------------------------------------
+# On the card: the kernel against its plain version
+# -----------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _cudnn_share(x, w):
+    """cuDNN's unequal share against the float64 sums, same operands."""
+    got = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+    ref = conv.conv3x3_plain(x, w, f64_sums=True)
+    return float((got != ref).float().mean())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2, 37, 512])
+@pytest.mark.parametrize("C", conv.CHANNELS)
+def test_cuda_conv3x3_against_plain(cuda, B, C):
+    """All three epilogues on the card, one launch each: the conv within
+    ``card_check``'s bounds of the float64 sums, each epilogue bit-equal
+    to ``bn_act_plain`` of the conv alone."""
+    x, w = _inputs(B, C, B * C, cuda)
+    bn = _bn(C, B + C, cuda)
+    image = conv.weight_image(w)
+    launches = conv.conv3x3.launches
+    outs = {k: conv.conv3x3(x, w, bn if affine else None, relu, image)
+            for k, (affine, relu) in EPILOGUES.items()}
+    torch.cuda.synchronize()
+    assert conv.conv3x3.launches == launches + 3
+    assert all(o.dtype == torch.bfloat16 and o.is_contiguous()
+               and o.shape == x.shape for o in outs.values())
+    limit = max(conv.CONV_UNEQUAL_SHARE, 2 * _cudnn_share(x, w))
+    r = conv.card_check(x, w, bn, outs, limit)
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", conv.CHANNELS)
+def test_cuda_conv3x3_board_is_independent_of_the_batch(cuda, C):
+    """Every board of a 512-board launch bit-equal to the same board sent
+    alone, and the launch bit-equal when repeated."""
+    x, w = _inputs(512, C, C + 1, cuda)
+    bn = _bn(C, C, cuda)
+    image = conv.weight_image(w)
+    got = conv.conv3x3(x, w, bn, True, image)
+    again = conv.conv3x3(x, w, bn, True, image)
+    alone = torch.cat([conv.conv3x3(x[b:b + 1].contiguous(), w, bn, True,
+                                    image) for b in range(512)])
+    none = conv.conv3x3(x, w, image=image)
+    none_alone = torch.cat([conv.conv3x3(x[b:b + 1].contiguous(), w,
+                                         image=image) for b in (0, 257, 511)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, alone)
+    assert torch.equal(none[[0, 257, 511]], none_alone)
+
+
+@pytest.mark.gpu
+def test_cuda_conv3x3_refuses_what_the_kernel_does_not_take(cuda):
+    """Another dtype, another width, a map that is not contiguous, no
+    image or one of another shape, constants on the host: each raises and
+    nothing launches."""
+    x, w = _inputs(4, 32, 0, cuda)
+    bn = _bn(32, 0, cuda)
+    image = conv.weight_image(w)
+    before = conv.conv3x3.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv.conv3x3(x.float(), w.float(), bn, True, image)
+    wide, ww = _inputs(1, 64, 0, cuda)
+    with pytest.raises(ValueError, match="C one of"):
+        conv.conv3x3(wide, ww, image=torch.zeros(1, device=cuda))
+    strided = torch.randn((4, 8, 8, 64), device=cuda,
+                          dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="contiguous"):
+        conv.conv3x3(strided, w, image=image)
+    with pytest.raises(ValueError, match="weight image"):
+        conv.conv3x3(x, w, bn)
+    with pytest.raises(ValueError, match="image must be"):
+        conv.conv3x3(x, w, bn, image=image[:, :4].contiguous())
+    with pytest.raises(TypeError, match="image in torch.bfloat16"):
+        conv.conv3x3(x, w, bn, image=image.float())
+    with pytest.raises(ValueError, match="mean on cpu"):
+        conv.conv3x3(x, w, tuple(t.cpu() for t in bn), image=image)
+    assert conv.conv3x3.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_shared_memory_layout_is_the_kernels(cuda):
+    """``conv_smem_bytes`` counts what the kernel's ``Smem`` takes."""
+    lib = conv._lib()
+    assert {C: lib.conv3x3_smem_bytes(C) for C in conv.CHANNELS} == {
+        C: conv.conv_smem_bytes(C) for C in conv.CHANNELS}
+
+
+def _net(blocks, C, seed):
+    gen = torch.Generator().manual_seed(seed)
+    net = AlphaZeroNet(blocks, C, 8).eval()
+    with torch.no_grad():
+        for p in net.parameters():
+            p.normal_(0, 0.2 * (32 / C) ** 0.5, generator=gen)
+    return net
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [32, 256])
+def test_cuda_forward_against_the_cpu_with_its_launches(cuda, C):
+    """The bf16 forward of a 2 x C net on the card against the same
+    forward on the CPU: logits within 0.05; 5 ``conv3x3``, 2 ``bn_act``
+    and 2 ``se_residual`` launches."""
+    net = _net(2, C, 12)
+    x = torch.from_numpy((np.random.default_rng(4).random((37, 3, 8, 8))
+                          > 0.5).astype(np.float32))
+    want = inference.inference_apply(
+        inference.prepare_inference(net, torch.bfloat16), x)
+    prep = inference.prepare_inference(copy.deepcopy(net).to(cuda),
+                                       torch.bfloat16)
+    before = (conv.conv3x3.launches, epilogue.bn_act.launches,
+              epilogue.se_residual.launches)
+    got = inference.inference_apply(prep, x.to(cuda))
+    torch.cuda.synchronize()
+    after = (conv.conv3x3.launches, epilogue.bn_act.launches,
+             epilogue.se_residual.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (5, 2, 2)
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) < 0.05

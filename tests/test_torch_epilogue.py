@@ -754,7 +754,7 @@ def test_cuda_forward_of_a_256_filter_net_against_the_cpu(cuda):
 
 @pytest.mark.gpu
 def test_cuda_forward_against_the_cpu(cuda):
-    """The bf16 forward of a 2 x 32 net on the card (cuDNN convs and the
+    """The bf16 forward of a 2 x 32 net on the card (the conv and epilogue
     kernels) against the same forward on the CPU (plain versions): logits
     within 0.05; the evaluator captures and replays in a CUDA graph."""
     gen = torch.Generator().manual_seed(2)
