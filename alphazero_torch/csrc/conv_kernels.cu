@@ -23,44 +23,61 @@
 // Bound on an H100, one 128 -> 128 conv at 512 boards: operations.
 // 2 x 512 x 64 x 128 x 1152 = 9.664e9 at 989 TFLOP/s take 0.00977 ms; the
 // bytes (8.39 MB in, 8.39 MB out, 294,912 of weights, 1,536 of BatchNorm
-// constants) take 0.0051 ms at 3.35 TB/s.
+// constants) take 0.0051 ms at 3.35 TB/s. At one board the bound is 0.0001
+// ms, and what binds is latency: a board's 72 k-steps are one chain of
+// dependent wgmmas, 130 to 140 SM cycles a k-step whatever the N
+// (scripts/conv_timeline.py), so one board takes at least some 5 us.
 //
-// Design: the tower kernel's mainloop (tower_kernel.cu), with the weights
-// streamed through a ring. At C 128 the bf16 weights are 288 KB, more than
-// a block's 227 KB of shared memory, so they cannot stay resident as the
-// s8 conv's 147 KB do (qconv_kernel.cu). One board is 64 rows, the M of
-// Hopper's warpgroup matrix multiply: a block has four consumer
-// warpgroups, a board each, and a producer warpgroup. The conv is a
-// product of the board's 64 squares by K = 9 taps x C (k = tap*C + ci,
-// zero past 9C) by the output channels, in tiles of N = 128 (C 32: one
-// tile of 32; C 256: two). A block walks over its pieces of work, every
-// grid-th: a group of `per` boards (a consumer warpgroup each) and a tile,
-// or half of one. The launch takes the smallest piece that fills one wave
-// (models/conv.py:conv_launch_shape): one board and half a tile for the
-// web bot's batch of one, one board and a tile at 128 boards, four boards
-// and a tile at 512 (128 pieces, one wave on 128 SMs). A board's chain of
-// products is bound by its latency (each group of two k-steps waits for
-// the group before it), so one board a block runs about as fast as four
-// boards' share of the tensor cores allows. Whatever the piece, the
-// products are wgmma.mma_async m64n64k16 (two a k-step for a whole tile,
-// each into its own 32 f32 accumulators a thread; m64n32k16 at C 32):
-// every output element goes through the same instructions in the same
-// order whatever the batch.
+// Design. One board is 64 rows, the M of Hopper's warpgroup matrix
+// multiply. The conv is a product of the board's 64 squares by K = 9 taps
+// x C (k = tap*C + ci, zero past 9C) by the output channels, in tiles of N
+// = 128 (C 32: one tile of 32; C 256: two). A piece of work is a group of
+// PER boards (one to four, a consumer warpgroup each) and NP output
+// channels of a tile: all of it (128), a half (64) or an eighth (16) at C
+// 128 and 256. The launch (models/conv.py:conv_launch_shape) takes the
+// first shape, in a measured order, that fills at most one wave: at one
+// board eight blocks of 16 channels, so that a board's chain runs on eight
+// SMs at once, each with a short epilogue; two boards a block at 32; one
+// board and a whole tile at 128; three boards at 384, four at 512. A block
+// takes a run of consecutive pieces, so the tiles of one group of boards
+// share the boards' rows. Whatever the piece, the products are one
+// wgmma.mma_async m64nNk16 a k-step with N = NP into the f32 accumulators
+// of the one warpgroup that holds the board, every k-step in k order: the
+// order of each element's sums is fixed by C alone, so a board's output
+// does not depend on the batch, the launch shape, the block or the
+// warpgroup (no split of K, no atomics). The N of an instruction does not
+// change its elements' sums: every shape is bit-equal to the earlier
+// version of this kernel (commit 8aae90f), which ran m64n64k16 (m64n32k16
+// at C 32) throughout, at every conv of the archived net
+// (scripts/conv_against_parent.py); chip_smoke.py phase 17 and
+// scripts/conv_launch_sweep.py hold the shapes bit-equal.
 //   B, the weights, is read by the tensor cores from shared memory through
 // a matrix descriptor. The host packs them once into the image the
 // descriptor reads (models/conv.py:weight_image): chunks of 64 K values
 // (128 bytes) for the tile's output channels, stored [n][64] (K-major)
 // with the 128-byte swizzle (the 16-byte piece j of row n lies at piece j
 // ^ (n % 8)); 16 KB a chunk at N 128, 18 chunks a tile at C 128 (one half
-// of a tap each), 5 at C 32 (two taps each; the last half zero). Half a
-// tile is the chunk's first or last 8 KB. One thread of the producer
-// warpgroup brings every chunk of the block's pieces through a ring of
-// four stages by bulk copies (cp.async.bulk) that complete on the stage's
-// full mbarrier; every consumer warp arrives on the stage's empty
-// mbarrier once the wgmma group that read it has completed (a warpgroup
-// without a board frees each chunk as it lands). The consumers of a block
-// read every chunk together, so at 512 boards the weights cross L2 once a
-// group of four boards (37.7 MB of L2 reads a launch at C 128).
+// of a tap each), 5 at C 32 (two taps each; the last half zero). A piece's
+// part of a chunk is NP of its rows, contiguous. One thread of the
+// producer warpgroup brings every chunk of the block's pieces by bulk
+// copies (cp.async.bulk) that complete on the stage's full mbarrier,
+// through a ring as deep as shared memory allows beside the boards' rows:
+// at C 128 every chunk of a piece of 64 or fewer channels has a stage of
+// its own (144 KB at 64), a whole tile has 12 stages for one board, 10 for
+// three and 9 for four. (The earlier ring of four stages was not what
+// bound it: no chunk waited for its copy. The depth lets every weight of
+// a small piece arrive before the kernel ahead of it ends.) Every consumer warp arrives on the stage's empty mbarrier once
+// the wgmma group that read it has completed (a warpgroup without a board
+// frees each chunk as it lands).
+//   The launch is a programmatic dependent one: every block lets the next
+// kernel on the stream start at once (griddepcontrol.launch_dependents),
+// and the kernel sets up its barriers and issues its weight copies before
+// it waits for the kernel ahead of it (griddepcontrol.wait), which has
+// written its x. The image must therefore be complete before the launch
+// (models/conv.py:weight_image returns only once it is on the device); the
+// BatchNorm constants, x and out are touched only after the wait. At
+// small batches a launch's blocks start on SMs its predecessor leaves
+// free, with their weights in, while the predecessor runs.
 //   A, the activations, is fed from registers. A warpgroup brings its
 // board's 64 rows of x into shared memory by 16-byte loads, all in flight
 // at once, into rows padded by 16 bytes so that the eight row addresses
@@ -70,36 +87,33 @@
 // of a block likely queue in the copy engine ahead of the weights.) For
 // tap (dy, dx) each lane points its ldmatrix at row (h+dy, w+dx) of the
 // board, or at a row of zeros off the board (and past tap 8), and the
-// m16k16 fragment that ldmatrix.x4 gives is wgmma's A fragment. The k-steps go in commit
-// groups of two with two sets of fragments, so one group's ldmatrix runs
-// while the group before it multiplies; no wgmma sits in a branch (ptxas
-// would serialise it): the piece's width is a template parameter.
-//   The order of the sums is fixed by C alone: every board's k-steps run
-// in k order in one warpgroup's accumulators; no split of K and no
-// atomics. So a board's output does not depend on the batch, the block or
-// the warpgroup that takes it.
+// m16k16 fragment that ldmatrix.x4 gives is wgmma's A fragment. The k-steps
+// go in commit groups of two with two sets of fragments, so one group's
+// ldmatrix runs while the group before it multiplies; no wgmma sits in a
+// branch (ptxas would serialise it): the piece's shape is a template
+// parameter.
 //   The epilogue runs on the accumulators: the four lanes of a quad trade
 // packed pairs by three shuffles so that each lane stores 16 bytes and a
 // warp's store covers 64 contiguous bytes of eight rows, whole 32-byte
-// sectors (qconv_kernel.cu's store). A second producer warp brings the
-// BatchNorm constants into shared memory while the products run.
-//   The 640 threads start with 96 registers; setmaxnreg gives the
-// consumers 112 and the producer 24. Shared memory at C 128: 64 KB of ring
-// and 68 KB of rows, 137 KB; at C 256, 199 KB: above 48 KB through the
-// opt-in that conv3x3_init makes once a device.
+// sectors (qconv_kernel.cu's store); at NP 16 each lane stores its pairs.
+// A second producer warp brings the BatchNorm constants into shared memory
+// while the products run; a lane reads a column pair's as float2.
+//   The threads start with 96 registers (launch bounds of 640, four
+// consumer warpgroups and the producer's; a launch has PER + 1
+// warpgroups); setmaxnreg gives the consumers 112 and the producer 24.
+// Above 48 KB of shared memory through the opt-in that conv3x3_init makes
+// once a device.
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 17;
-// PERF.md has the runs): 0.0194 ms at 512 boards, C 128, with the affine
-// and ReLU (497 TFLOP/s, 2.0 times the bound), against 0.0253 for cuDNN's
-// conv alone in turns; 0.0090 at one board against cuDNN's 0.0072, where
-// one board's chain of products is latency-bound; C 256 at 512 boards
-// 0.0651 (bound 0.0391). What is left at 512 boards: in one wave a
-// block's four boards load, multiply and store in lockstep, so the loads
-// of x and the epilogue are not hidden behind products.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 17,
+// C 128 with the affine and ReLU, in turns with cuDNN's conv alone;
+// PERF.md has the runs): 0.0195 ms at 512 boards (cuDNN 0.0255), 0.0102
+// at 128 (0.0106), 0.0071 at 32 (0.0077), 0.0061 at one (0.0074). At one
+// board 4.9 us of it is the chain; at 512 the four boards of a block still
+// load, multiply and store in lockstep.
 //
-// The entry point launches on the given stream and returns
-// cudaGetLastError(); it never synchronises, allocates nothing and queries
-// nothing of the device.
+// The entry point launches on the given stream (cudaLaunchKernelEx) and
+// returns the launch's error; it never synchronises, allocates nothing and
+// queries nothing of the device.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -107,13 +121,11 @@
 
 namespace {
 
-constexpr int kBoards = 4;              // consumer warpgroups a block
-constexpr int kConsumers = kBoards * 128;
-constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kMaxBoards = 4;           // consumer warpgroups a block, at most
+constexpr int kThreads = (kMaxBoards + 1) * 128;  // and the producer's
 constexpr int kConsumerRegs = 112;      // 640 threads start with 96 each
 constexpr int kProducerRegs = 24;
 constexpr int kChunkK = 64;             // K values in a row of the image
-constexpr int kStages = 4;              // weight ring
 constexpr int kSmemOptIn = 232448;      // a block's, after the opt-in
 
 enum Epilogue { kNone = 0, kAffine = 1, kAffineRelu = 2 };
@@ -122,17 +134,29 @@ template <int C>
 struct Shape {
   static constexpr int kTileN = C < 128 ? C : 128;     // image tile's rows
   static constexpr int kTiles = C / kTileN;
-  static constexpr int kInstrN = C < 64 ? C : 64;      // a wgmma's N
   static constexpr int kChunks = (9 * C + kChunkK - 1) / kChunkK;
   static constexpr int kChunkBytes = kTileN * kChunkK * 2;
   static constexpr int kStride = C + 8;                // padded row, bf16
   static constexpr int kRowBytes = kStride * 2;
 };
 
-template <int C>
+// Stages of the weight ring for pieces of NP channels and PER boards: as
+// many as fit beside the rows, the zero row, the constants and the
+// barriers, and no more than a piece's chunks (models/conv.py:conv_stages
+// counts the same).
+template <int C, int NP, int PER>
+constexpr int ring_stages() {
+  constexpr int fixed = PER * 64 * Shape<C>::kRowBytes + Shape<C>::kRowBytes
+                        + 3 * C * 4 + 8;
+  constexpr int fit = (kSmemOptIn - 1024 - fixed) / (NP * kChunkK * 2 + 16);
+  return fit < Shape<C>::kChunks ? fit : Shape<C>::kChunks;
+}
+
+template <int C, int NP, int PER>
 struct Smem {
-  unsigned char w[kStages][Shape<C>::kChunkBytes];    // 1024-byte aligned
-  __nv_bfloat16 rows[kBoards][64 * Shape<C>::kStride];  // a board each
+  static constexpr int kStages = ring_stages<C, NP, PER>();
+  unsigned char w[kStages][NP * kChunkK * 2];         // 1024-byte aligned
+  __nv_bfloat16 rows[PER][64 * Shape<C>::kStride];    // a board each
   __nv_bfloat16 zero[Shape<C>::kStride];  // the off-board source row
   float mean[C], mul[C], beta[C];       // the BatchNorm, if any
   uint64_t full[kStages];               // mbarriers: chunk has landed
@@ -140,9 +164,9 @@ struct Smem {
   uint64_t consts;                      // the BatchNorm constants are in
 };
 
-template <int C>
+template <int C, int NP, int PER>
 constexpr int smem_bytes() {
-  return (int)sizeof(Smem<C>) + 1024;   // and the slack to align the ring
+  return (int)sizeof(Smem<C, NP, PER>) + 1024;  // and slack to align the ring
 }
 
 struct Args {
@@ -153,8 +177,27 @@ struct Args {
   const float* beta;
   __nv_bfloat16* out;                   // (boards, 64, C)
   int boards, epi;
-  int per;                              // boards a piece: 1, 2 or 4
+#ifdef CONV_TIMELINE
+  unsigned long long* trace;            // (grid, kSlots, 2)
+#endif
 };
+
+// Built with -DCONV_TIMELINE (scripts/conv_timeline.py), a block writes
+// %globaltimer (ns) and clock64 (SM cycles) at the points it names, into
+// slot k of its row of a.trace; otherwise the stamps are not compiled.
+#ifdef CONV_TIMELINE
+constexpr int kSlots = 96;
+__device__ __forceinline__ void stamp(unsigned long long* trace, int k) {
+  unsigned long long g;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g) :: "memory");
+  const unsigned long long c = clock64();
+  trace[(blockIdx.x * kSlots + k) * 2] = g;
+  trace[(blockIdx.x * kSlots + k) * 2 + 1] = c;
+}
+#define STAMP(k) stamp(a.trace, (k))
+#else
+#define STAMP(k) ((void)0)
+#endif
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -331,34 +374,125 @@ __device__ __forceinline__ void compiler_barrier() {
   asm volatile("" ::: "memory");
 }
 
-// Rows c_row (at `out`, the tile's first column) and c_row + 8 of this
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// Programmatic dependent launch: let the next kernel on the stream start,
+// and wait until the kernel ahead of this one has finished and its
+// writes are visible (a no-op when the launch has no such dependency).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_predecessor() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Rows c_row (at `out`, the piece's first column) and c_row + 8 of this
 // warpgroup's board, from the accumulator elements nt*4 + half*2 + e
-// (column nt*8 + 2t + e, row c_row + 8*half); rows are C apart. The
-// quad's lanes trade packed pairs so that lane t writes columns
-// (4q + t)*8 .. +7 of a row, 16 bytes. mean, mul, beta: the tile's.
+// (column nt*8 + 2t + e, row c_row + 8*half); rows are C apart. For N of
+// 32 or more the quad's lanes trade packed pairs so that lane t writes
+// columns (4q + t)*8 .. +7 of a row, 16 bytes; at N 16 each lane writes
+// its own pairs. mean, mul, beta: the piece's.
 template <int C, int N>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
                                            const float (&acc)[N / 2], int t,
                                            const float* mean,
                                            const float* mul,
                                            const float* beta, int epi) {
+  if constexpr (N == 16) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      float2 m = {0.f, 0.f}, k = {0.f, 0.f}, b = {0.f, 0.f};
+      if (epi != kNone) {               // col is even: 8-byte aligned
+        m = *reinterpret_cast<const float2*>(mean + col);
+        k = *reinterpret_cast<const float2*>(mul + col);
+        b = *reinterpret_cast<const float2*>(beta + col);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(
+            finish(acc[nt * 4 + half * 2], m.x, k.x, b.x, epi),
+            finish(acc[nt * 4 + half * 2 + 1], m.y, k.y, b.y, epi));
+        *reinterpret_cast<__nv_bfloat162*>(out + half * 8 * C + col) = v;
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int q = 0; q < N / 32; ++q) {
     uint32_t p[2][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int nt = 4 * q + j, col = nt * 8 + 2 * t;
-      float m0 = 0.f, m1 = 0.f, k0 = 0.f, k1 = 0.f, b0 = 0.f, b1 = 0.f;
-      if (epi != kNone) {
-        m0 = mean[col], m1 = mean[col + 1];
-        k0 = mul[col], k1 = mul[col + 1];
-        b0 = beta[col], b1 = beta[col + 1];
+      float2 m = {0.f, 0.f}, k = {0.f, 0.f}, b = {0.f, 0.f};
+      if (epi != kNone) {               // col is even: 8-byte aligned
+        m = *reinterpret_cast<const float2*>(mean + col);
+        k = *reinterpret_cast<const float2*>(mul + col);
+        b = *reinterpret_cast<const float2*>(beta + col);
       }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const __nv_bfloat162 v = __floats2bfloat162_rn(
-            finish(acc[nt * 4 + half * 2], m0, k0, b0, epi),
-            finish(acc[nt * 4 + half * 2 + 1], m1, k1, b1, epi));
+            finish(acc[nt * 4 + half * 2], m.x, k.x, b.x, epi),
+            finish(acc[nt * 4 + half * 2 + 1], m.y, k.y, b.y, epi));
         p[half][j] = *reinterpret_cast<const uint32_t*>(&v);
       }
     }
@@ -383,25 +517,32 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
   }
 }
 
-// One launch: pieces of NP output channels (a whole tile, or half of one
-// at C 128 and 256 for small batches) of groups of four boards.
-template <int C, int NP>
+// One launch: pieces of NP output channels of a tile, of groups of PER
+// boards; a block takes a run of consecutive pieces.
+template <int C, int NP, int PER>
 __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
   using S = Shape<C>;
-  constexpr int kN = S::kInstrN;
-  constexpr int kInstr = NP / kN;       // wgmmas a k-step
+  using L = Smem<C, NP, PER>;
+  constexpr int kN = NP;                // a wgmma's N: one a k-step
   constexpr int kParts = S::kTileN / NP;  // pieces a tile
   constexpr int kPerGroup = S::kTiles * kParts;  // pieces a group of boards
   constexpr int kPieceBytes = NP * kChunkK * 2;  // of a chunk
+  constexpr int kStages = L::kStages;
+  constexpr int kConsumers = PER * 128;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle is a function of the address: the ring must start on a
   // 1024-byte boundary (the launch asks for 1024 bytes of slack)
-  Smem<C>& s = *reinterpret_cast<Smem<C>*>(
+  L& s = *reinterpret_cast<L*>(
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int pieces = (a.boards + a.per - 1) / a.per * kPerGroup;
+  const int pieces = (a.boards + PER - 1) / PER * kPerGroup;
+  const int run = (pieces + gridDim.x - 1) / gridDim.x;
+  const int first = blockIdx.x * run;
+  const int last = first + run < pieces ? first + run : pieces;
+  if (tid == 0) STAMP(0);
+  launch_dependents();
 
   if (tid == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -411,9 +552,10 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
     mbar_init(smem_addr(&s.consts), 32);                  // a warp's lanes
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < S::kStride; i += kThreads)
+  for (int i = tid; i < S::kStride; i += blockDim.x)
     s.zero[i] = __float2bfloat16(0.0f);
   __syncthreads();                      // the only block-wide barrier
+  if (tid == 0) STAMP(1);
 
   if (tid >= kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
@@ -421,9 +563,10 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
     const int pwarp = (tid - kConsumers) >> 5;
     if (pwarp == 0 && lane == 0) {
       // the weights: every chunk of the block's pieces through the ring,
-      // as far ahead as the consumers have freed stages
+      // as far ahead as the consumers have freed stages; they are
+      // constants, so the first stages fill before the wait
       int q = 0;
-      for (int piece = blockIdx.x; piece < pieces; piece += gridDim.x) {
+      for (int piece = first; piece < last; ++piece) {
         const int sub = piece % kPerGroup;
         const unsigned char* src =
             a.image + ((size_t)(sub / kParts) * S::kChunks * S::kTileN +
@@ -436,10 +579,12 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
           mbar_arrive_expect_tx(full, kPieceBytes);
           bulk_copy(smem_addr(s.w[stage]), src + (size_t)c * S::kChunkBytes,
                     kPieceBytes, full);
+          if (piece == first) STAMP(48 + c);
         }
       }
     } else if (pwarp == 1) {
       // the BatchNorm constants, while the first products run
+      wait_for_predecessor();
       if (a.epi != kNone)
         for (int c = lane; c < C; c += 32) {
           s.mean[c] = a.mean[c];
@@ -451,7 +596,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
     return;
   }
 
-  // Consumers: warpgroup wg takes board group*per + wg of each piece.
+  // Consumers: warpgroup wg takes board group*PER + wg of each piece.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                :: "n"(kConsumerRegs));
   const int wg = tid >> 7;
@@ -479,12 +624,16 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
   const int c_row = warp * 16 + (lane >> 2);
   const int t = lane & 3;
 
-  float acc[kInstr][kN / 2];
+  wait_for_predecessor();               // x is the kernel ahead's output
+  if (tid == 0) STAMP(6);
+  float acc[kN / 2];
   uint32_t frag[2][2][4];               // two sets of two k-steps
   int q = 0;                            // running weight chunk
-  for (int piece = blockIdx.x; piece < pieces; piece += gridDim.x) {
-    const int board = piece / kPerGroup * a.per + wg;
-    if (wg >= a.per || board >= a.boards) {
+  int held = -1;                        // the group whose rows are in
+  for (int piece = first; piece < last; ++piece) {
+    const int group = piece / kPerGroup;
+    const int board = group * PER + wg;
+    if (board >= a.boards) {
       // no board for this warpgroup: free each chunk as it lands
       for (int c = 0; c < S::kChunks; ++c, ++q) {
         const int stage = q % kStages;
@@ -493,10 +642,13 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
       }
       continue;
     }
-    // the board's 64 rows of x, C/8 16-byte pieces a row, into the padded
-    // rows (the warpgroup's products of its last piece have completed)
-    warpgroup_barrier(bar_id);
-    {
+    if (group != held) {
+      // the board's 64 rows of x, C/8 16-byte pieces a row, into the
+      // padded rows (the warpgroup's products of its last piece have
+      // completed); the next tile of the same boards reuses them. (Two
+      // cp.async groups instead, the channels of chunk 0 first, were no
+      // faster on an H100 and spilled at C 256.)
+      warpgroup_barrier(bar_id);
       constexpr int kSegs = C / 8;
       constexpr int kPer = 64 * kSegs / 128;        // pieces a thread
       const uint4* xb = reinterpret_cast<const uint4*>(
@@ -514,8 +666,11 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
               &rows[(p / kSegs) * S::kStride + (p % kSegs) * 8]) = v[i];
         }
       }
+      warpgroup_barrier(bar_id);
+      held = group;
     }
-    warpgroup_barrier(bar_id);
+    const bool stamped = tid == 0 && piece == first;
+    if (stamped) STAMP(2);
 
     for (int c = 0; c < S::kChunks; ++c, ++q) {
       // this lane's A address for k-step m of the chunk, K values
@@ -531,21 +686,17 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
       }
       const int stage = q % kStages;
       mbar_wait(smem_addr(&s.full[stage]), (q / kStages) & 1);
-      // wgmma i reads rows i*kN.. of the stage: 1024 bytes an eight rows
+      if (stamped) STAMP(8 + c);
+      // the stage's NP rows: 1024 bytes an eight rows
       const uint64_t desc = swizzled_kmajor_desc(smem_addr(s.w[stage]));
-      constexpr uint64_t kNext = kN * kChunkK * 2 / 16;
 
       // k-steps 0 and 1; the group before the last has completed, so its
       // fragments (set 0) are free
       ldmatrix_x4(frag[0][0], r0);
       ldmatrix_x4(frag[0][1], r0 + 32);
       wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < kInstr; ++i)
-        wgmma_bf16<kN>(acc[i], frag[0][0], desc + i * kNext, c != 0);
-#pragma unroll
-      for (int i = 0; i < kInstr; ++i)
-        wgmma_bf16<kN>(acc[i], frag[0][1], desc + i * kNext + 2, 1);
+      wgmma_bf16<kN>(acc, frag[0][0], desc, c != 0);
+      wgmma_bf16<kN>(acc, frag[0][1], desc + 2, 1);
       wgmma_commit();
       wgmma_wait<1>();                  // the previous chunk has been read
       if (c > 0 && lane == 0)
@@ -555,47 +706,59 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
       ldmatrix_x4(frag[1][0], r1);
       ldmatrix_x4(frag[1][1], r1 + 32);
       wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < kInstr; ++i)
-        wgmma_bf16<kN>(acc[i], frag[1][0], desc + i * kNext + 4, 1);
-#pragma unroll
-      for (int i = 0; i < kInstr; ++i)
-        wgmma_bf16<kN>(acc[i], frag[1][1], desc + i * kNext + 6, 1);
+      wgmma_bf16<kN>(acc, frag[1][0], desc + 4, 1);
+      wgmma_bf16<kN>(acc, frag[1][1], desc + 6, 1);
       wgmma_commit();
       wgmma_wait<1>();
     }
     wgmma_wait<0>();
+    if (stamped) STAMP(3);
     if (lane == 0) mbar_arrive(smem_addr(&s.empty[(q - 1) % kStages]));
-#pragma unroll
-    for (int i = 0; i < kInstr; ++i) fence_accumulators(acc[i]);
+    fence_accumulators(acc);
 
     mbar_wait(smem_addr(&s.consts), 0);
+    if (stamped) STAMP(4);
     const int sub = piece % kPerGroup;
     const int col0 = (sub / kParts) * S::kTileN + (sub % kParts) * NP;
-#pragma unroll
-    for (int i = 0; i < kInstr; ++i) {
-      const int col = col0 + i * kN;
-      store_rows<C, kN>(a.out + ((size_t)board * 64 + c_row) * C + col,
-                        acc[i], t, s.mean + col, s.mul + col, s.beta + col,
-                        a.epi);
-    }
+    store_rows<C, kN>(a.out + ((size_t)board * 64 + c_row) * C + col0, acc,
+                      t, s.mean + col0, s.mul + col0, s.beta + col0, a.epi);
+    if (stamped) STAMP(5);
   }
 }
 
-template <int C, int NP>
+template <int C, int NP, int PER>
 cudaError_t opt_in() {
-  return cudaFuncSetAttribute(conv3x3_kernel<C, NP>,
+  static_assert(smem_bytes<C, NP, PER>() <= kSmemOptIn, "layout too large");
+  return cudaFuncSetAttribute(conv3x3_kernel<C, NP, PER>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes<C>());
+                              smem_bytes<C, NP, PER>());
 }
 
-template <int C, int NP>
+template <int C, int NP, int PER>
 int launch(const Args& a, int grid, cudaStream_t stream) {
-  conv3x3_kernel<C, NP><<<grid, kThreads, smem_bytes<C>(), stream>>>(a);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3((PER + 1) * 128);
+  cfg.dynamicSmemBytes = smem_bytes<C, NP, PER>();
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, conv3x3_kernel<C, NP, PER>, a);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-static_assert(smem_bytes<256>() <= kSmemOptIn, "C 256 does not fit");
+// Every instantiation, in one list: (C, NP, PER), in the launch rule's
+// order (models/conv.py:SHAPES).
+#define CONV_SHAPES(X)                                                 \
+  X(32, 32, 1) X(32, 32, 2) X(32, 32, 3) X(32, 32, 4)                  \
+  X(128, 16, 1) X(128, 16, 2) X(128, 64, 1) X(128, 128, 1)             \
+  X(128, 128, 2) X(128, 128, 3) X(128, 128, 4)                         \
+  X(256, 16, 1) X(256, 16, 2) X(256, 64, 1) X(256, 128, 1)             \
+  X(256, 128, 2) X(256, 128, 3) X(256, 128, 4)
 
 }  // namespace
 
@@ -609,48 +772,59 @@ int conv3x3_init(int* sms) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = opt_in<32, 32>();
-  if (err == cudaSuccess) err = opt_in<128, 128>();
-  if (err == cudaSuccess) err = opt_in<128, 64>();
-  if (err == cudaSuccess) err = opt_in<256, 128>();
-  if (err == cudaSuccess) err = opt_in<256, 64>();
+#define X(C, NP, PER) \
+  if (err == cudaSuccess) err = opt_in<C, NP, PER>();
+  CONV_SHAPES(X)
+#undef X
   return (int)err;
 }
 
-// A block's dynamic shared memory at width C (0 for a width the kernel
-// does not take): models/conv.py checks its own count against it.
-int conv3x3_smem_bytes(int C) {
-  return C == 32 ? smem_bytes<32>() : C == 128 ? smem_bytes<128>()
-       : C == 256 ? smem_bytes<256>() : 0;
+// A block's dynamic shared memory for pieces of np channels and per boards
+// at width C (0 for a shape the kernel does not have): models/conv.py
+// checks its own count against it.
+int conv3x3_smem_bytes(int C, int np, int per) {
+#define X(CC, NP, PER) \
+  if (C == CC && np == NP && per == PER) return smem_bytes<CC, NP, PER>();
+  CONV_SHAPES(X)
+#undef X
+  return 0;
 }
 
 // x, out: bf16 NHWC maps (boards, 8, 8, C), 16-byte aligned; image: the
 // weight image (models/conv.py:weight_image), (C / N, ceil(9C / 64), N, 64)
-// bf16 with N = min(C, 128), 16-byte aligned; mean, mul, beta: f32 [C], or
-// null with epi 0 (none; 1 affine, 2 affine and ReLU). C is 32, 128 or
-// 256; grid blocks, half (pieces of half a tile, C 128 and 256 only) and
-// per (boards a piece, 1 to 4) as models/conv.py:conv_launch_shape gives
-// them; conv3x3_init has run on the device.
+// bf16 with N = min(C, 128), 16-byte aligned and complete before the
+// launch (the kernel reads it before it waits for the kernel ahead of it);
+// mean, mul, beta: f32 [C], or null with epi 0 (none; 1 affine, 2 affine
+// and ReLU). C is 32, 128 or 256; grid blocks, np (channels a piece) and
+// per (boards a piece) as models/conv.py:conv_launch_shape gives them;
+// conv3x3_init has run on the device.
 int conv3x3_bf16(const void* x, const void* image, const void* mean,
                  const void* mul, const void* beta, void* out, int boards,
-                 int C, int epi, int grid, int half, int per, void* stream) {
+                 int C, int epi, int grid, int np, int per, void* stream
+#ifdef CONV_TIMELINE
+                 , void* trace
+#endif
+                 ) {
   if (boards < 0 || grid <= 0 || epi < kNone || epi > kAffineRelu ||
-      (epi != kNone && (!mean || !mul || !beta)) || per < 1 ||
-      per > kBoards)
-    return (int)cudaErrorInvalidValue;
-  if ((C != 32 && C != 128 && C != 256) || (half && C == 32))
+      (epi != kNone && (!mean || !mul || !beta)) ||
+      conv3x3_smem_bytes(C, np, per) == 0)
     return (int)cudaErrorInvalidValue;
   if (boards == 0) return (int)cudaGetLastError();
   const Args a{static_cast<const __nv_bfloat16*>(x),
                static_cast<const unsigned char*>(image),
                static_cast<const float*>(mean), static_cast<const float*>(mul),
                static_cast<const float*>(beta),
-               static_cast<__nv_bfloat16*>(out), boards, epi, per};
+               static_cast<__nv_bfloat16*>(out), boards, epi
+#ifdef CONV_TIMELINE
+               , static_cast<unsigned long long*>(trace)
+#endif
+  };
   const cudaStream_t st = (cudaStream_t)stream;
-  if (C == 32) return launch<32, 32>(a, grid, st);
-  if (C == 128)
-    return half ? launch<128, 64>(a, grid, st) : launch<128, 128>(a, grid, st);
-  return half ? launch<256, 64>(a, grid, st) : launch<256, 128>(a, grid, st);
+#define X(CC, NP, PER) \
+  if (C == CC && np == NP && per == PER) return launch<CC, NP, PER>(a, grid, st);
+  CONV_SHAPES(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

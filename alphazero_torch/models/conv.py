@@ -19,6 +19,11 @@ runs ``conv3x3_plain``: ``F.conv2d`` on the channels-last operands and
 ``epilogue.bn_act_plain``, the computation the evaluator made before the
 kernel. The kernel reads its weights in an image of its own, which
 ``weight_image`` packs once (``models/inference.py:prepare_inference``).
+Every launch is a programmatic dependent one: the kernel fetches its
+weights before the kernel ahead of it on the stream has finished, so the
+image must be complete before the launch, as ``weight_image`` makes it.
+``conv_launch_shape`` picks its pieces (channels and boards) from the
+batch; every shape gives the same bits.
 
 How far the kernel may be from its plain version: with the BatchNorm,
 not at all from ``bn_act_plain`` of its own conv (the epilogue rounds the
@@ -54,8 +59,15 @@ CHANNELS = (32, 128, 256)
 # K values (bf16) in a row of the weight image: 128 bytes, one row of the
 # card's 128-byte shared-memory swizzle
 CHUNK_K = 64
-BOARDS_PER_BLOCK = 4                    # consumer warpgroups, a board each
-_STAGES = 4                             # the weight ring's
+# A block's shared memory after the opt-in (conv_kernels.cu: kSmemOptIn)
+_SMEM_OPT_IN = 232_448
+# The kernel's launch shapes (conv_kernels.cu: CONV_SHAPES) in the launch
+# rule's order: (channels a piece, boards a piece, one a consumer
+# warpgroup). The order is measured (scripts/conv_launch_sweep.py on an
+# H100): where several shapes fill one wave, the first of them in this
+# list was the fastest or within 2% of it.
+_WIDE = ((16, 1), (16, 2), (64, 1), (128, 1), (128, 2), (128, 3), (128, 4))
+SHAPES = {32: ((32, 1), (32, 2), (32, 3), (32, 4)), 128: _WIDE, 256: _WIDE}
 # The share of a conv's elements that may differ from conv3x3_plain(...,
 # f64_sums=True) on the card, each by one bf16 step: 1e-4, or what f32
 # sums in the kernel's k order give on the archived net's 41 conv sites
@@ -111,12 +123,17 @@ def weight_image_kmajor(wk: torch.Tensor, n: int) -> torch.Tensor:
 def weight_image(w: torch.Tensor) -> torch.Tensor:
     """The conv kernel's image of the OIHW weights ``w`` (C, C, 3, 3), C
     one of ``CHANNELS``: (C / N, ceil(9C / 64), N, 64) with N =
-    ``tile_width(C)``, in ``w``'s dtype and on its device."""
+    ``tile_width(C)``, in ``w``'s dtype and on its device. On a card it
+    returns once the image is complete there: the kernel reads its image
+    before it waits for the kernel launched ahead of it."""
     C = w.shape[0]
     if tuple(w.shape) != (C, C, 3, 3) or C not in CHANNELS:
         raise ValueError(f"the conv kernel takes (C, C, 3, 3) weights with "
                          f"C one of {CHANNELS}, got {tuple(w.shape)}")
-    return weight_image_kmajor(kmajor(w), tile_width(C))
+    image = weight_image_kmajor(kmajor(w), tile_width(C))
+    if image.is_cuda:
+        torch.cuda.current_stream(image.device).synchronize()
+    return image
 
 
 def image_weights(image: torch.Tensor) -> torch.Tensor:
@@ -232,41 +249,60 @@ def _align(n: int, a: int) -> int:
     return (n + a - 1) // a * a
 
 
-def conv_smem_bytes(C: int) -> int:
-    """A block's shared memory in ``conv3x3_kernel<C, ...>``
-    (``conv_kernels.cu:Smem``): the ring of weight chunks, four boards'
-    padded rows, the zero row, the BatchNorm constants and the mbarriers
-    (full and empty a stage, the constants'), and 1024 bytes of slack to
-    align the ring."""
-    N = tile_width(C)
-    size = (_STAGES * N * CHUNK_K * 2 + BOARDS_PER_BLOCK * 64 * (C + 8) * 2
-            + (C + 8) * 2 + 3 * C * 4
-            + (2 * _STAGES + 1) * 8)
+def conv_stages(C: int, np_: int, per: int) -> int:
+    """Stages of the weight ring of ``conv3x3_kernel<C, np_, per>``
+    (``conv_kernels.cu:ring_stages``): as many chunks of ``np_`` channels
+    as fit beside ``per`` boards' padded rows, the zero row, the BatchNorm
+    constants and the mbarriers (16 bytes a stage, 8 for the constants'),
+    and no more than the ``ceil(9C / 64)`` chunks of a piece."""
+    fixed = per * 64 * (C + 8) * 2 + (C + 8) * 2 + 3 * C * 4 + 8
+    fit = (_SMEM_OPT_IN - 1024 - fixed) // (np_ * CHUNK_K * 2 + 16)
+    return min(fit, -(-9 * C // CHUNK_K))
+
+
+def conv_smem_bytes(C: int, np_: int, per: int) -> int:
+    """A block's shared memory in ``conv3x3_kernel<C, np_, per>``
+    (``conv_kernels.cu:Smem``): the ring, ``per`` boards' padded rows, the
+    zero row, the BatchNorm constants and the mbarriers, and 1024 bytes of
+    slack to align the ring."""
+    stages = conv_stages(C, np_, per)
+    size = (stages * (np_ * CHUNK_K * 2 + 16) + per * 64 * (C + 8) * 2
+            + (C + 8) * 2 + 3 * C * 4 + 8)
     return _align(size, 8) + 1024
 
 
 def conv_launch_shape(B: int, C: int, sms: int) -> Dict[str, int]:
     """The kernel's launch for B boards at width C on a card of ``sms``
     multiprocessors: ``pieces`` of work, each ``per`` boards (one a
-    consumer warpgroup) and a tile of N output channels or ``half`` of
-    one (C 128 and 256); a ``grid`` of at most one block an SM that walks
-    over them; the ``smem`` bytes a block. The shape is the first of (one
-    board, half a tile), (one board, a tile), (two boards, a tile), (four
-    boards, a tile) whose pieces fit in one wave, else the last: a
-    block's work as small as the card allows, since one board's chain of
-    products is bound by its latency, not by the tensor cores
-    (``scripts/conv_launch_sweep.py`` times every shape). Every shape runs
-    the same products in the same order on a board's elements, so the
-    shape changes no bit."""
-    tiles = C // tile_width(C)
-    for per, half in ((1, 1), (1, 0), (2, 0), (BOARDS_PER_BLOCK, 0)):
-        if half and C < 128:
-            continue
-        pieces = -(-B // per) * tiles << half
-        if pieces <= sms:
-            break
-    return {"grid": max(1, min(pieces, sms)), "pieces": pieces,
-            "half": half, "per": per, "smem": conv_smem_bytes(C)}
+    consumer warpgroup) and ``np`` output channels of a tile; a ``grid``
+    of at most one block an SM, each taking a run of consecutive pieces;
+    the ``smem`` bytes a block. The shape is the first of ``SHAPES[C]``
+    whose pieces take the fewest waves (one, up to 528 boards at C 128 on
+    132 multiprocessors): a block's work as small as the card allows,
+    since one board's chain of products is bound by its latency, not by
+    the tensor cores; at one board eight blocks of 16 channels each, at
+    512 four boards and a whole tile (``scripts/conv_launch_sweep.py``
+    times every shape). Every shape runs the same products in the same
+    order on a board's elements, so the shape changes no bit."""
+    def waves(shape):
+        np_, per = shape
+        return -(-(-(-B // per) * (C // np_)) // sms)
+
+    return launch_in_shape(B, C, *min(SHAPES[C], key=waves), sms)
+
+
+def launch_in_shape(B: int, C: int, np_: int, per: int, sms: int
+                    ) -> Dict[str, int]:
+    """The launch of B boards at width C in pieces of ``np_`` channels and
+    ``per`` boards (one of ``SHAPES[C]``): its ``pieces``, and a ``grid``
+    of at most ``sms`` blocks, each taking a run of ``ceil(pieces /
+    grid)`` consecutive pieces (the kernel's own count), as few blocks as
+    give the shortest run."""
+    pieces = -(-B // per) * (C // np_)
+    run = -(-pieces // sms)
+    return {"grid": max(1, -(-pieces // run)), "pieces": pieces,
+            "np": np_, "per": per, "smem": conv_smem_bytes(C, np_, per),
+            "stages": conv_stages(C, np_, per)}
 
 
 def _lib() -> ctypes.CDLL:
@@ -275,7 +311,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv3x3_init.argtypes = [ctypes.POINTER(i)]
         lib.conv3x3_init.restype = i
-        lib.conv3x3_smem_bytes.argtypes = [i]
+        lib.conv3x3_smem_bytes.argtypes = [i] * 3
         lib.conv3x3_smem_bytes.restype = i
         lib.conv3x3_bf16.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.conv3x3_bf16.restype = i
@@ -311,8 +347,10 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bn: BN | None = None,
     = float32 (mean, mul, beta) of C, the inference BatchNorm and, with
     ``relu``, its ReLU; a new contiguous map. On a CUDA tensor one launch
     of ``conv3x3_kernel``, which reads ``image`` (``weight_image(w)``, made
-    once) and takes contiguous bfloat16 maps with C one of ``CHANNELS``;
-    on a CPU tensor ``conv3x3_plain``."""
+    once, and not written since by the kernel launched just before: the
+    kernel reads it before it waits for that one) and takes contiguous
+    bfloat16 maps with C one of ``CHANNELS``; on a CPU tensor
+    ``conv3x3_plain``."""
     epilogue._check_map("x", x)
     C = x.shape[3]
     if tuple(w.shape) != (C, C, 3, 3):
@@ -344,7 +382,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bn: BN | None = None,
         tuple(t.data_ptr() for t in bn)
     rc = _lib().conv3x3_bf16(
         x.data_ptr(), image.data_ptr(), *consts, out.data_ptr(), B, C,
-        _EPI[(bn is not None, relu)], shape["grid"], shape["half"],
+        _EPI[(bn is not None, relu)], shape["grid"], shape["np"],
         shape["per"], torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {rc}")

@@ -48,19 +48,19 @@ launches of the replays.
 - phase 17 (``conv``): the bf16 3x3 conv kernel (``conv3x3``,
   ``csrc/conv_kernels.cu``, ``wgmma`` with the BatchNorm as its epilogue)
   at every ``conv3x3`` site of one bf16 forward of the archived net (41:
-  two a block and the policy conv) at 512 boards and at the web bot's 1
-  and 2, in its three epilogues (none, affine, affine and ReLU): the conv
+  two a block and the policy conv) at 512 boards, the trainer's 128, the
+  gates' 32 and the web bot's 1 and 2, in its three epilogues (none, affine, affine and ReLU): the conv
   against ``conv3x3_plain`` with float64 sums, every element within one
   bf16 step or, where the terms cancel, the float32 sum's bound beside it
   (``conv.card_check``), and at most ``max(2 x cuDNN's share,
   conv.CONV_UNEQUAL_SHARE)`` unequal, cuDNN's share measured on the same
   operands; each epilogue bit-equal to ``bn_act_plain`` of the conv
-  alone; the 1- and 2-board launches bit-equal to the 512-board launch's
+  alone; the smaller launches bit-equal to the 512-board launch's
   first boards, and one site's 512 boards each launched alone; the same
   at C 32 and 256 on random maps and weights; its ``ptxas`` report (no
-  spill, no C75xx remark); its times at 512 boards and at one in turns
-  with ``F.conv2d`` (cuDNN, channels-last bf16), beside its bound, its
-  plain version and the launch floor;
+  spill, no C75xx remark); its times at 512, 128, 32 and one boards, each
+  in turns with ``F.conv2d`` (cuDNN, channels-last bf16) and beside its
+  bound, and its plain version and the launch floor;
 - phase 3: the self-play search at full width (512 games x 800
   simulations) through ``selfplay_move`` on one tree: a warm-up move that
   captures the simulation, then one counted and timed move of 800
@@ -1127,6 +1127,7 @@ def phase_card_vs_cpu(dev):
 @phase("phase 5 continuous self-play")
 def phase_continuous(dev, net, card):
     from alphazero_torch.config import Config
+    from alphazero_torch.models import conv
     from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
@@ -1135,6 +1136,7 @@ def phase_continuous(dev, net, card):
     cfg = Config(num_simulations=CONT_SIMS, parallel_games=CONT_LANES)
     eval_fn = mcts.make_net_evaluator(net, getattr(torch, cfg.inference_dtype))
     gen = torch.Generator(device=dev).manual_seed(2)
+    conv.conv3x3.launches = 0
     K.fetch_rows.launches = 0
     K.descend.launches = 0
     K.commit_edges.launches = 0
@@ -1180,6 +1182,7 @@ def phase_continuous(dev, net, card):
            "launches_per_sim": {
                "descend": K.descend.launches / st.simulations,
                "commit_edges": K.commit_edges.launches / st.simulations},
+           "conv3x3_launches": conv.conv3x3.launches,
            "card": card}
     print("continuous " + json.dumps(out), flush=True)
     from alphazero_torch.env import breakthrough as env
@@ -1439,6 +1442,7 @@ def phase_trainer(dev, card):
         config_from_archive,
         load_archive,
     )
+    from alphazero_torch.models import conv
     from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
@@ -1453,6 +1457,7 @@ def phase_trainer(dev, card):
             checkpoint_dir=os.path.join(tmp, "checkpoints"))
         tr = Trainer(cfg, seed=0, net=load_archive(ARCHIVE, device=dev),
                      device=dev)
+        conv.conv3x3.launches = 0
         K.fetch_rows.launches = 0
         K.descend.launches = 0
         K.commit_edges.launches = 0
@@ -1462,7 +1467,8 @@ def phase_trainer(dev, card):
             torch.cuda.reset_peak_memory_stats()
         metrics = [tr.run_iteration() for _ in range(2)]
         launches = {"descend": K.descend.launches,
-                    "commit_edges": K.commit_edges.launches}
+                    "commit_edges": K.commit_edges.launches,
+                    "conv3x3": conv.conv3x3.launches}
         st = mcts.STATS
         check(all(v > 0 for v in launches.values()),
               f"the trainer's self-play did not launch both kernels: "
@@ -1976,7 +1982,9 @@ def wide_se_check(dev, sms):
 # Phase 17: the bf16 evaluator's 3x3 convolutions on conv3x3_kernel
 # -----------------------------------------------------------------------------
 
-CONV_BATCHES = (GAMES, 1, 2)       # the main path's, and the web bot's
+# the main path's, the trainer's, the gates', the web bot's, and two
+CONV_BATCHES = (GAMES, 128, 32, 1, 2)
+CONV_TIMED = (GAMES, 128, 32, 1)   # timed in turns with cuDNN
 CONV_WIDE = (32, 256)              # the other widths the kernel takes
 
 
@@ -2137,23 +2145,35 @@ def phase_conv(dev, net):
                                             conv.multiprocessors(dev))
         wide[C] = t
 
-    # times at block 0's conv1 (affine and ReLU), at 512 boards and at 1,
-    # in turns with F.conv2d (cuDNN, channels-last bf16): the call this
-    # kernel took off the path, which the path never calls now
+    # times at block 0's conv1 (affine and ReLU), at each of CONV_TIMED
+    # boards, in turns with F.conv2d (cuDNN, channels-last bf16): the call
+    # this kernel took off the path, which the path never calls now
     x, w, bn, relu, image = sites[0]
+    batches = {}
+    for B in CONV_TIMED:
+        xb = x[:B].contiguous()
+        xb_cl = xb.permute(0, 3, 1, 2)
+        kernel_b = lambda i: conv.conv3x3(xb, w, bn, True, image)
+        library_b = lambda i: torch.nn.functional.conv2d(xb_cl, w, padding=1)
+        turns_b = [cuda_ms(kernel_b, what=f"conv3x3 {B}"),
+                   cuda_ms(library_b, what=f"cuDNN {B}"),
+                   cuda_ms(library_b, what=f"cuDNN {B}"),
+                   cuda_ms(kernel_b, what=f"conv3x3 {B}")]
+        batches[B] = {
+            "ms": (turns_b[0] + turns_b[3]) / 2, "ms_turns": turns_b,
+            "library_ms": (turns_b[1] + turns_b[2]) / 2,
+            "bound_ms": conv_bound_ms(B, 128)[0],
+            "shape": conv.conv_launch_shape(B, 128,
+                                            conv.multiprocessors(dev))}
+        print(f"conv3x3 at {B} boards, C 128, affine and ReLU, in turns "
+              f"with cuDNN: {json.dumps(batches[B])}", flush=True)
     x1 = x[:1].contiguous()
     x_cl, x1_cl = x.permute(0, 3, 1, 2), x1.permute(0, 3, 1, 2)
     kernel = lambda i: conv.conv3x3(x, w, bn, True, image)
     kernel1 = lambda i: conv.conv3x3(x1, w, bn, True, image)
     library = lambda i: torch.nn.functional.conv2d(x_cl, w, padding=1)
     library1 = lambda i: torch.nn.functional.conv2d(x1_cl, w, padding=1)
-    turns = [cuda_ms(kernel, what="conv3x3"),
-             cuda_ms(library, what="cuDNN"), cuda_ms(library, what="cuDNN"),
-             cuda_ms(kernel, what="conv3x3")]
-    turns1 = [cuda_ms(kernel1, what="conv3x3 1"),
-              cuda_ms(library1, what="cuDNN 1"),
-              cuda_ms(library1, what="cuDNN 1"),
-              cuda_ms(kernel1, what="conv3x3 1")]
+    turns, turns1 = (batches[GAMES]["ms_turns"], batches[1]["ms_turns"])
     lib = K._lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     plain = lambda i: conv.conv3x3_plain(x, w, bn, True)
@@ -2184,10 +2204,12 @@ def phase_conv(dev, net):
              cudnn_share=total["cudnn_share"],
              beyond_one_step=total["beyond_one_step"],
              cudnn_beyond_one_step=total["cudnn_beyond_one_step"],
-             max_steps=total["max_steps"], wide=wide)
+             max_steps=total["max_steps"], wide=wide,
+             batches={str(B): v for B, v in batches.items()})
     print(f"conv3x3 at {GAMES} boards, C 128, affine and ReLU (b1_: one "
           f"board; library: F.conv2d, cuDNN, in turns; wide: C 32 and 256 "
-          f"at {GAMES} boards): {json.dumps(t)}", flush=True)
+          f"at {GAMES} boards; batches: each of {CONV_TIMED} in turns): "
+          f"{json.dumps(t)}", flush=True)
     return t
 
 
@@ -2368,8 +2390,11 @@ def phase_arena(dev, evals, card):
     from alphazero_torch.arena import match
     from alphazero_torch.config import Config
 
+    from alphazero_torch.models import conv
+
     pair_eval_fn = match.select_evaluator(evals["int8"], evals["bf16"])
     rng = random.Random(0)
+    conv.conv3x3.launches = 0
     openings = [match.random_opening(rng) for _ in range(ARENA_OPENINGS)]
     moves, real = [0], match._match_move
 
@@ -2392,7 +2417,8 @@ def phase_arena(dev, evals, card):
     print("arena " + json.dumps({
         "openings": ARENA_OPENINGS, "games": 2 * ARENA_OPENINGS,
         "sims": ARENA_SIMS, "wins_int8_static": wins[0], "wins_bf16": wins[1],
-        "lockstep_moves": moves[0], "seconds": dt, "card": card}),
+        "lockstep_moves": moves[0], "seconds": dt,
+        "bf16_conv3x3_launches": conv.conv3x3.launches, "card": card}),
           flush=True)
 
 

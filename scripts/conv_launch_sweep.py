@@ -7,10 +7,13 @@ gives the same bits.
 
 For C 128 and 256, random maps and weights from a seed, the affine and
 ReLU epilogue, and B from 1 to 512 boards: one JSON line a (C, B) with
-``F.conv2d`` (cuDNN, channels-last bf16), each shape ``p<per>h<half>``
-(boards a piece, half a tile or not; ``conv.conv_launch_shape``) and the
-shape the rule picks, in device ms (``chip_smoke.cuda_ms``). Fails if two
-shapes differ in a bit. Needs a CUDA card; about half a minute.
+the bound (``chip_smoke.conv_bound_ms``), the wrapper's launch (the shape
+``conv.conv_launch_shape`` picks, ``rule``) and ``F.conv2d`` (cuDNN,
+channels-last bf16, the conv alone) timed in turns (kernel, cuDNN, cuDNN,
+kernel: ``kernel_turns``, ``cudnn_turns``), then every shape of
+``conv.SHAPES[C]`` once, ``n<channels a piece>p<boards a piece>``, in
+device ms (``chip_smoke.cuda_ms``). Fails if two shapes differ in a bit.
+Needs a CUDA card; about a minute.
 """
 
 import json
@@ -23,7 +26,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 BATCHES = (1, 2, 8, 16, 32, 64, 96, 128, 192, 256, 384, 512)
-SHAPES = ((4, 0), (4, 1), (2, 0), (2, 1), (1, 0), (1, 1))
 
 
 def main():
@@ -48,30 +50,38 @@ def main():
             torch.randn(C, generator=g)))
         for B in BATCHES:
             xb = x[:B].contiguous()
-            row = {"C": C, "B": B, "cudnn": cs.cuda_ms(
-                lambda i: torch.nn.functional.conv2d(
-                    xb.permute(0, 3, 1, 2), w, padding=1), what="cuDNN")}
-            ref = None
-            for per, half in SHAPES:
+            xb_cl = xb.permute(0, 3, 1, 2)
+            shape = conv.conv_launch_shape(B, C, sms)
+            kernel = lambda i: conv.conv3x3(xb, w, bn, True, image)
+            cudnn = lambda i: torch.nn.functional.conv2d(xb_cl, w, padding=1)
+            turns = [cs.cuda_ms(kernel, what="conv3x3"),
+                     cs.cuda_ms(cudnn, what="cuDNN"),
+                     cs.cuda_ms(cudnn, what="cuDNN"),
+                     cs.cuda_ms(kernel, what="conv3x3")]
+            row = {"C": C, "B": B, "bound": cs.conv_bound_ms(B, C)[0],
+                   "rule": f"n{shape['np']}p{shape['per']}",
+                   "kernel": (turns[0] + turns[3]) / 2,
+                   "cudnn": (turns[1] + turns[2]) / 2,
+                   "kernel_turns": [turns[0], turns[3]],
+                   "cudnn_turns": [turns[1], turns[2]]}
+            ref = conv.conv3x3(xb, w, bn, True, image)
+            for np_, per in conv.SHAPES[C]:
                 out = torch.empty_like(xb)
-                pieces = -(-B // per) * (C // 128) << half
-                grid = min(pieces, sms)
+                s = conv.launch_in_shape(B, C, np_, per, sms)
 
                 def run(i):
                     rc = lib.conv3x3_bf16(
                         xb.data_ptr(), image.data_ptr(),
                         *(t.data_ptr() for t in bn), out.data_ptr(), B, C,
-                        2, grid, half, per, stream)
+                        2, s["grid"], np_, per, stream)
                     cs.check(rc == 0, f"launch failed: CUDA error {rc}")
 
                 run(0)
                 torch.cuda.synchronize()
-                ref = out.clone() if ref is None else ref
                 cs.check(torch.equal(out, ref),
-                         f"C {C}, B {B}: shape {per}, {half} differs")
-                row[f"p{per}h{half}"] = cs.cuda_ms(run, what="conv3x3")
-            shape = conv.conv_launch_shape(B, C, sms)
-            row["rule"] = f"p{shape['per']}h{shape['half']}"
+                         f"C {C}, B {B}: shape n{np_}p{per} differs from "
+                         f"the rule's n{shape['np']}p{shape['per']}")
+                row[f"n{np_}p{per}"] = cs.cuda_ms(run, what="conv3x3")
             print(json.dumps(row), flush=True)
 
 

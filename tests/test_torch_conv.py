@@ -231,30 +231,79 @@ def test_card_check_rejects_sums_off_by_more_than_the_bound():
 # -----------------------------------------------------------------------------
 
 @pytest.mark.parametrize("B,C,want", [
-    # (grid, pieces, half, per)
-    (512, 128, (128, 128, 0, 4)), (1, 128, (2, 2, 1, 1)),
-    (2, 32, (2, 2, 0, 1)), (37, 128, (74, 74, 1, 1)),
-    (128, 128, (128, 128, 0, 1)), (264, 128, (132, 132, 0, 2)),
-    (268, 128, (67, 67, 0, 4)), (512, 256, (132, 256, 0, 4)),
-    (1, 256, (4, 4, 1, 1)), (1031, 128, (132, 258, 0, 4)),
-    (512, 32, (128, 128, 0, 4)),
+    # (grid, pieces, channels a piece, boards a piece)
+    (512, 128, (128, 128, 128, 4)), (1, 128, (8, 8, 16, 1)),
+    (2, 32, (2, 2, 32, 1)), (37, 128, (74, 74, 64, 1)),
+    (128, 128, (128, 128, 128, 1)), (264, 128, (132, 132, 128, 2)),
+    (268, 128, (90, 90, 128, 3)), (512, 256, (128, 256, 128, 4)),
+    (1, 256, (16, 16, 16, 1)), (1031, 128, (129, 258, 128, 4)),
+    (512, 32, (128, 128, 32, 4)),
+    # the gates' 32 boards, the web bot's 2, a wave and one past it
+    (32, 128, (128, 128, 16, 2)), (2, 128, (16, 16, 16, 1)),
+    (16, 128, (128, 128, 16, 1)), (17, 128, (72, 72, 16, 2)),
+    (64, 128, (128, 128, 64, 1)), (67, 128, (67, 67, 128, 1)),
+    (528, 128, (132, 132, 128, 4)), (529, 128, (89, 177, 128, 3)),
+    (384, 256, (128, 256, 128, 3)),
+    (384, 128, (128, 128, 128, 3)), (33, 128, (66, 66, 64, 1)),
+    (133, 32, (67, 67, 32, 2)), (256, 256, (128, 128, 128, 4)),
 ])
 def test_conv_launch_shape(B, C, want):
-    """A block's work as small as one wave allows: one board and half a
-    tile for the web bot, four boards and a whole tile at 512."""
+    """A block's work as small as one wave allows, in ``SHAPES``'s order:
+    one board and an eighth of a tile for the web bot, two boards and an
+    eighth at the gates' 32, one board and a whole tile at the trainer's
+    128, three boards at 384, four at 512; past one wave, the first shape
+    with the fewest waves, in runs of consecutive pieces, as few blocks as
+    give the shortest run (C 256 at 512 boards: both tiles of a group in
+    one block)."""
     shape = conv.conv_launch_shape(B, C, 132)
-    assert (shape["grid"], shape["pieces"], shape["half"],
+    assert (shape["grid"], shape["pieces"], shape["np"],
             shape["per"]) == want
-    assert shape["smem"] == conv.conv_smem_bytes(C)
+    assert (shape["np"], shape["per"]) in conv.SHAPES[C]
+    assert shape["smem"] == conv.conv_smem_bytes(C, shape["np"],
+                                                 shape["per"])
+
+
+@pytest.mark.parametrize("C", conv.CHANNELS)
+@pytest.mark.parametrize("B", [1, 3, 31, 130, 131, 257, 600, 2000])
+def test_every_shape_covers_its_pieces_once(B, C):
+    """The kernel's blocks take runs of ``ceil(pieces / grid)``
+    consecutive pieces: every piece falls in exactly one block's run, no
+    block is empty, and no shape launches more blocks than the card has
+    multiprocessors."""
+    for np_, per in conv.SHAPES[C]:
+        s = conv.launch_in_shape(B, C, np_, per, 132)
+        assert s["pieces"] == -(-B // per) * (C // np_)
+        run = -(-s["pieces"] // s["grid"])
+        owners = [p // run for p in range(s["pieces"])]
+        assert owners[-1] == s["grid"] - 1 and s["grid"] <= 132
+        assert sorted(set(owners)) == list(range(s["grid"]))
 
 
 def test_conv_widths_fit_the_shared_memory():
-    """The layout of each width (``conv_kernels.cu:Smem``, counted by
-    hand) within a block's opt-in shared memory."""
-    assert {C: conv.conv_smem_bytes(C) for C in conv.CHANNELS} == {
-        32: 37_400 + 1024, 128: 137_048 + 1024, 256: 204_376 + 1024}
-    assert max(conv.conv_smem_bytes(C) for C in conv.CHANNELS) \
-        <= epilogue.SMEM_PER_BLOCK
+    """The layout of each shape (``conv_kernels.cu:Smem``, counted by
+    hand) within a block's opt-in shared memory: pieces of 64 channels or
+    fewer at C 128 hold every chunk of the weights at once, a whole tile
+    12 stages for one board and 9 for four."""
+    want = {  # (C, channels, boards): (stages, bytes without the slack)
+        (128, 64, 1): (18, 18 * (8192 + 16) + 17_408 + 272 + 1_536 + 8),
+        (128, 128, 1): (12, 12 * (16_384 + 16) + 17_408 + 272 + 1_536 + 8),
+        (128, 128, 4): (9, 9 * (16_384 + 16) + 69_632 + 272 + 1_536 + 8),
+        (128, 128, 3): (10, 10 * (16_384 + 16) + 52_224 + 272 + 1_536 + 8),
+        (128, 16, 2): (18, 18 * (2_048 + 16) + 34_816 + 272 + 1_536 + 8),
+        (256, 128, 4): (5, 5 * (16_384 + 16) + 135_168 + 528 + 3_072 + 8),
+        (32, 32, 4): (5, 5 * (4_096 + 16) + 20_480 + 80 + 384 + 8),
+    }
+    for (C, np_, per), (stages, size) in want.items():
+        assert conv.conv_stages(C, np_, per) == stages
+        assert conv.conv_smem_bytes(C, np_, per) == size + 1024
+    for C, shapes in conv.SHAPES.items():
+        chunks = -(-9 * C // conv.CHUNK_K)
+        for np_, per in shapes:
+            stages = conv.conv_stages(C, np_, per)
+            assert 4 <= stages <= chunks
+            assert stages == chunks or np_ == 128 or (C, np_) == (256, 64)
+            assert conv.conv_smem_bytes(C, np_, per) \
+                <= epilogue.SMEM_PER_BLOCK
 
 
 def test_wrapper_refuses_other_shapes():
@@ -407,10 +456,83 @@ def test_cuda_conv3x3_refuses_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.gpu
 def test_cuda_shared_memory_layout_is_the_kernels(cuda):
-    """``conv_smem_bytes`` counts what the kernel's ``Smem`` takes."""
+    """``conv_smem_bytes`` counts what the kernel's ``Smem`` takes, shape
+    by shape, and the kernel has no shape that ``SHAPES`` lacks."""
     lib = conv._lib()
-    assert {C: lib.conv3x3_smem_bytes(C) for C in conv.CHANNELS} == {
-        C: conv.conv_smem_bytes(C) for C in conv.CHANNELS}
+    for C, shapes in conv.SHAPES.items():
+        for np_, per in shapes:
+            assert lib.conv3x3_smem_bytes(C, np_, per) == \
+                conv.conv_smem_bytes(C, np_, per)
+    assert lib.conv3x3_smem_bytes(128, 32, 1) == 0
+    assert lib.conv3x3_smem_bytes(32, 16, 1) == 0
+
+
+def _launch(x, image, bn, C, np_, per, epi=2):
+    """One launch of the kernel in a shape of the caller's choosing."""
+    lib = conv._lib()
+    B = x.shape[0]
+    s = conv.launch_in_shape(B, C, np_, per, conv.multiprocessors(x.device))
+    out = torch.empty_like(x)
+    consts = (None,) * 3 if bn is None else tuple(t.data_ptr() for t in bn)
+    rc = lib.conv3x3_bf16(x.data_ptr(), image.data_ptr(), *consts,
+                          out.data_ptr(), B, C, epi, s["grid"], np_, per,
+                          torch.cuda.current_stream(x.device).cuda_stream)
+    assert rc == 0, rc
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", conv.CHANNELS)
+@pytest.mark.parametrize("B", [1, 37, 300])
+def test_cuda_every_shape_against_plain_and_the_ring(cuda, B, C):
+    """Every launch shape on the card: the conv alone within
+    ``card_check``'s bounds of the float64 sums, and every shape's output,
+    in each epilogue, bit-equal to the four-board shape with a whole tile
+    (the weights through the ring)."""
+    x, w = _inputs(B, C, 3 * B + C, cuda)
+    bn = _bn(C, B, cuda)
+    image = conv.weight_image(w)
+    ring = conv.SHAPES[C][-1]
+    limit = max(conv.CONV_UNEQUAL_SHARE, 2 * _cudnn_share(x, w))
+    for np_, per in conv.SHAPES[C]:
+        outs = {k: _launch(x, image, bn if affine else None, C, np_, per,
+                           epi)
+                for epi, (k, (affine, relu)) in enumerate(EPILOGUES.items())}
+        torch.cuda.synchronize()
+        r = conv.card_check(x, w, bn, outs, limit)
+        assert r["ok"], (np_, per, r)
+        for epi, k in enumerate(EPILOGUES):
+            want = _launch(x, image, bn if epi else None, C, *ring, epi)
+            torch.cuda.synchronize()
+            assert torch.equal(outs[k], want), (np_, per, k)
+
+
+@pytest.mark.gpu
+def test_cuda_captured_forward_equals_the_eager_one(cuda):
+    """The bf16 forward of a 2 x 128 net captured as a CUDA graph (each
+    ``conv3x3`` a programmatic dependent launch, kept as such in the
+    graph) and replayed twice, bit-equal to the same forward run eagerly,
+    at 1, 32 and 128 boards."""
+    net = _net(2, 128, 21).to(cuda)
+    prep = inference.prepare_inference(net, torch.bfloat16)
+    for B in (1, 32, 128):
+        x = torch.from_numpy((np.random.default_rng(B).random(
+            (B, 3, 8, 8)) > 0.5).astype(np.float32)).to(cuda)
+        want = inference.inference_apply(prep, x)
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            inference.inference_apply(prep, x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = inference.inference_apply(prep, x)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), B
 
 
 def _net(blocks, C, seed):
