@@ -131,11 +131,54 @@
 // a node twice), so its lanes never meet, and different games own
 // different rows; no atomics, no order between lanes needed.
 //
-// A simulation is one descend launch, the evaluator, the expansion's row
-// write and one commit_path launch, none of which the host has to read
-// for: the search captures it once as a CUDA graph and replays it
-// (alphazero_torch/search/graph.py). Each entry point launches on the
-// given stream and returns cudaGetLastError(); it never synchronises.
+// encode_planes and expand are the glue of a simulation around its
+// evaluation, which the JAX package leaves to XLA: XLA fuses it into a few
+// fusions of the jitted simulation (alphazero_tpu/search/mcts.py:362-464),
+// where PyTorch spells it out as some eighty small launches.
+//
+// encode_planes: the network's input planes of the leaf states,
+// alphazero_tpu/env/breakthrough.py:231 encoded_state. out[b] = (mine,
+// theirs, ones) as float32 0/1 in the canonical frame: the board turned by
+// 180 degrees (square s read at 63 - s) unless White is to move, mine the
+// squares that hold the mover's value, theirs its negation.
+//   Bound on an H100: its bytes, B x (64 + 1 read, 768 written), 0.43 MB
+//   at 512 games, 0.13 us at 3.35 TB/s; the launch floor is above it.
+//   Design: one thread a square, 64 a game, so that a warp writes 128
+//   contiguous bytes of each plane; no shared memory, no barrier.
+//
+// expand: the tail of the evaluation, the expansion and the root's stats,
+// alphazero_tpu/search/mcts.py:377-420 and 453-464, for every game b:
+//   v = done ? terminal value for the player to move : value[b] (written
+//   to value_out, what commit_path adds up the path); the legal mask of the
+//   leaf board (192 canonical actions, none if done); the priors
+//   policy[b] / mass over the legal actions, or 1 / n_legal on each legal
+//   action when the mass is not > 0; the row at the device slot:
+//   [legal ? -1 : -2 | prior] if needs_alloc and not done, else [-2 | 0],
+//   with tree reuse also the visit and vsum blocks zeroed and parents[slot]
+//   = needs_alloc ? path_nodes[depth - 1] : 0; root_visit += 1, root_vsum
+//   += (odd depth ? -v : v), node_count += needs_alloc, and the depth to
+//   the search's accumulator.
+//   The one sum, the legal mass, is taken in a fixed order that the plain
+//   version (search/kernels.py:legal_mass) writes out: lane l adds the
+//   masked priors of actions l, l + 32, ..., l + 160 in that order, then
+//   the warp halves its 32 partial sums five times (s[j] + s[j + 16], ...,
+//   by xor shuffles, whose two operands commute). Every other float
+//   operation is one round-to-nearest intrinsic, so the kernel is bit-equal
+//   to the plain version.
+//   Bound on an H100: its bytes, B x about 2.4 KB (the policy read, the
+//   row written, some 60 bytes of state; 3.9 KB with tree reuse), 1.2 MB
+//   at 512 games, 0.37 us at 3.35 TB/s; the launch floor is above it.
+//   Design: one warp a game, six actions a lane; the leaf board becomes
+//   two 64-bit sets of squares by two ballots (descend's bitboards), so
+//   the legal mask is three shifts and masks of the whole set; one barrier
+//   a block, for one atomic add of its games' depths.
+//
+// A simulation is one descend launch, encode_planes, the evaluator, one
+// expand launch, one commit_path launch and the slot's increment, none of
+// which the host has to read for: the search captures it once as a CUDA
+// graph and replays it (alphazero_torch/search/graph.py). Each entry point
+// launches on the given stream and returns cudaGetLastError(); it never
+// synchronises.
 
 #include <cmath>
 #include <cstdint>
@@ -425,6 +468,155 @@ descend_kernel(const DescendArgs p) {
   }
 }
 
+// ---- encode_planes, expand -------------------------------------------------
+
+constexpr int kEncodeGames = 4;       // games a block, a thread a square
+constexpr int kExpandGames = 4;       // games a block, a warp each
+constexpr int kActions = 192;         // canonical actions: 64 squares x 3
+constexpr int kPerLane = kActions / 32;
+
+__global__ void __launch_bounds__(kEncodeGames * kSquares)
+encode_planes_kernel(const int8_t* __restrict__ board,
+                     const int8_t* __restrict__ turn,
+                     float* __restrict__ out, int B) {
+  const int b = blockIdx.x * kEncodeGames + threadIdx.x / kSquares;
+  if (b >= B) return;
+  const int s = threadIdx.x % kSquares;
+  const int8_t t = turn[b];
+  const int8_t v =
+      board[(int64_t)b * kSquares + (t == 1 ? s : kSquares - 1 - s)];
+  float* o = out + (int64_t)b * 3 * kSquares + s;
+  o[0] = v == t ? 1.0f : 0.0f;
+  o[kSquares] = v == (int8_t)-t ? 1.0f : 0.0f;
+  o[2 * kSquares] = 1.0f;
+}
+
+struct ExpandArgs {
+  float* rows;                  // (B, M, R); the row at the slot is written
+  int32_t* parents;             // (B, M)
+  int32_t* root_visit;          // (B,)
+  float* root_vsum;
+  int32_t* node_count;
+  const int32_t* slot;          // the simulation's fresh slot
+  const int8_t* board;          // leaf state: (B, 64) absolute squares
+  const int8_t* turn;
+  const int8_t* winner;
+  const uint8_t* done;
+  const uint8_t* needs_alloc;   // descend's results
+  const int32_t* depth;
+  const int32_t* path_nodes;    // (B, N)
+  const float* policy;          // (B, 192) the evaluator's probabilities
+  const float* value;           // (B,) its values
+  float* value_out;             // (B,) the leaf values commit_path adds
+  unsigned long long* depth_sum;  // the search's depth accumulator
+  int64_t M, R;
+  int B, N, tree_reuse;
+};
+
+__global__ void __launch_bounds__(kExpandGames * 32)
+expand_kernel(const ExpandArgs p) {
+  __shared__ int s_depth[kExpandGames];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kExpandGames + warp;
+  int depth = 0;
+  if (b < p.B) {                        // the whole warp or none of it
+    depth = p.depth[b];
+    const int turn = p.turn[b];
+    const int winner = p.winner[b];
+    const bool done = p.done[b] != 0;
+    const bool needs_alloc = p.needs_alloc[b] != 0;
+    // the leaf's value for the player to move: a terminal leaf's result,
+    // else the evaluator's
+    const float white_value = __fsub_rn(winner == 1 ? 1.0f : 0.0f,
+                                        winner == -1 ? 1.0f : 0.0f);
+    const float v = done ? (turn == 1 ? white_value : -white_value)
+                         : p.value[b];
+
+    // the legal mask: the leaf board as White's and Black's sets of
+    // squares, in the mover's frame (turned by 180 degrees, bit s to bit
+    // 63 - s, unless White moves); forward onto an empty square, diagonally
+    // onto one that is not the mover's
+    const int8_t* squares = p.board + (int64_t)b * kSquares;
+    const int8_t lo = squares[lane], hi = squares[32 + lane];
+    const uint64_t white = (uint64_t)__ballot_sync(0xffffffffu, hi > 0) << 32
+                           | __ballot_sync(0xffffffffu, lo > 0);
+    const uint64_t black = (uint64_t)__ballot_sync(0xffffffffu, hi < 0) << 32
+                           | __ballot_sync(0xffffffffu, lo < 0);
+    const uint64_t mine = turn == 1 ? white : __brevll(black);
+    const uint64_t theirs = turn == 1 ? black : __brevll(white);
+    const uint64_t live = done ? 0ull : ~0ull;
+    const uint64_t forward = live & mine & (~(mine | theirs) >> 8);
+    const uint64_t left = live & mine & kNotFileA & (~mine >> 7);
+    const uint64_t right = live & mine & kNotFileH & (~mine >> 9);
+    const int n_legal = __popcll(forward) + __popcll(left) + __popcll(right);
+
+    // the legal mass in the plain version's order: this lane's six actions
+    // in turn, then the warp's 32 sums halved five times
+    const float* policy = p.policy + (int64_t)b * kActions;
+    bool legal[kPerLane];
+    float prior[kPerLane];
+    float mass = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int a = lane + 32 * k;
+      const int sq = a / 3, dir = a - 3 * sq;
+      legal[k] = ((dir == 0 ? forward : dir == 1 ? left : right) >> sq) & 1;
+      prior[k] = legal[k] ? policy[a] : 0.0f;
+      mass = k == 0 ? prior[k] : __fadd_rn(mass, prior[k]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mass = __fadd_rn(mass, __shfl_xor_sync(0xffffffffu, mass, off));
+    }
+    const float uniform_den = (float)max(n_legal, 1);
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      prior[k] = mass > 0.0f
+          ? __fdiv_rn(prior[k], fmaxf(mass, 1e-30f))
+          : __fdiv_rn(legal[k] ? 1.0f : 0.0f, uniform_den);
+    }
+
+    // the fresh row at the slot; a game that did not allocate (or reached
+    // a terminal state) writes the slot's initial values back
+    const int64_t slot = p.slot[0];
+    if (slot >= 0 && slot < p.M) {      // no well-formed tree has another
+      const bool expand = needs_alloc && !done;
+      float* row = p.rows + ((int64_t)b * p.M + slot) * p.R;
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int a = lane + 32 * k;
+        row[a] = expand && legal[k] ? -1.0f : -2.0f;
+        row[kActions + a] = expand ? prior[k] : 0.0f;
+      }
+      if (p.tree_reuse) {
+        // a slot past a re-rooted game's nodes holds a stale row
+        for (int64_t j = 2 * kActions + lane; j < p.R; j += 32) row[j] = 0.0f;
+        if (lane == 0) {
+          p.parents[(int64_t)b * p.M + slot] =
+              needs_alloc ? p.path_nodes[(int64_t)b * p.N + max(depth - 1, 0)]
+                          : 0;
+        }
+      }
+    }
+
+    // the root's stats: the value reaches it flipped depth times
+    if (lane == 0) {
+      p.value_out[b] = v;
+      p.root_visit[b] += 1;
+      p.root_vsum[b] = __fadd_rn(p.root_vsum[b], (depth & 1) ? -v : v);
+      p.node_count[b] += needs_alloc;
+    }
+  }
+  if (lane == 0) s_depth[warp] = depth;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long sum = 0;
+#pragma unroll
+    for (int w = 0; w < kExpandGames; ++w) sum += s_depth[w];
+    if (sum != 0) atomicAdd(p.depth_sum, sum);
+  }
+}
+
 __global__ void empty_kernel() {}
 
 }  // namespace
@@ -516,6 +708,54 @@ int descend_f32(const void* rows, long long M, int R, int A,
         (int8_t*)leaf_winner, (uint8_t*)leaf_done,
         (int32_t*)leaf_move_count};
     descend_kernel<<<B, kDescendThreads, 0, (cudaStream_t)stream>>>(args);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The network's input planes of B games: board (B, 64) int8 absolute
+// squares, turn (B,) int8; out (B, 3, 64) float32.
+int encode_planes_f32(const void* board, const void* turn, void* out, int B,
+                      void* stream) {
+  if (B < 0) return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    encode_planes_kernel<<<(B + kEncodeGames - 1) / kEncodeGames,
+                           kEncodeGames * kSquares, 0,
+                           (cudaStream_t)stream>>>(
+        (const int8_t*)board, (const int8_t*)turn, (float*)out, B);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The expansion of one simulation, one warp a game. rows (B, M, R)
+// float32, R >= 384 (768 with tree_reuse, which zeroes the visit and vsum
+// blocks); parents (B, M) int32; root_visit, node_count (B,) int32,
+// root_vsum (B,) float32, updated in place; slot: one int32; the leaf state
+// (board (B, 64) int8, turn, winner (B,) int8, done (B,) one byte);
+// needs_alloc (B,) one byte, depth (B,) int32, path_nodes (B, N) int32;
+// policy (B, 192) and value (B,) float32; out: value_out (B,) float32;
+// depth_sum: one 64-bit integer, added to.
+int expand_f32(void* rows, void* parents, void* root_visit, void* root_vsum,
+               void* node_count, const void* slot, const void* board,
+               const void* turn, const void* winner, const void* done,
+               const void* needs_alloc, const void* depth,
+               const void* path_nodes, const void* policy, const void* value,
+               void* value_out, void* depth_sum, long long M, int R, int B,
+               int N, int tree_reuse, void* stream) {
+  if (B < 0 || N < 1 || M < 1 || R < (tree_reuse ? 4 : 2) * kActions) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B > 0) {
+    const ExpandArgs args = {
+        (float*)rows, (int32_t*)parents, (int32_t*)root_visit,
+        (float*)root_vsum, (int32_t*)node_count, (const int32_t*)slot,
+        (const int8_t*)board, (const int8_t*)turn, (const int8_t*)winner,
+        (const uint8_t*)done, (const uint8_t*)needs_alloc,
+        (const int32_t*)depth, (const int32_t*)path_nodes,
+        (const float*)policy, (const float*)value, (float*)value_out,
+        (unsigned long long*)depth_sum, (int64_t)M, (int64_t)R, B, N,
+        tree_reuse};
+    expand_kernel<<<(B + kExpandGames - 1) / kExpandGames, kExpandGames * 32,
+                    0, (cudaStream_t)stream>>>(args);
   }
   return (int)cudaGetLastError();
 }

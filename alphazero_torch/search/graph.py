@@ -8,8 +8,8 @@ simulation (``mcts._simulate_once``) reads nothing back from the card and
 depends on no host value that changes between simulations, so on a CUDA
 tree it is captured once with ``torch.cuda.graph`` and replayed
 ``num_simulations`` times a move. A replay is one launch by the host for
-the simulation's some 550 device kernels (bf16 evaluator) or some 280
-(int8-static).
+the simulation's some 95 device kernels (with either of the 20x128 net's
+evaluators, bf16 or int8-static).
 
 What a replay reads must lie where the capture found it:
 
@@ -63,7 +63,8 @@ WARMUP = 2
 # the kernel wrappers whose ``.launches`` a replay adds to, by module
 _COUNTED = {
     "alphazero_torch.search.kernels": ("fetch_rows", "commit_edges",
-                                       "descend"),
+                                       "descend", "encode_planes",
+                                       "expand"),
     "alphazero_torch.models.quant": ("qconv3x3",),
     "alphazero_torch.models.epilogue": ("bn_act", "se_residual"),
     "alphazero_torch.models.conv": ("conv3x3",),

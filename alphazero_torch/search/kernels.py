@@ -1,5 +1,5 @@
-"""The search tree's varying-index row accesses: CUDA kernels and their
-plain PyTorch versions.
+"""The search tree's varying-index row accesses and the simulation's glue:
+CUDA kernels and their plain PyTorch versions.
 
 Port of ``alphazero_tpu/search/kernels.py``. The tree is one
 (B, M, RS, 128) tensor; each simulation walks one path per game from the
@@ -10,6 +10,11 @@ which takes all levels of a backprop in one call; ``commit_path``, the
 form the search calls, builds those levels itself from the descent's
 outputs). ``fetch_rows`` is the row read of one level, the gather the JAX
 package's kernel is; the plain per-level descent is built on it.
+
+Between the descent and the backprop, the work that XLA fuses into the
+JAX package's jitted simulation: ``encode_planes``, the leaves' network
+input, and ``expand``, the evaluation's tail, the fresh row at the slot
+and the root's stats.
 
 On a CUDA tensor each public function launches its hand-written kernel
 from ``csrc/tree_kernels.cu`` (float32 trees only) or raises; it never
@@ -49,6 +54,10 @@ def _lib() -> ctypes.CDLL:
         lib.descend_f32.argtypes = ([p, ll, i, i] + [p] * 7 + [f, f, i, i, i]
                                     + [p] * 10)
         lib.descend_f32.restype = i
+        lib.encode_planes_f32.argtypes = [p, p, p, i, p]
+        lib.encode_planes_f32.restype = i
+        lib.expand_f32.argtypes = [p] * 17 + [ll, i, i, i, i, p]
+        lib.expand_f32.restype = i
         lib.launch_floor.argtypes = [p]
         lib.launch_floor.restype = i
         lib._argtypes_set = True
@@ -76,6 +85,26 @@ def _check_cuda_operands(rows: torch.Tensor, *index: torch.Tensor,
 def _raise_on_error(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _check_tensors(operands, device: torch.device) -> None:
+    # (name, tensor, dtype, shape) each: what needs no card to be told
+    for name, t, dtype, shape in operands:
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                             f"tensor on {device}; got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}"
+                             f"{'' if t.is_contiguous() else ', strided'}")
+
+
+def _check_card(device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"the kernels take CPU or CUDA tensors, got "
+                         f"{device}")
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {device}, current CUDA device is "
+                         f"{torch.cuda.current_device()}")
 
 
 # -----------------------------------------------------------------------------
@@ -267,18 +296,12 @@ def commit_path(rows: torch.Tensor, path_nodes: torch.Tensor,
                          f"visit, vsum), got {tuple(offsets)}")
     _check_offsets(offsets, num_actions, RS * L)
     N = M - 1
-    for name, t, dtype, shape in (
-            ("path_nodes", path_nodes, torch.int32, (B, N)),
-            ("path_actions", path_actions, torch.int32, (B, N)),
-            ("depth", depth, torch.int32, (B,)),
-            ("needs_alloc", needs_alloc, torch.bool, (B,)),
-            ("value", value, rows.dtype, (B,)),
-            ("slot", slot, torch.int32, ())):
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != rows.device:
-            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
-                             f"tensor on the tree's device; got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _check_tensors((("path_nodes", path_nodes, torch.int32, (B, N)),
+                    ("path_actions", path_actions, torch.int32, (B, N)),
+                    ("depth", depth, torch.int32, (B,)),
+                    ("needs_alloc", needs_alloc, torch.bool, (B,)),
+                    ("value", value, rows.dtype, (B,)),
+                    ("slot", slot, torch.int32, ())), rows.device)
     if rows.device.type == "cpu":
         return _commit_path_plain(rows, path_nodes, path_actions, depth,
                                   needs_alloc, value, slot, tuple(offsets))
@@ -414,19 +437,8 @@ def _check_descend_operands(rows, root_state, root_visit, root_vsum,
                      ("out path_nodes", path_nodes, torch.int32, (B, M - 1)),
                      ("out path_actions", path_actions, torch.int32,
                       (B, M - 1))]
-    for name, t, dtype, shape in operands:
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != rows.device:
-            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
-                             f"tensor on the tree's device; got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}"
-                             f"{'' if t.is_contiguous() else ', strided'}")
-    if rows.device.type != "cuda":
-        raise ValueError(f"descend takes CPU or CUDA tensors, got a tree on "
-                         f"{rows.device}")
-    if rows.device.index != torch.cuda.current_device():
-        raise ValueError(f"tree on {rows.device}, current CUDA device is "
-                         f"{torch.cuda.current_device()}")
+    _check_tensors(operands, rows.device)
+    _check_card(rows.device)
 
 
 def descend(rows: torch.Tensor, root_state: env.EnvState,
@@ -495,3 +507,210 @@ def descend(rows: torch.Tensor, root_state: env.EnvState,
 
 
 descend.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# encode_planes and expand: the simulation's glue around its evaluation
+# -----------------------------------------------------------------------------
+
+def encode_planes(state: env.EnvState, out: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """(B, 3, 8, 8) float32 network input planes of the B games of
+    ``state``: the mover's pieces, the opponent's and ones, in the mover's
+    frame. ``env.encoded_state`` is its plain version. ``out``, if given,
+    is written and returned.
+
+    On a CUDA state one launch of ``encode_planes_kernel``, which reads
+    only the board and the turn."""
+    B = state.turn.shape[0]
+    if state.board.device.type == "cpu":
+        planes = env.encoded_state(state)
+        return planes if out is None else out.copy_(planes)
+    dev = state.board.device
+    if out is None:
+        out = torch.empty((B, env.NUM_PLANES, env.BOARD_SIZE, env.BOARD_SIZE),
+                          dtype=torch.float32, device=dev)
+    _check_tensors((("state.board", state.board, torch.int8, (B, 8, 8)),
+                    ("state.turn", state.turn, torch.int8, (B,)),
+                    ("out", out, torch.float32, (B, 3, 8, 8))), dev)
+    _check_card(dev)
+    rc = _lib().encode_planes_f32(
+        state.board.data_ptr(), state.turn.data_ptr(), out.data_ptr(), B,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on_error(rc, "encode_planes")
+    encode_planes.launches += 1
+    return out
+
+
+encode_planes.launches = 0
+
+
+def legal_mass(masked: torch.Tensor) -> torch.Tensor:
+    """(B, 1) sums of the (B, 192) masked priors in ``expand_kernel``'s
+    order: a warp's lane l adds the entries l, l + 32, ..., l + 160 in that
+    order, then the 32 partial sums are halved five times (s[j] + s[j +
+    16], ...). Float32 and float64 sum in their own type, 16-bit types in
+    float32, rounded once."""
+    B, A = masked.shape
+    acc = masked.dtype if masked.dtype.itemsize >= 4 else torch.float32
+    by_lane = masked.to(acc).view(B, A // 32, 32)
+    s = by_lane[:, 0]
+    for k in range(1, A // 32):
+        s = s + by_lane[:, k]
+    while s.shape[1] > 1:
+        half = s.shape[1] // 2
+        s = s[:, :half] + s[:, half:]
+    return s.to(masked.dtype)
+
+
+def renorm_priors(policy: torch.Tensor, legal: torch.Tensor,
+                  vdt: torch.dtype) -> torch.Tensor:
+    """Mask policy to legal actions and renormalise; uniform fallback when
+    the legal mass is not > 0. The JAX package's ``_renorm_priors``
+    (``alphazero_tpu/search/mcts.py:227``), the mass taken in
+    ``legal_mass``'s order."""
+    zero = torch.zeros((), dtype=vdt, device=policy.device)
+    masked = torch.where(legal, policy.to(vdt), zero)
+    total = legal_mass(masked)
+    n_legal = legal.sum(-1, keepdim=True).clamp_min(1).to(vdt)
+    return torch.where(total > 0, masked / total.clamp_min(1e-30),
+                       legal.to(vdt) / n_legal)
+
+
+def _expand_plain(tree, leaf_state, needs_alloc, depth, path_nodes, policy,
+                  value, tree_reuse, depth_sum):
+    # The search's steps between the evaluation and the backprop, as
+    # ``mcts._simulate_once`` spelled them out. Nothing is read by the host.
+    rows = tree.rows
+    B, M = rows.shape[:2]
+    A = env.NUM_ACTIONS
+    vdt = rows.dtype
+    dev = rows.device
+    zero = torch.zeros((), dtype=vdt, device=dev)
+
+    # the leaf's value: a terminal leaf's result, else the evaluator's
+    is_term = leaf_state.done
+    value = torch.where(
+        is_term, env.terminal_value_for_player_to_move(leaf_state),
+        value.float()).to(vdt)
+
+    # expand the fresh slot (batch-uniform row write; games that did not
+    # allocate write the slot's initial values back)
+    legal = env.legal_action_mask(leaf_state)
+    priors = renorm_priors(policy, legal, vdt)
+    do_expand = (needs_alloc & ~is_term)[:, None]
+    illegal = torch.full((), ILLEGAL, dtype=vdt, device=dev)
+    child_row = torch.where(
+        do_expand,
+        torch.where(legal, torch.full((), UNALLOCATED, dtype=vdt,
+                                      device=dev), illegal),
+        illegal)
+    prior_row = torch.where(do_expand, priors, zero)
+    # the row write at the device slot (the JAX package's
+    # dynamic_update_slice)
+    flat = rows.view(B, M, -1)
+    at = tree.next_slot.view(1).long()
+    if tree_reuse:
+        # Slots between a game's compacted node count and next_slot hold
+        # stale rows from the compaction, so clear visit/vsum too.
+        fresh_row = torch.cat(
+            [child_row, prior_row,
+             torch.zeros((B, flat.shape[2] - 2 * A), dtype=vdt,
+                         device=dev)], dim=-1)
+        flat.index_copy_(1, at, fresh_row[:, None])
+        # Record the fresh slot's parent: the node the allocating edge
+        # left from (path position depth-1); 0 for games that did not
+        # allocate (self-excluding in advance_root).
+        d_last = (depth - 1).clamp_min(0).long()[:, None]
+        par = path_nodes.gather(1, d_last)[:, 0]
+        tree.parents.index_copy_(
+            1, at, torch.where(needs_alloc, par, 0)[:, None])
+    else:
+        flat[:, :, :2 * A].index_copy_(
+            1, at, torch.cat([child_row, prior_row], dim=-1)[:, None])
+
+    # Root stats: the value reaches the root flipped ``depth`` times.
+    sign0 = torch.where(depth % 2 == 1, 1.0, -1.0).to(vdt)
+    tree.root_visit += 1
+    tree.root_vsum += -sign0 * value
+    tree.node_count += needs_alloc.int()
+    depth_sum += depth.sum()
+    return value
+
+
+def expand(tree, leaf_state: env.EnvState, needs_alloc: torch.Tensor,
+           depth: torch.Tensor, path_nodes: torch.Tensor,
+           policy: torch.Tensor, value: torch.Tensor, tree_reuse: bool,
+           depth_sum: torch.Tensor) -> torch.Tensor:
+    """A simulation's work between its evaluation and its backprop, in
+    place; returns the (B,) leaf values, of the tree's dtype, that
+    ``commit_path`` adds up the path.
+
+    ``tree`` is the search's tree (``mcts.Tree``: rows, parents, root
+    visit and vsum, node count and the device slot ``next_slot``);
+    ``leaf_state``, ``needs_alloc``, ``depth`` and ``path_nodes`` are
+    ``descend``'s results; ``policy`` (B, 192) and ``value`` (B,) the
+    evaluator's. A terminal leaf's value is its result for the player to
+    move; the fresh row at the slot is ``[legal ? UNALLOCATED : ILLEGAL |
+    renormalised prior]`` where the game allocated a non-terminal leaf,
+    else ``[ILLEGAL | 0]``; with ``tree_reuse`` the row's visit and vsum
+    blocks are zeroed and the slot's parent recorded; the root's visit
+    count gains one, its vsum the value flipped ``depth`` times, the node
+    count ``needs_alloc``, and ``depth_sum`` (a () int64 tensor) the
+    depths.
+
+    On a CUDA tree (float32 only) one launch of ``expand_kernel``, which
+    reads the slot where it lies; otherwise the plain version, whose
+    legal mass is taken in the kernel's order (``legal_mass``), so the
+    two are bit-equal. The slot's increment is the caller's: the backprop
+    reads the slot after this."""
+    rows = tree.rows
+    if rows.device.type == "cpu":
+        return _expand_plain(tree, leaf_state, needs_alloc, depth,
+                             path_nodes, policy, value, tree_reuse,
+                             depth_sum)
+    if rows.dtype != torch.float32:
+        raise TypeError(f"the CUDA tree kernels take float32 trees, got "
+                        f"{rows.dtype} (other trees are CPU-only)")
+    if rows.dim() != 4 or not rows.is_contiguous():
+        raise ValueError("the tree must be a contiguous (B, M, RS, 128) "
+                         "tensor; it is never copied")
+    B, M, RS, L = rows.shape
+    A = env.NUM_ACTIONS
+    if RS * L < 4 * A:
+        raise ValueError(f"a row of {RS * L} holds no four blocks of {A}")
+    policy, value = policy.float().contiguous(), value.float().contiguous()
+    _check_tensors((
+        ("parents", tree.parents, torch.int32, (B, M)),
+        ("root_visit", tree.root_visit, torch.int32, (B,)),
+        ("root_vsum", tree.root_vsum, torch.float32, (B,)),
+        ("node_count", tree.node_count, torch.int32, (B,)),
+        ("next_slot", tree.next_slot, torch.int32, ()),
+        ("leaf_state.board", leaf_state.board, torch.int8, (B, 8, 8)),
+        ("leaf_state.turn", leaf_state.turn, torch.int8, (B,)),
+        ("leaf_state.winner", leaf_state.winner, torch.int8, (B,)),
+        ("leaf_state.done", leaf_state.done, torch.bool, (B,)),
+        ("needs_alloc", needs_alloc, torch.bool, (B,)),
+        ("depth", depth, torch.int32, (B,)),
+        ("path_nodes", path_nodes, torch.int32, (B, M - 1)),
+        ("policy", policy, torch.float32, (B, A)),
+        ("value", value, torch.float32, (B,)),
+        ("depth_sum", depth_sum, torch.int64, ())), rows.device)
+    _check_card(rows.device)
+    value_out = torch.empty((B,), dtype=torch.float32, device=rows.device)
+    rc = _lib().expand_f32(
+        rows.data_ptr(), tree.parents.data_ptr(), tree.root_visit.data_ptr(),
+        tree.root_vsum.data_ptr(), tree.node_count.data_ptr(),
+        tree.next_slot.data_ptr(), leaf_state.board.data_ptr(),
+        leaf_state.turn.data_ptr(), leaf_state.winner.data_ptr(),
+        leaf_state.done.data_ptr(), needs_alloc.data_ptr(),
+        depth.data_ptr(), path_nodes.data_ptr(), policy.data_ptr(),
+        value.data_ptr(), value_out.data_ptr(), depth_sum.data_ptr(),
+        M, RS * L, B, M - 1, int(bool(tree_reuse)),
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    _raise_on_error(rc, "expand")
+    expand.launches += 1
+    return value_out
+
+
+expand.launches = 0

@@ -32,9 +32,11 @@ Unlike the JAX package, ``search``, ``init_tree(..., tree=)`` and
 of its fields, which are never rebound) and return it: the tree is 1.26
 GB at 512 games x 800 simulations and is never copied.
 
-A simulation (``_simulate_once``) reads nothing back to the host: the
-descent is one kernel on the card, the expansion writes at the device
-slot, and the backprop walks each game's own depth in one kernel. The
+A simulation (``_simulate_once``) reads nothing back to the host: on the
+card the descent is one kernel, the leaves' input planes one, the
+evaluation's tail with the expansion's row write at the device slot and
+the root's stats one (what XLA fuses in the JAX package's simulation), and
+the backprop, which walks each game's own depth, one. The
 JAX package compiles a move into one program (``selfplay_move`` is
 jitted, the simulations a ``fori_loop``); the port's counterpart is a CUDA
 graph: on a CUDA tree ``search`` captures one simulation and replays it
@@ -222,18 +224,6 @@ def init_tree(root_states: env.EnvState, spec: SearchSpec,
     return tree
 
 
-def _renorm_priors(policy: torch.Tensor, legal: torch.Tensor,
-                   vdt: torch.dtype) -> torch.Tensor:
-    """Mask policy to legal actions and renormalise; uniform fallback when
-    the legal mass is zero."""
-    zero = torch.zeros((), dtype=vdt, device=policy.device)
-    masked = torch.where(legal, policy.to(vdt), zero)
-    total = masked.sum(-1, keepdim=True)
-    n_legal = legal.sum(-1, keepdim=True).clamp_min(1).to(vdt)
-    return torch.where(total > 0, masked / total.clamp_min(1e-30),
-                       legal.to(vdt) / n_legal)
-
-
 @dataclasses.dataclass
 class SearchStats:
     """Counters of the search loop, read by measurement scripts: simulations
@@ -256,15 +246,17 @@ class SearchStats:
         for acc in self.depth.values():
             acc.zero_()
 
-    def add_depth(self, depth: torch.Tensor) -> None:
-        acc = self.depth.get(depth.device)
+    def depth_accumulator(self, device: torch.device) -> torch.Tensor:
+        """The () int64 tensor on ``device`` that simulations add their
+        depths to (``kernels.expand``)."""
+        acc = self.depth.get(device)
         if acc is None:
             # a normal tensor, so that searches in and out of inference
             # mode both add to it in place
             with torch.inference_mode(False):
-                acc = torch.zeros((), dtype=torch.int64, device=depth.device)
-            self.depth[depth.device] = acc
-        acc += depth.sum()
+                acc = torch.zeros((), dtype=torch.int64, device=device)
+            self.depth[device] = acc
+        return acc
 
     @property
     def depth_sum(self) -> int:
@@ -317,14 +309,8 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec,
     lives on the device): it is what ``search/graph.py`` captures. Every
     tensor it writes outside ``out`` is a field of the tree, in place, or
     the depth accumulator of ``STATS``."""
-    B = tree.root_visit.shape[0]
     A = spec.num_actions
-    vdt = spec.value_dtype
     rows = tree.rows
-    M = rows.shape[1]
-    dev = rows.device
-    slot = tree.next_slot                    # this simulation's fresh slot
-    zero = torch.zeros((), dtype=vdt, device=dev)
 
     # (1) selection with in-loop state stepping
     with record_function("mcts.descend"):
@@ -334,49 +320,17 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec,
 
     # (2) one batched network evaluation
     with record_function("mcts.evaluate"):
-        planes = env.encoded_state(leaf_state)
+        planes = kernels.encode_planes(leaf_state)
         policy, value = (eval_fn(planes) if eval_ctx is None
                          else eval_fn(planes, eval_ctx))
-        is_term = leaf_state.done
-        value = torch.where(
-            is_term, env.terminal_value_for_player_to_move(leaf_state),
-            value.float()).to(vdt)
 
-    # (3) expand the fresh slot (batch-uniform row write; games that did
-    # not allocate write the slot's initial values back)
+    # (3) the leaf's value (a terminal leaf's result), the fresh slot's row
+    # (batch-uniform row write; games that did not allocate write the
+    # slot's initial values back) and the root's stats
     with record_function("mcts.expand"):
-        legal = env.legal_action_mask(leaf_state)
-        priors = _renorm_priors(policy, legal, vdt)
-        do_expand = (needs_alloc & ~is_term)[:, None]
-        illegal = torch.full((), ILLEGAL, dtype=vdt, device=dev)
-        child_row = torch.where(
-            do_expand,
-            torch.where(legal, torch.full((), UNALLOCATED, dtype=vdt,
-                                          device=dev), illegal),
-            illegal)
-        prior_row = torch.where(do_expand, priors, zero)
-        # the row write at the device slot (the JAX package's
-        # dynamic_update_slice)
-        flat = rows.view(B, M, -1)
-        at = slot.view(1).long()
-        if spec.tree_reuse:
-            # Slots between a game's compacted node count and next_slot hold
-            # stale rows from the compaction, so clear visit/vsum too.
-            fresh_row = torch.cat(
-                [child_row, prior_row,
-                 torch.zeros((B, flat.shape[2] - 2 * A), dtype=vdt,
-                             device=dev)], dim=-1)
-            flat.index_copy_(1, at, fresh_row[:, None])
-            # Record the fresh slot's parent: the node the allocating edge
-            # left from (path position depth-1); 0 for games that did not
-            # allocate (self-excluding in advance_root).
-            d_last = (depth - 1).clamp_min(0).long()[:, None]
-            par = path_nodes.gather(1, d_last)[:, 0]
-            tree.parents.index_copy_(
-                1, at, torch.where(needs_alloc, par, 0)[:, None])
-        else:
-            flat[:, :, :2 * A].index_copy_(
-                1, at, torch.cat([child_row, prior_row], dim=-1)[:, None])
+        value = kernels.expand(tree, leaf_state, needs_alloc, depth,
+                               path_nodes, policy, value, spec.tree_reuse,
+                               STATS.depth_accumulator(rows.device))
 
     # (4) backprop: the recorded path top-down, every level at once; level
     # d commits [child ptr? | visit += 1 | vsum += signed value] for one
@@ -385,17 +339,11 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec,
     # and the allocating edge's child pointer becomes the slot.
     with record_function("mcts.backprop"):
         kernels.commit_path(rows, path_nodes, path_actions, depth,
-                            needs_alloc, value, slot, (0, 2 * A, 3 * A), A)
-
-    # Root stats: the value reaches the root flipped ``depth`` times.
-    sign0 = torch.where(depth % 2 == 1, 1.0, -1.0).to(vdt)
-    tree.root_visit += 1
-    tree.root_vsum += -sign0 * value
-    tree.node_count += needs_alloc.int()
-    slot += 1
+                            needs_alloc, value, tree.next_slot,
+                            (0, 2 * A, 3 * A), A)
+    tree.next_slot += 1
 
     STATS.simulations += 1
-    STATS.add_depth(depth)
     return out
 
 
@@ -462,7 +410,8 @@ def search(
         need_root,
         torch.where(legal, UNALLOCATED, ILLEGAL).to(vdt),
         root_child)
-    prior_row = torch.where(need_root, _renorm_priors(policy, legal, vdt),
+    prior_row = torch.where(need_root,
+                            kernels.renorm_priors(policy, legal, vdt),
                             root_flat[:, A:2 * A])
     root_flat[:, :A] = child_row
     root_flat[:, A:2 * A] = prior_row

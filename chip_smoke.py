@@ -64,20 +64,33 @@ launches of the replays.
 - phase 3: the self-play search at full width (512 games x 800
   simulations) through ``selfplay_move`` on one tree: a warm-up move that
   captures the simulation, then one counted and timed move of 800
-  replays, each one ``descend`` and one ``commit_edges`` launch and no
-  read of the card, and each forward of the bf16 evaluator 41
-  ``conv3x3``, 2 ``bn_act`` and 20 ``se_residual`` launches; then one
-  eager search and one captured from the same position, timed and
-  bit-equal; device kernels a forward; profiles of both, the captured one
-  without cuDNN layout transposes or eager BatchNorm kernels, with 41
-  ``conv3x3_kernel`` a forward and at most two cuDNN convs (the input and
-  value convs) and two memsets;
+  replays, each one ``descend``, ``encode_planes``, ``expand`` and
+  ``commit_edges`` launch and no read of the card, and each forward of
+  the bf16 evaluator 41 ``conv3x3``, 2 ``bn_act`` and 20 ``se_residual``
+  launches; then one eager search and one captured from the same
+  position, timed and bit-equal; device kernels a forward; profiles of
+  both, the captured one without cuDNN layout transposes or eager
+  BatchNorm kernels, with 41 ``conv3x3_kernel`` a forward, at most two
+  cuDNN convs (the input and value convs) and two memsets, and at most
+  ``REST_LAUNCHES`` launches that are neither the port's hand kernels
+  nor cuDNN's or cuBLAS's (every profile's kernels are so counted by
+  class, launches and device ms);
 - phase 4: the card's search against the CPU's;
 - phase 15 (``graph``): the captured search against the eager one, trees
   bit-equal over two consecutive moves each: bf16 and int8-static at 512
   games x 64 simulations, the web bot's batch of one at 200 simulations
   under inference mode, the arena's pair evaluator with its context;
   captures, replays and the seconds of each move;
+- phase 18 (``glue``): the simulation's glue kernels (``encode_planes``
+  and ``expand``, ``csrc/tree_kernels.cu``) against their plain versions
+  on the leaves of captured searches (48 simulations, with root noise)
+  with the archive's bf16 and int8-static evaluators, at 512, 128, 32, 2
+  and 1 games, tree reuse off and on (re-rooted trees), among them
+  finished roots, terminal leaves, games that allocate nothing and
+  policies with no legal mass: the planes, the leaf values, the depth sum
+  and every field of the tree bit-equal; their times at 512 games and at
+  one beside their byte bounds, their plain versions and the launch
+  floor;
 - phase 5: continuous self-play (128 lanes x 16 simulations);
 - phase 7: the fused path at full width (512 positions, 800 evaluations
   in a row) beside the layer-by-layer bf16 net;
@@ -854,6 +867,8 @@ def phase_search(dev, net, card):
     K.fetch_rows.launches = 0
     K.descend.launches = 0
     K.commit_edges.launches = 0
+    K.encode_planes.launches = 0
+    K.expand.launches = 0
     conv.conv3x3.launches = 0
     epilogue.bn_act.launches = 0
     epilogue.se_residual.launches = 0
@@ -877,6 +892,8 @@ def phase_search(dev, net, card):
     launches = {"descend": K.descend.launches,
                 "fetch_rows": K.fetch_rows.launches,
                 "commit_edges": K.commit_edges.launches,
+                "encode_planes": K.encode_planes.launches,
+                "expand": K.expand.launches,
                 "conv3x3": conv.conv3x3.launches,
                 "bn_act": epilogue.bn_act.launches,
                 "se_residual": epilogue.se_residual.launches}
@@ -890,13 +907,15 @@ def phase_search(dev, net, card):
           f"{n_bn} bn_act and {n_tail} se_residual launches")
     st = mcts.STATS
     check(launches["descend"] == launches["commit_edges"] == moves * SIMS
+          == launches["encode_planes"] == launches["expand"]
           == st.simulations == graph.STATS.replays
           and graph.STATS.captures == 0 and st.host_syncs == 0
           and launches["fetch_rows"] == 0,
           f"{launches}, {st.host_syncs} host syncs, "
           f"{graph.STATS.captures} captures and {graph.STATS.replays} "
           f"replays for {moves * SIMS} simulations: a simulation is one "
-          f"replay, one descend and one commit_edges launch, no host read")
+          f"replay, one descend, encode_planes, expand and commit_edges "
+          f"launch each, no host read")
     depth = st.depth_sum / (st.simulations * GAMES)
     out = {
         "games": GAMES, "sims": SIMS, "moves": moves,
@@ -938,6 +957,11 @@ def phase_search(dev, net, card):
                   if "cudnn" in k.lower() and k not in cudnn)
     memsets = sum(n for k, n in calls.items() if "Memset" in k)
     ours = sum(n for k, n in calls.items() if "conv3x3_kernel" in k)
+    rest = captured["classes"]["rest"]["launches"]
+    check(rest <= REST_LAUNCHES,
+          f"the bf16 captured profile of {PROFILE_SIMS} simulations runs "
+          f"{rest} launches that are neither hand kernels nor cuDNN's or "
+          f"cuBLAS's, more than {REST_LAUNCHES}")
     out["profile_convs"] = {"conv3x3": ours, "cudnn": sum(cudnn.values()),
                             "cudnn_helpers": helpers, "memset": memsets,
                             "forwards": forwards}
@@ -966,6 +990,36 @@ def is_library_conv(name):
     low = name.lower()
     return "conv3x3_kernel" not in low and any(
         w in low for w in ("implicit_gemm", "fprop", "convolve"))
+
+
+# the port's hand-written kernels, and words of cuDNN's and cuBLAS's
+# kernels (the helpers and memsets of cuDNN's convs among them), by name
+HAND_KERNELS = ("descend_kernel", "commit_path_kernel", "commit_edges_kernel",
+                "fetch_rows_kernel", "encode_planes_kernel", "expand_kernel",
+                "conv3x3_kernel", "se_residual_kernel", "bn_act_kernel",
+                "qconv3x3_kernel", "tower_kernel")
+LIBRARY_WORDS = ("cudnn", "cublas", "nvjet", "cutlass", "gemm", "fprop",
+                 "nhwcaddpadding", "memset")
+# phase 3: the bf16 captured profile's launches that are neither the port's
+# hand kernels nor cuDNN's or cuBLAS's, at most (16 simulations and the
+# root's eager expansion; 1,304 before expand and encode_planes)
+REST_LAUNCHES = 300
+
+
+def launch_classes(kernel_calls, kernels_ms, sims):
+    """A profile's device kernels in three classes, launches and device ms
+    each: the port's hand kernels, the libraries' (cuDNN, cuBLAS), and the
+    rest (PyTorch's own elementwise, reduction and copy kernels), with the
+    rest's launches per simulation."""
+    out = {c: {"launches": 0, "ms": 0.0} for c in ("hand", "library", "rest")}
+    for key, n in kernel_calls.items():
+        low = key.lower()
+        c = ("hand" if any(k in key for k in HAND_KERNELS) else
+             "library" if any(w in low for w in LIBRARY_WORDS) else "rest")
+        out[c]["launches"] += n
+        out[c]["ms"] += kernels_ms[key]
+    out["rest_launches_per_sim"] = out["rest"]["launches"] / sims
+    return out
 
 
 def profile_search(states, eval_fn, sims=PROFILE_SIMS, tag=None,
@@ -1018,6 +1072,11 @@ def profile_search(states, eval_fn, sims=PROFILE_SIMS, tag=None,
     n_sync = sum(e.count for e in syncs) / sims
     sync_ms = sum(e.cpu_time_total for e in syncs) / 1e3 / sims
     mode = "eager" if capture is False else "captured"
+    classes = launch_classes({key: c for _, key, c in kern},
+                             {key: us / 1e3 for us, key, _ in kern}, sims)
+    by_class = ", ".join(f"{c} {classes[c]['launches']} launches "
+                         f"{classes[c]['ms']:.3f} ms"
+                         for c in ("hand", "library", "rest"))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out",
                            f"chip_smoke_profile_{tag or B}.txt"), "w") as f:
@@ -1029,7 +1088,9 @@ def profile_search(states, eval_fn, sims=PROFILE_SIMS, tag=None,
         for k, (h, d) in stage.items():
             f.write(f"{k}: host {h:.3f} ms/sim, device span {d:.3f} "
                     f"ms/sim\n")
-        for us, key, count in kern[:40]:
+        f.write(f"by class: {by_class}; rest "
+                f"{classes['rest_launches_per_sim']:.2f} launches/sim\n")
+        for us, key, count in kern:
             f.write(f"{us / 1e3:10.3f} ms  {count:7d}  {key}\n")
     check(kern, f"profile of the {mode} search: no device events")
     top = "; ".join(f"{k[:40]} {us / 1e3:.1f} ms x{c}"
@@ -1041,8 +1102,10 @@ def profile_search(states, eval_fn, sims=PROFILE_SIMS, tag=None,
           f"{host * 1e3 / sims:.3f} ms/sim, device busy {busy * 1e3:.1f} ms "
           f"(idle share {1 - busy / wall:.3f}); per sim host/device-span "
           f"ms: {split}; host syncs per sim {n_sync:.3f}, host blocked in "
-          f"them {sync_ms:.3f} ms/sim; top kernels: {top}", flush=True)
+          f"them {sync_ms:.3f} ms/sim; by class: {by_class}; top "
+          f"kernels: {top}", flush=True)
     return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
+            "classes": classes,
             "host_ms_per_sim": host * 1e3 / sims,
             "stages_host_device_ms_per_sim": stage,
             "kernels_ms": {key: us / 1e3 for us, key, _ in kern},
@@ -1140,6 +1203,8 @@ def phase_continuous(dev, net, card):
     K.fetch_rows.launches = 0
     K.descend.launches = 0
     K.commit_edges.launches = 0
+    K.encode_planes.launches = 0
+    K.expand.launches = 0
     mcts.STATS.reset()
     graph.STATS.reset()
     torch.cuda.synchronize()
@@ -1151,14 +1216,15 @@ def phase_continuous(dev, net, card):
     check(K.descend.launches > 0 and K.commit_edges.launches > 0,
           "continuous self-play did not launch both kernels")
     check(K.descend.launches == K.commit_edges.launches == st.simulations
+          == K.encode_planes.launches == K.expand.launches
           and st.host_syncs == 0 and K.fetch_rows.launches == 0
           and graph.STATS.captures == 1,
           f"{K.descend.launches} descend, {K.commit_edges.launches} "
           f"commit_edges, {K.fetch_rows.launches} fetch_rows launches, "
           f"{st.host_syncs} host syncs and {graph.STATS.captures} captures "
-          f"for {st.simulations} simulations: a simulation is one descend "
-          f"and one commit_edges launch and no host read, and the run's "
-          f"one tree is captured once")
+          f"for {st.simulations} simulations: a simulation is one descend, "
+          f"encode_planes, expand and commit_edges launch each and no host "
+          f"read, and the run's one tree is captured once")
     check(stats["games"] >= CONT_GAMES, f"games {stats['games']}")
     check(stats["examples"] == len(examples) > 0, "no examples")
     for planes, probs, wl in examples:
@@ -1181,7 +1247,9 @@ def phase_continuous(dev, net, card):
            "replays": graph.STATS.replays,
            "launches_per_sim": {
                "descend": K.descend.launches / st.simulations,
-               "commit_edges": K.commit_edges.launches / st.simulations},
+               "commit_edges": K.commit_edges.launches / st.simulations,
+               "encode_planes": K.encode_planes.launches / st.simulations,
+               "expand": K.expand.launches / st.simulations},
            "conv3x3_launches": conv.conv3x3.launches,
            "card": card}
     print("continuous " + json.dumps(out), flush=True)
@@ -1461,6 +1529,8 @@ def phase_trainer(dev, card):
         K.fetch_rows.launches = 0
         K.descend.launches = 0
         K.commit_edges.launches = 0
+        K.encode_planes.launches = 0
+        K.expand.launches = 0
         mcts.STATS.reset()
         graph.STATS.reset()
         if dev.type == "cuda":
@@ -1468,19 +1538,23 @@ def phase_trainer(dev, card):
         metrics = [tr.run_iteration() for _ in range(2)]
         launches = {"descend": K.descend.launches,
                     "commit_edges": K.commit_edges.launches,
+                    "encode_planes": K.encode_planes.launches,
+                    "expand": K.expand.launches,
                     "conv3x3": conv.conv3x3.launches}
         st = mcts.STATS
         check(all(v > 0 for v in launches.values()),
               f"the trainer's self-play did not launch both kernels: "
               f"{launches}")
         check(launches["descend"] == launches["commit_edges"]
+              == launches["encode_planes"] == launches["expand"]
               == st.simulations and st.host_syncs == 0
               and K.fetch_rows.launches == 0 and graph.STATS.captures == 2,
               f"{launches}, {K.fetch_rows.launches} fetch_rows launches, "
               f"{st.host_syncs} host syncs and {graph.STATS.captures} "
               f"captures for {st.simulations} simulations: a simulation is "
-              f"one descend and one commit_edges launch and no host read, "
-              f"and each iteration's new evaluator one capture")
+              f"one descend, encode_planes, expand and commit_edges launch "
+              f"each and no host read, and each iteration's new evaluator "
+              f"one capture")
         search_stats = {
             "simulations": st.simulations,
             "host_syncs_per_sim": st.host_syncs / st.simulations,
@@ -2277,6 +2351,8 @@ def phase_quant_search(dev, net, card, qp, act):
         conv.conv3x3.launches = 0
         K.descend.launches = 0
         K.commit_edges.launches = 0
+        K.encode_planes.launches = 0
+        K.expand.launches = 0
         epilogue.bn_act.launches = 0
         epilogue.se_residual.launches = 0
         mcts.STATS.reset()
@@ -2298,12 +2374,15 @@ def phase_quant_search(dev, net, card, qp, act):
             launches = {"qconv3x3": quant.qconv3x3.launches,
                         "descend": K.descend.launches,
                         "commit_edges": K.commit_edges.launches,
+                        "encode_planes": K.encode_planes.launches,
+                        "expand": K.expand.launches,
                         "se_residual": epilogue.se_residual.launches}
             check(launches["qconv3x3"] == n_conv * (SIMS + 1)
                   and launches["se_residual"] == n_tail * (SIMS + 1)
                   and epilogue.bn_act.launches == 0
                   and conv.conv3x3.launches == 0
                   and launches["descend"] == launches["commit_edges"]
+                  == launches["encode_planes"] == launches["expand"]
                   == SIMS and mcts.STATS.host_syncs == 0,
                   f"int8 move: {launches}, {epilogue.bn_act.launches} "
                   f"bn_act, {conv.conv3x3.launches} conv3x3, "
@@ -2342,6 +2421,7 @@ def phase_quant_search(dev, net, card, qp, act):
             out[f"{name}_{mode}_host_ms_per_sim"] = p["host_ms_per_sim"]
             out[f"{name}_{mode}_idle_share"] = p["idle_share"]
             out[f"{name}_{mode}_busy_ms"] = p["busy_s"] * 1e3
+            out[f"{name}_{mode}_classes"] = p["classes"]
             if (name, mode) == ("int8", "captured"):
                 out["int8_qconv3x3_device_ms"] = sum(
                     ms for key, ms in p["kernels_ms"].items()
@@ -2495,10 +2575,10 @@ def phase_web(dev, net, card):
         real_ms, server.BASELINE_TIME_MS = (server.BASELINE_TIME_MS,
                                             WEB_BASELINE_MS)
         az_s, base_s, base_nodes, evals = [], [], [], []
-        total = {"descend": 0, "commit_edges": 0, "bn_act": 0,
-                 "se_residual": 0, "conv3x3": 0}
-        counted = (K.descend, K.commit_edges, epilogue.bn_act,
-                   epilogue.se_residual, conv.conv3x3)
+        total = {"descend": 0, "commit_edges": 0, "encode_planes": 0,
+                 "expand": 0, "bn_act": 0, "se_residual": 0, "conv3x3": 0}
+        counted = (K.descend, K.commit_edges, K.encode_planes, K.expand,
+                   epilogue.bn_act, epilogue.se_residual, conv.conv3x3)
         try:
             check(http_json(base, "/api/models")["current"]
                   == cfg.best_model, "/api/models")
@@ -2523,7 +2603,8 @@ def phase_web(dev, net, card):
                     total[key] += n
                 if az_turn:
                     # the root's evaluation and one a simulation
-                    check(launches == (sims, sims, n_bn * (sims + 1),
+                    check(launches == (sims, sims, sims, sims,
+                                       n_bn * (sims + 1),
                                        n_tail * (sims + 1),
                                        n_conv * (sims + 1))
                           and "engine" not in r,
@@ -2703,6 +2784,195 @@ def phase_graph(dev, net, card):
 
 
 # -----------------------------------------------------------------------------
+# Phase 18: the simulation's glue, encode_planes and expand
+# -----------------------------------------------------------------------------
+
+GLUE_BATCHES = (GAMES, 128, 32, 2, 1)  # self-play, trainer, gates, web bot
+GLUE_SIMS = 48                      # the searches whose leaves are taken
+GLUE_TIMED = (GAMES, 1)
+
+
+def glue_bytes(kind, B, R=4 * A, tree_reuse=False):
+    """The bytes one ``encode_planes`` or ``expand`` of B games must move,
+    each input read once and each output written once. ``encode_planes``:
+    the board and the turn read, three planes of float32 written.
+    ``expand``: the policy, the value, the leaf board, turn, winner, done,
+    needs_alloc and depth read; the root's visit, vsum and node count read
+    and written; the leaf value and the row at the slot written (its child
+    and prior blocks, or the whole row and the parent, with the path entry
+    it comes from, under tree reuse); the slot and the depth sum."""
+    if kind == "encode_planes":
+        return B * (64 + 1 + 3 * 64 * 4)
+    row = (R * 4 + 4 + 4) if tree_reuse else 2 * A * 4
+    return B * (A * 4 + 4 + 64 + 3 + 1 + 4 + 2 * 12 + 4 + row) + 4 + 2 * 8
+
+
+def glue_leaves(states, fn, reuse, seed):
+    """A captured search of ``GLUE_SIMS`` simulations from ``states`` on a
+    tree with room for more (with ``reuse``, then re-rooted at each game's
+    most visited child, as a self-play move leaves it), and the leaves of
+    its next simulation: (tree, descent results, policy, value), every
+    seventh game's policy zeroed (no legal mass)."""
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.search import kernels as K
+    from alphazero_torch.search import mcts
+
+    spec = mcts.SearchSpec(num_simulations=GLUE_SIMS, tree_reuse=reuse)
+    tree = mcts.init_tree(states, mcts.SearchSpec(
+        num_simulations=GLUE_SIMS + 1, tree_reuse=reuse))
+    tree = mcts.search(states, fn, spec, tree=tree,
+                       generator=torch.Generator(device=states.device)
+                       .manual_seed(seed), add_noise=True)
+    if reuse:
+        actions = mcts.root_child_visits(tree).argmax(-1)
+        tree = mcts.advance_root(tree, actions,
+                                 env.step(tree.root_state, actions), spec)
+        mcts.search(tree.root_state, fn, mcts.SearchSpec(
+            num_simulations=GLUE_SIMS // 4, tree_reuse=True), tree=tree)
+    out = mcts._descend(tree.rows, tree.root_state, tree.root_visit,
+                        tree.root_vsum, spec)
+    policy, value = fn(K.encode_planes(out[0]))
+    policy = policy.clone()
+    policy[::7] = 0.0
+    return tree, out, policy, value
+
+
+def _tree_copy(tree):
+    from alphazero_torch.search import mcts
+
+    return mcts.Tree(rows=tree.rows.clone(), root_state=tree.root_state,
+                     root_visit=tree.root_visit.clone(),
+                     root_vsum=tree.root_vsum.clone(),
+                     node_count=tree.node_count.clone(),
+                     next_slot=tree.next_slot.clone(),
+                     parents=tree.parents.clone(), n_actions=tree.n_actions)
+
+
+def glue_check(tree, out, policy, value, reuse):
+    """``encode_planes`` and ``expand`` against their plain versions on one
+    simulation's leaves, each on its own copy of the tree: every output
+    and every field of the tree bit-equal. Returns each kernel's largest
+    difference and what the leaves held."""
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.search import kernels as K
+
+    leaf, needs_alloc, depth, path_nodes = out[:4]
+    planes = K.encode_planes(leaf)
+    want = env.encoded_state(leaf)
+    encode_err = float((planes - want).abs().max())
+    check(torch.equal(planes, want), "encode_planes differs from its plain "
+                                     "version")
+    got_t, want_t = _tree_copy(tree), _tree_copy(tree)
+    acc = [torch.zeros((), dtype=torch.int64, device=value.device)
+           for _ in range(2)]
+    args = (leaf, needs_alloc, depth, path_nodes, policy, value, reuse)
+    got = K.expand(got_t, *args, acc[0])
+    want = K._expand_plain(want_t, *args, acc[1])
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    for name in ("rows", "parents", "root_visit", "root_vsum", "node_count",
+                 "next_slot"):
+        a, b = getattr(got_t, name), getattr(want_t, name)
+        err = max(err, float((a.double() - b.double()).abs().max()))
+        check(torch.equal(a, b), f"expand: the tree's {name} differs from "
+                                 f"the plain version's")
+    check(torch.equal(got, want) and torch.equal(acc[0], acc[1]),
+          "expand: the leaf values or the depth sum differ")
+    legal = env.legal_action_mask(leaf)
+    return encode_err, err, {"terminal": int(leaf.done.sum()),
+                 "terminal_alloc": int((leaf.done & needs_alloc).sum()),
+                 "no_alloc": int((~needs_alloc).sum()),
+                 "no_mass": int((((policy * legal).sum(-1) == 0)
+                                 & ~leaf.done).sum())}
+
+
+@phase("phase 18 glue")
+def phase_glue(dev, net):
+    """``encode_planes`` and ``expand`` against their plain versions on the
+    leaves of captured searches with the archive's bf16 and int8-static
+    evaluators, at 512, 128, 32, 2 and 1 games, tree reuse off and on;
+    their times beside their bounds, their plain versions and the launch
+    floor."""
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import quant
+    from alphazero_torch.search import kernels as K
+    from alphazero_torch.search import mcts
+    from alphazero_torch.strength.common import calibration_batches
+
+    qp = quant.quantize_network(net)
+    evals = {"bf16": mcts.make_net_evaluator(net, torch.bfloat16),
+             "int8": quant.make_quant_evaluator(
+                 net, qp=qp, act_scales=quant.calibrate(
+                     qp, calibration_batches(ARCHIVE, dev)[0]))}
+    on = lambda s: env.EnvState(*(getattr(s, f).to(dev) for f in
+                                  ("board", "turn", "winner", "done",
+                                   "move_count")))
+    err = {"encode_planes": 0.0, "expand": 0.0}
+    seen = {}
+    timed = {}
+    for B in GLUE_BATCHES:
+        # random-play positions, every fourth game played to its end (a
+        # finished root: a terminal leaf that allocates nothing)
+        states = random_positions(B, 90 + B, max_plies=60)
+        states = on(finish_games(states, torch.arange(B) % 4 == 3, B))
+        for name, fn in evals.items():
+            for reuse in (False, True):
+                tree, out, policy, value = glue_leaves(states, fn, reuse, B)
+                *e, held = glue_check(tree, out, policy, value, reuse)
+                for k, v in zip(err, e):
+                    err[k] = max(err[k], v)
+                seen[f"{name}_{B}_{'reuse' if reuse else 'fresh'}"] = held
+                if name == "bf16" and not reuse and B in GLUE_TIMED:
+                    timed[B] = (tree, out, policy, value)
+                del tree, out
+    total = {k: sum(h[k] for h in seen.values())
+             for k in ("terminal", "terminal_alloc", "no_alloc", "no_mass")}
+    check(total["terminal"] > 0 and total["no_alloc"] > 0
+          and total["no_mass"] > 0,
+          f"the leaves held no case of one kind: {total}")
+    print(f"glue: encode_planes and expand bit-equal to their plain "
+          f"versions at {GLUE_BATCHES} games, bf16 and int8 leaves, tree "
+          f"reuse off and on: {json.dumps(seen)}", flush=True)
+
+    lib = K._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    times = {"floor_ms": cuda_ms(lambda i: lib.launch_floor(stream),
+                                 what="launch floor"),
+             "floor_call_ms": cuda_ms(lambda i: lib.launch_floor(stream),
+                                      queued=False)}
+    for B, (tree, out, policy, value) in timed.items():
+        leaf, needs_alloc, depth, path_nodes = out[:4]
+        acc = torch.zeros((), dtype=torch.int64, device=dev)
+        planes = torch.empty((B, 3, 8, 8), device=dev)
+        kernel_t, plain_t = _tree_copy(tree), _tree_copy(tree)
+        calls = {
+            "encode_planes": (lambda i: K.encode_planes(leaf, out=planes),
+                              lambda i: env.encoded_state(leaf)),
+            "expand": (lambda i: K.expand(kernel_t, leaf, needs_alloc, depth,
+                                          path_nodes, policy, value, False,
+                                          acc),
+                       lambda i: K._expand_plain(
+                           plain_t, leaf, needs_alloc, depth, path_nodes,
+                           policy, value, False, acc))}
+        R = tree.rows[0, 0].numel()
+        for kind, (kernel, plain) in calls.items():
+            times[f"{kind}_{B}"] = {
+                "ms": cuda_ms(kernel, what=kind),
+                "call_ms": cuda_ms(kernel, queued=False),
+                # the plain expand queues some 75 launches a call: eight
+                # calls stay under the stream's queue depth
+                "plain_ms": cuda_ms(plain, iters=8, sleep_ms=200,
+                                    what=f"{kind} plain"),
+                "plain_call_ms": cuda_ms(plain, iters=20, queued=False),
+                "bytes": glue_bytes(kind, B, R),
+                "bound_ms": glue_bytes(kind, B, R) / HBM_BYTES_PER_S * 1e3}
+    del timed
+    torch.cuda.empty_cache()
+    print("glue times " + json.dumps(times), flush=True)
+    return err, times, total
+
+
+# -----------------------------------------------------------------------------
 # Phase 14: the distributed trainer (worker processes)
 # -----------------------------------------------------------------------------
 
@@ -2782,17 +3052,22 @@ def _profiled_step(step):
 
 def _dist_iteration(tr):
     """One ``run_iteration`` with the tree kernels' counts from 0; checks
-    one ``descend`` and one ``commit_edges`` launch a simulation."""
+    one ``descend``, ``encode_planes``, ``expand`` and ``commit_edges``
+    launch a simulation."""
     from alphazero_torch.parallel import broadcast_int
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
 
-    K.descend.launches = K.commit_edges.launches = 0
+    for f in (K.descend, K.commit_edges, K.encode_planes, K.expand):
+        f.launches = 0
     mcts.STATS.reset()
     m = tr.run_iteration()
     launches = {"descend": K.descend.launches,
-                "commit_edges": K.commit_edges.launches}
+                "commit_edges": K.commit_edges.launches,
+                "encode_planes": K.encode_planes.launches,
+                "expand": K.expand.launches}
     check(launches["descend"] == launches["commit_edges"]
+          == launches["encode_planes"] == launches["expand"]
           == mcts.STATS.simulations > 0,
           f"rank {tr.rank}: {launches} for {mcts.STATS.simulations} "
           f"simulations")
@@ -3025,11 +3300,12 @@ def launch_workers(backend, world, workdir):
 @phase("phase 14 distributed trainer")
 def phase_distributed(card, single_step_ms):
     """Two gloo ranks on the one card, then one NCCL rank; returns the
-    launches of ``descend`` and ``commit_edges`` over all ranks."""
+    launches of the tree kernels over all ranks."""
     import torch.distributed as dist
 
     check(dist.is_nccl_available(), "this PyTorch build has no NCCL")
-    launches = {"descend": 0, "commit_edges": 0}
+    launches = {"descend": 0, "commit_edges": 0, "encode_planes": 0,
+                "expand": 0}
     summary = {"lanes_per_rank": DIST_LANES, "sims": TRAIN_SIMS,
                "global_batch": TRAIN_BATCH, "f32_tf32": False,
                "one_process_phase8_step_ms": single_step_ms, "card": card}
@@ -3048,8 +3324,8 @@ def phase_distributed(card, single_step_ms):
 
 def main(argv=None) -> int:
     """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
-    kernels, tower, epilogue, conv, search, cpu, graph, continuous, fused,
-    trainer, qconv, quant, arena, bench, web, dist) runs only those, for
+    kernels, tower, epilogue, conv, search, cpu, graph, glue, continuous,
+    fused, trainer, qconv, quant, arena, bench, web, dist) runs only those, for
     work on one of them, and then
     prints no ``kernels`` line (quant and arena run the qconv phase first,
     arena the quant phase)."""
@@ -3096,6 +3372,8 @@ def main(argv=None) -> int:
         phase_card_vs_cpu(dev)
     if want("graph"):
         phase_graph(dev, net, card)
+    if want("glue"):
+        glue_err, glue_t, _ = phase_glue(dev, net)
     if want("continuous"):
         phase_continuous(dev, net, card)
     if want("fused"):
@@ -3122,8 +3400,9 @@ def main(argv=None) -> int:
         # "launches" are the main path's own; fetch_rows is launched by the
         # plain descent that phase 1 holds descend against ("check_launches")
         # and nowhere on the search path
-        on_path = ("descend", "commit_edges", "tower_forward", "qconv3x3",
-                   "conv3x3", "bn_act", "se_residual")
+        on_path = ("descend", "commit_edges", "encode_planes", "expand",
+                   "tower_forward", "qconv3x3", "conv3x3", "bn_act",
+                   "se_residual")
         check(all(launches[k] > 0 for k in on_path)
               and all(v > 0 for v in trainer_launches.values())
               and all(v > 0 for v in web_launches.values())
@@ -3147,6 +3426,33 @@ def main(argv=None) -> int:
         # the distributed trainer's ranks (phase 14), all together
         kernels[0]["dist_launches"] = dist_launches["descend"]
         kernels[2]["dist_launches"] = dist_launches["commit_edges"]
+        # the simulation's glue, XLA's fusions in the JAX package's jitted
+        # simulation; launches are phase 3's bf16 move, int8_launches phase
+        # 10's int8-static move, web_launches phase 13's bot,
+        # trainer_launches phase 8's two iterations, dist_launches phase
+        # 14's ranks; times at 512 games and, under one_game, at one
+        replaces = {
+            "encode_planes": "alphazero_tpu/env/breakthrough.py:231-236 "
+                             "(encoded_state, at alphazero_tpu/search/"
+                             "mcts.py:377)",
+            "expand": "alphazero_tpu/search/mcts.py:380-420, 453-464"}
+        for name in ("encode_planes", "expand"):
+            t, t1 = glue_t[f"{name}_{GAMES}"], glue_t[f"{name}_1"]
+            kernels.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": replaces[name], "launches": launches[name],
+                "int8_launches": quant_launches[name],
+                "web_launches": web_launches[name],
+                "trainer_launches": trainer_launches[name],
+                "dist_launches": dist_launches[name],
+                "tolerance": "bit-equal", "max_abs_err": glue_err[name],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                "library_ms": None, "call_ms": t["call_ms"],
+                "plain_call_ms": t["plain_call_ms"],
+                "launch_floor_ms": glue_t["floor_ms"],
+                "launch_floor_call_ms": glue_t["floor_call_ms"],
+                "one_game": t1})
         kernels.append({
             "name": "tower_forward", "route": "cuda",
             "source": "alphazero_torch/csrc/tower_kernel.cu",

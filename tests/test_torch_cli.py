@@ -163,7 +163,10 @@ def test_bench_move_mode(quant, capsys):
     out = _tiny_bench(quant=quant)
     assert out["metric"] == "mcts_sims_per_sec_per_chip"
     assert out["unit"] == "sims/s" and out["value"] > 0
-    assert out["vs_baseline"] == round(out["value"] / 100_000.0, 4)
+    # vs_baseline is the unrounded sims/s over 1e5 rounded to 4 places and
+    # value the sims/s rounded to 0.1 (bench.py, as the JAX bench): the
+    # two roundings apart are within 5e-5 + 0.05 / 1e5 of each other
+    assert abs(out["vs_baseline"] - out["value"] / 100_000.0) <= 5e-5 + 5e-7
     err = capsys.readouterr().err
     assert {"static": "static-calibrated", "dynamic": "dynamic-amax",
             "off": "bf16 net"}[quant] in err
