@@ -1,0 +1,8 @@
+"""The searches' model FLOPs over the window against the bf16 dense peak,
+in percent (the selfplay cells)."""
+
+from benchmark.lib import readers
+
+
+def read(run):
+    return readers.search_mfu_pct(run, "selfplay")
