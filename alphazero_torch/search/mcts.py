@@ -54,6 +54,7 @@ from typing import Callable, Tuple
 import torch
 from torch.profiler import record_function
 
+from alphazero_torch import tracing
 from alphazero_torch.env import breakthrough as env
 from alphazero_torch.models import inference
 from alphazero_torch.models.network import policy_value_apply, wl_to_value
@@ -382,6 +383,10 @@ def search(
     runs them eagerly instead (the yardstick the captured path is held
     to); ``capture=True`` on a CPU tree raises, as a failed capture does:
     nothing falls back.
+
+    The root expansion, the noise and the simulations are the spans
+    ``search.root``, ``search.noise`` and ``search.simulations``
+    (``alphazero_torch.tracing``), the last with its device time.
     """
     if tree is None:
         tree = init_tree(root_states, spec)
@@ -398,41 +403,45 @@ def search(
     A = spec.num_actions
 
     # Root expansion (does not count a visit).
-    root_planes = env.encoded_state(tree.root_state)
-    policy, _ = (eval_fn(root_planes) if eval_ctx is None
-                 else eval_fn(root_planes, eval_ctx))
-    legal = env.legal_action_mask(tree.root_state)
-    root_flat = _root_flat(tree)
-    root_child = root_flat[:, :A]
-    expanded = (root_child > (ILLEGAL + 0.5)).any(-1)
-    need_root = (~expanded & ~tree.root_state.done)[:, None]
-    child_row = torch.where(
-        need_root,
-        torch.where(legal, UNALLOCATED, ILLEGAL).to(vdt),
-        root_child)
-    prior_row = torch.where(need_root,
-                            kernels.renorm_priors(policy, legal, vdt),
-                            root_flat[:, A:2 * A])
-    root_flat[:, :A] = child_row
-    root_flat[:, A:2 * A] = prior_row
+    with tracing.span("search.root"):
+        root_planes = env.encoded_state(tree.root_state)
+        policy, _ = (eval_fn(root_planes) if eval_ctx is None
+                     else eval_fn(root_planes, eval_ctx))
+        legal = env.legal_action_mask(tree.root_state)
+        root_flat = _root_flat(tree)
+        root_child = root_flat[:, :A]
+        expanded = (root_child > (ILLEGAL + 0.5)).any(-1)
+        need_root = (~expanded & ~tree.root_state.done)[:, None]
+        child_row = torch.where(
+            need_root,
+            torch.where(legal, UNALLOCATED, ILLEGAL).to(vdt),
+            root_child)
+        prior_row = torch.where(need_root,
+                                kernels.renorm_priors(policy, legal, vdt),
+                                root_flat[:, A:2 * A])
+        root_flat[:, :A] = child_row
+        root_flat[:, A:2 * A] = prior_row
 
     if add_noise or root_noise is not None:
         if root_noise is None and generator is None:
             raise ValueError("add_noise requires a generator")
-        _add_root_noise(tree, generator, spec, noise=root_noise)
+        with tracing.span("search.noise"):
+            _add_root_noise(tree, generator, spec, noise=root_noise)
 
-    if on_card and capture is not False:
-        from alphazero_torch.search import graph
+    with tracing.span("search.simulations", device=tree.rows.device):
+        if on_card and capture is not False:
+            from alphazero_torch.search import graph
 
-        graph.run(tree, eval_fn, spec, eval_ctx)
-    else:
-        # One set of descent results for the whole search: the first
-        # simulation makes them and every later one overwrites them, and
-        # what a simulation leaves in the path past a game's depth is an
-        # earlier simulation's node and action, so still in range.
-        out = None
-        for _ in range(N):
-            out = _simulate_once(tree, eval_fn, spec, out, eval_ctx)
+            graph.run(tree, eval_fn, spec, eval_ctx)
+        else:
+            # One set of descent results for the whole search: the first
+            # simulation makes them and every later one overwrites them,
+            # and what a simulation leaves in the path past a game's depth
+            # is an earlier simulation's node and action, so still in
+            # range.
+            out = None
+            for _ in range(N):
+                out = _simulate_once(tree, eval_fn, spec, out, eval_ctx)
     tree.slot_bound += N
     return tree
 

@@ -31,7 +31,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from alphazero_torch import resolve_device
+from alphazero_torch import resolve_device, tracing
 from alphazero_torch.config import Config
 from alphazero_torch.models.network import AlphaZeroNet
 from alphazero_torch.parallel.mesh import all_reduce_mean_
@@ -129,7 +129,10 @@ def train_step(state: TrainState, batch: Batch, mirror_bits: torch.Tensor,
     With a ``parallel.Mesh`` (and ``state`` replicated over it) the batch
     is this rank's shard of the global batch: the gradients are averaged
     over the group before the clip, and the losses returned are the
-    global batch's (``parallel.sharded_train_step``)."""
+    global batch's (``parallel.sharded_train_step``). The forward, the
+    backward (with the gradients' average) and the clip with the optimizer
+    are the spans ``learn.forward``, ``learn.backward`` and
+    ``learn.optimizer`` (``alphazero_torch.tracing``)."""
     states, target_pi, target_wl = batch
     states = states.float()
 
@@ -143,18 +146,22 @@ def train_step(state: TrainState, batch: Batch, mirror_bits: torch.Tensor,
 
     state.net.train()
     state.opt.zero_grad(set_to_none=True)
-    loss, loss_pi, loss_wl = loss_fn(state.net, states, target_pi, target_wl)
-    loss.backward()
+    with tracing.span("learn.forward"):
+        loss, loss_pi, loss_wl = loss_fn(state.net, states, target_pi,
+                                         target_wl)
     params = list(state.net.parameters())
-    if mesh is not None:
-        # BatchNorm's backward all-reduce already carried every rank's
-        # loss through the global statistics: average once, here, in the
-        # same all-reduce as the losses
-        losses = torch.stack([loss, loss_pi, loss_wl]).detach()
-        all_reduce_mean_(mesh, [p.grad for p in params] + [losses])
-        loss, loss_pi, loss_wl = losses
-    clip_by_global_norm_(params, cfg.grad_clip_norm)
-    state.opt.step()
+    with tracing.span("learn.backward"):
+        loss.backward()
+        if mesh is not None:
+            # BatchNorm's backward all-reduce already carried every rank's
+            # loss through the global statistics: average once, here, in
+            # the same all-reduce as the losses
+            losses = torch.stack([loss, loss_pi, loss_wl]).detach()
+            all_reduce_mean_(mesh, [p.grad for p in params] + [losses])
+            loss, loss_pi, loss_wl = losses
+    with tracing.span("learn.optimizer"):
+        clip_by_global_norm_(params, cfg.grad_clip_norm)
+        state.opt.step()
     return {"loss": loss.detach(), "loss_pi": loss_pi.detach(),
             "loss_wl": loss_wl.detach(), "lr": lr}
 

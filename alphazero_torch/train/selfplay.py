@@ -14,6 +14,9 @@ Port of ``alphazero_tpu/train/selfplay.py``:
 Per-move outputs stay on the device; the host syncs a done flag every
 ``CHECK_EVERY`` moves and copies the recorded episodes once at the end.
 Randomness comes from one ``torch.Generator`` on the games' device.
+Each lockstep move is a ``selfplay.move`` span (``alphazero_torch.tracing``)
+holding the search's spans and the host's work around them:
+``selfplay.reset_tree``, ``selfplay.sample`` and ``selfplay.autoreset``.
 
 A game loop keeps one tree for all its moves: a fresh-root move resets it
 in place (``init_tree(..., tree=)``) and tree reuse re-roots it in place
@@ -28,7 +31,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from alphazero_torch import resolve_device
+from alphazero_torch import resolve_device, tracing
 from alphazero_torch.config import Config
 from alphazero_torch.env import breakthrough as env
 from alphazero_torch.search import (
@@ -66,17 +69,20 @@ def _searched_move(states, tree, generator, eval_fn, spec,
     tree = search(states, eval_fn, spec, generator=generator,
                   add_noise=True, tree=tree)
 
-    temp = torch.where(states.move_count < temperature_threshold, 1.0, 0.0)
-    probs = root_action_probs(tree, temp)
+    with tracing.span("selfplay.sample"):
+        temp = torch.where(states.move_count < temperature_threshold, 1.0,
+                           0.0)
+        probs = root_action_probs(tree, temp)
 
-    # Finished games have no legal actions; give them a dummy action
-    # (step() freezes them).
-    safe = torch.where(states.done[:, None],
-                       torch.full_like(probs, 1.0 / probs.shape[-1]), probs)
-    u = torch.rand(safe.shape, generator=generator, device=safe.device)
-    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-    actions = (torch.log(safe.clamp_min(1e-30)) + gumbel).argmax(-1)
-    new_states = env.step(states, actions)
+        # Finished games have no legal actions; give them a dummy action
+        # (step() freezes them).
+        safe = torch.where(states.done[:, None],
+                           torch.full_like(probs, 1.0 / probs.shape[-1]),
+                           probs)
+        u = torch.rand(safe.shape, generator=generator, device=safe.device)
+        gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+        actions = (torch.log(safe.clamp_min(1e-30)) + gumbel).argmax(-1)
+        new_states = env.step(states, actions)
     return tree, planes, probs, actions.int(), new_states
 
 
@@ -92,11 +98,21 @@ def selfplay_move(states: env.EnvState, generator: torch.Generator, eval_fn,
     searched (its buffers and captured simulation serve every move);
     None searches a new tree.
     """
+    with tracing.span("selfplay.move"):
+        tree, planes, probs, actions, new_states = _fresh_move(
+            states, tree, generator, eval_fn, spec, temperature_threshold)
+        return new_states, planes, probs, actions, root_value(tree)
+
+
+def _fresh_move(states, tree, generator, eval_fn, spec,
+                temperature_threshold):
+    """``_searched_move`` on ``tree`` reset to fresh roots at ``states`` in
+    place, or on a new tree where ``tree`` is None."""
     if tree is not None:
-        tree = init_tree(states, spec, tree=tree)
-    tree, planes, probs, actions, new_states = _searched_move(
-        states, tree, generator, eval_fn, spec, temperature_threshold)
-    return new_states, planes, probs, actions, root_value(tree)
+        with tracing.span("selfplay.reset_tree"):
+            tree = init_tree(states, spec, tree=tree)
+    return _searched_move(states, tree, generator, eval_fn, spec,
+                          temperature_threshold)
 
 
 def selfplay_move_tree(states: env.EnvState, tree: Tree,
@@ -106,11 +122,12 @@ def selfplay_move_tree(states: env.EnvState, tree: Tree,
     tree (rooted at ``states``), then re-roots it at the chosen child, in
     place. Returns (new_states, planes, probs, actions, root_values,
     new_tree), ``new_tree`` being ``tree``."""
-    stree, planes, probs, actions, new_states = _searched_move(
-        states, tree, generator, eval_fn, spec, temperature_threshold)
-    values = root_value(stree)
-    new_tree = advance_root(stree, actions, new_states, spec)
-    return new_states, planes, probs, actions, values, new_tree
+    with tracing.span("selfplay.move"):
+        stree, planes, probs, actions, new_states = _searched_move(
+            states, tree, generator, eval_fn, spec, temperature_threshold)
+        values = root_value(stree)
+        new_tree = advance_root(stree, actions, new_states, spec)
+        return new_states, planes, probs, actions, values, new_tree
 
 
 def _emit_examples(planes_all, probs_all, mover_all, m_idx, g_idx, winners):
@@ -202,8 +219,10 @@ def selfplay_games(
 
 
 def _reset_ended(states: env.EnvState, ended: torch.Tensor) -> env.EnvState:
-    fresh = env.initial_state(tuple(states.turn.shape), device=states.device)
-    return env.select_state(ended, fresh, states)
+    with tracing.span("selfplay.autoreset"):
+        fresh = env.initial_state(tuple(states.turn.shape),
+                                  device=states.device)
+        return env.select_state(ended, fresh, states)
 
 
 def selfplay_move_autoreset(states: env.EnvState, generator: torch.Generator,
@@ -216,11 +235,12 @@ def selfplay_move_autoreset(states: env.EnvState, generator: torch.Generator,
     lanes whose episode completed ON this move, with ``winner`` its
     result; new_states holds fresh games for those lanes. ``tree`` as in
     ``selfplay_move``."""
-    new_states, planes, probs, _, _ = selfplay_move(
-        states, generator, eval_fn, spec, temperature_threshold, tree)
-    ended = new_states.done
-    winner = new_states.winner
-    return _reset_ended(new_states, ended), planes, probs, ended, winner
+    with tracing.span("selfplay.move"):
+        _, planes, probs, _, new_states = _fresh_move(
+            states, tree, generator, eval_fn, spec, temperature_threshold)
+        ended = new_states.done
+        winner = new_states.winner
+        return _reset_ended(new_states, ended), planes, probs, ended, winner
 
 
 def selfplay_move_autoreset_tree(states: env.EnvState, tree: Tree,
@@ -230,13 +250,15 @@ def selfplay_move_autoreset_tree(states: env.EnvState, tree: Tree,
     """Auto-reset move with tree reuse: lanes whose episode ended restart
     with an EMPTY root (force_fresh); other lanes keep the chosen child's
     subtree. Returns (new_states, planes, probs, ended, winner, tree)."""
-    stree, planes, probs, actions, new_states = _searched_move(
-        states, tree, generator, eval_fn, spec, temperature_threshold)
-    ended = new_states.done
-    winner = new_states.winner
-    reset = _reset_ended(new_states, ended)
-    new_tree = advance_root(stree, actions, reset, spec, force_fresh=ended)
-    return reset, planes, probs, ended, winner, new_tree
+    with tracing.span("selfplay.move"):
+        stree, planes, probs, actions, new_states = _searched_move(
+            states, tree, generator, eval_fn, spec, temperature_threshold)
+        ended = new_states.done
+        winner = new_states.winner
+        reset = _reset_ended(new_states, ended)
+        new_tree = advance_root(stree, actions, reset, spec,
+                                force_fresh=ended)
+        return reset, planes, probs, ended, winner, new_tree
 
 
 def selfplay_games_continuous(

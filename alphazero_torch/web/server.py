@@ -26,6 +26,11 @@ anchors in bf16.
 and the current CUDA device are per thread in PyTorch, so the bot sets
 both inside ``alphazero_move``; ``GameSession.lock`` is held across the
 whole search.
+
+Each POST is a request record (``alphazero_torch.tracing.request``): the
+spans ``web.request`` (the whole handler), ``bot.search`` (a bot move, to
+the host's read of its action and value) and, inside it, the search's own
+spans.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from alphazero_torch import resolve_device
+from alphazero_torch import resolve_device, tracing
 from alphazero_torch.baseline import Search, from_board
 from alphazero_torch.config import Config
 from alphazero_torch.env import BLACK, WHITE, OracleGame
@@ -127,7 +132,7 @@ class BotService:
         dev = self.device
         on_card = (torch.cuda.device(dev) if dev.type == "cuda"
                    else contextlib.nullcontext())
-        with torch.inference_mode(), on_card:
+        with tracing.span("bot.search"), torch.inference_mode(), on_card:
             states = live_states([game], dev)
             # one batch-1 tree, reset for every move: on the card every
             # move replays the simulation the first one captured (always
@@ -289,6 +294,10 @@ def make_handler(session: GameSession, cfg: Config):
             self._json({"error": "not found"}, 404)
 
         def do_POST(self):
+            with tracing.request(self.path):
+                self._post()
+
+        def _post(self):
             data = self._body()
             if self.path == "/api/models/select":
                 name = data.get("model")
