@@ -18,8 +18,11 @@ read the conv weights from shared memory in a layout of their own, so
 
 Scope: the tower only (C = 128). The input conv (Cin = 3) and the two
 heads stay ``F.conv2d`` / ``torch.matmul`` in ``fused_apply``, as the JAX
-package left them to XLA. No search evaluator calls the fused path, as in
-the JAX package; ``alphazero_torch.bench_fused`` times it beside the
+package left them to XLA. The search's bf16 evaluator runs its tower
+through ``tower_forward`` at batches of ``models/inference.py:B_MIN`` or
+more boards (``inference.fused_tower``), with the input conv and heads of
+its own per-layer route; the JAX package wires no evaluator to its tower.
+``alphazero_torch.bench_fused`` times ``fused_apply`` beside the
 layer-by-layer net.
 """
 

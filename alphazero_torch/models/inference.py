@@ -24,11 +24,22 @@ same for the port's ``AlphaZeroNet``:
   layers are matrix products, each product and each bias add rounded
   apart as Flax's ``nn.Dense`` rounds.
 
+The residual tower has a second route, chosen by the batch's shape
+(``fused_tower``): on the card in bfloat16 at the width the fused kernel
+takes (C 128), a batch of ``B_MIN`` or more boards in whole thread blocks
+of ``fused.TB`` runs all its blocks as one ``fused.tower_forward`` launch
+on the NHWC map viewed as ``(B*64, C)`` rows, in place of two
+``conv3x3`` and one ``se_residual`` launch a block. It is the same net in
+the same precision (bf16 operands, float32 sums) with each BatchNorm
+folded into its conv (``fused.pack_weights``), which moves rounding points
+and nothing else; the input conv and both heads are the same on both
+routes.
+
 On the card ``conv3x3`` and the two epilogues are hand-written kernels
 and take bfloat16 only (``conv3x3`` reads its weights in an image that
 ``prepare_inference`` packs once, ``conv.weight_image``); on the CPU
 their plain versions run, in any float dtype (the tests run float32
-against Flax).
+against Flax), and the tower takes the per-layer route.
 """
 
 from __future__ import annotations
@@ -41,6 +52,15 @@ import torch.nn.functional as F
 from alphazero_torch.models import conv as cv
 from alphazero_torch.models import epilogue, fused
 from alphazero_torch.models.network import AlphaZeroNet
+
+# The fewest boards whose tower runs as one ``fused.tower_forward`` launch.
+# The kernel is one wave of TB boards a thread block up to 528 boards, so
+# it takes about the same time at any batch up to there, while the
+# per-layer route's 40 ``conv3x3`` and 20 ``se_residual`` launches grow
+# with the batch: the smallest multiple of TB at which the fused tower
+# took less time, both routes timed as CUDA-graph replays of the 20x128
+# archive net's tower on an H100 (scripts/tower_crossover.py; PERF.md §6).
+B_MIN = 268
 
 
 def _copy(t: torch.Tensor, dev: torch.device, dtype: torch.dtype,
@@ -55,7 +75,9 @@ def prepare_inference(net: AlphaZeroNet, dtype: torch.dtype = torch.bfloat16
     device: a snapshot that later training does not change. Each
     ``conv3x3`` site keeps its channels-last OIHW weights (the CPU's plain
     version reads them) and, on a card in bfloat16 at a width the kernel
-    takes, their image under ``<name>_image`` (else None)."""
+    takes, their image under ``<name>_image`` (else None). Under
+    ``"tower"`` it keeps ``tower_operands(net)`` where ``packs_tower``
+    holds, else None."""
     dev = next(net.parameters()).device
 
     def conv(c: torch.nn.Conv2d) -> torch.Tensor:
@@ -95,7 +117,31 @@ def prepare_inference(net: AlphaZeroNet, dtype: torch.dtype = torch.bfloat16
         "value_conv": conv(net.value_conv), "value_bn": bn(net.value_bn),
         "value_fc1": dense(net.value_fc1, flattened=True),
         "value_fc2": dense(net.value_fc2),
+        "tower": (tower_operands(net) if packs_tower(
+            dev, dtype, net.input_conv.out_channels) else None),
     }
+
+
+def tower_operands(net: AlphaZeroNet) -> Dict[str, torch.Tensor]:
+    """What ``fused.tower_forward`` reads of ``fused.pack_weights(net)``,
+    on the net's device: the kernel's operands and ``"wconv"`` (the block
+    count, and what the plain version reads); not the heads' copies."""
+    packed = fused.pack_weights(net)
+    return {k: packed[k] for k in
+            ("wconv", *(k for k, _, _ in fused._KERNEL_OPERANDS))}
+
+
+def packs_tower(dev: torch.device, dtype: torch.dtype, C: int) -> bool:
+    """Whether ``prepare_inference`` keeps the fused tower's operands: on a
+    card, in bfloat16, at the one width the kernel takes."""
+    return dev.type == "cuda" and dtype == torch.bfloat16 and C == fused._C
+
+
+def fused_tower(prep: Dict[str, Any], B: int) -> bool:
+    """Whether ``inference_apply`` runs the tower of B boards as one
+    ``fused.tower_forward`` launch: the tower's operands are there and B
+    is at least ``B_MIN`` whole thread blocks of the kernel."""
+    return prep["tower"] is not None and B % fused.TB == 0 and B >= B_MIN
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -118,13 +164,18 @@ def inference_apply(prep: Dict[str, Any], planes: torch.Tensor
     x = planes.permute(0, 2, 3, 1).to(prep["dtype"],
                                       memory_format=torch.contiguous_format)
     x = epilogue.bn_act(_conv(x, prep["input_conv"]), prep["input_bn"])
-    for b in prep["blocks"]:
-        y = cv.conv3x3(x, b["conv1"], b["bn1"], relu=True,
-                       image=b["conv1_image"])
-        y = cv.conv3x3(y, b["conv2"], b["bn2"], image=b["conv2_image"])
-        x = epilogue.se_residual(y, x, b["fc1"], b["fc2"])
-
     B = x.shape[0]
+    if fused_tower(prep, B):
+        # the NHWC map is already the kernel's game-major rows: no copy
+        x = fused.tower_forward(x.reshape(B * 64, -1), prep["tower"],
+                                len(prep["blocks"])).view(x.shape)
+    else:
+        for b in prep["blocks"]:
+            y = cv.conv3x3(x, b["conv1"], b["bn1"], relu=True,
+                           image=b["conv1_image"])
+            y = cv.conv3x3(y, b["conv2"], b["bn2"], image=b["conv2_image"])
+            x = epilogue.se_residual(y, x, b["fc1"], b["fc2"])
+
     p = cv.conv3x3(x, prep["policy_conv"], prep["policy_bn"], relu=True,
                    image=prep["policy_conv_image"])
     policy_logits = _dense(p.reshape(B, -1), prep["policy_fc"])

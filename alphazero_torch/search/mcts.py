@@ -657,8 +657,10 @@ def make_net_evaluator(net, dtype=torch.float32) -> Evaluator:
     config's ``inference_dtype``, the JAX package's search dtype) it runs
     the JAX package's compiled forward, ``models/inference.py``: weights
     cast once here and kept on the net's device, NHWC maps, the BatchNorm
-    and block-tail epilogues as hand-written kernels on the card. It
-    copies nothing from the host per call, so a search can capture it.
+    and block-tail epilogues as hand-written kernels on the card, and at
+    batches of ``inference.B_MIN`` or more the tower as one fused kernel
+    (``inference.fused_tower``). It copies nothing from the host per
+    call, so a search can capture it.
     """
     if dtype == torch.float32:
         net.eval()

@@ -823,7 +823,7 @@ def phase_network(dev):
 def phase_search(dev, net, card):
     from alphazero_torch.config import Config
     from alphazero_torch.env import breakthrough as env
-    from alphazero_torch.models import conv, epilogue
+    from alphazero_torch.models import conv, epilogue, fused
     from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
     from alphazero_torch.search import mcts
@@ -831,9 +831,7 @@ def phase_search(dev, net, card):
 
     cfg = Config(num_simulations=SIMS, parallel_games=GAMES)
     eval_fn = mcts.make_net_evaluator(net, getattr(torch, cfg.inference_dtype))
-    # a forward: conv3x3 twice a block and for the policy head, each with
-    # its BatchNorm; bn_act after the input and value convs; a tail a block
-    n_conv, n_bn, n_tail = 2 * len(net.blocks) + 1, 2, len(net.blocks)
+    n_conv, n_bn, n_tail, n_tower = bf16_forward_launches(net, GAMES)
     spec = selfplay.search_spec(cfg)
     gen = torch.Generator(device=dev).manual_seed(1)
     states = env.initial_state((GAMES,), device=dev)
@@ -872,6 +870,7 @@ def phase_search(dev, net, card):
     conv.conv3x3.launches = 0
     epilogue.bn_act.launches = 0
     epilogue.se_residual.launches = 0
+    fused.tower_forward.launches = 0
     mcts.STATS.reset()
     graph.STATS.reset()
     moves, live = 1, 0
@@ -896,15 +895,18 @@ def phase_search(dev, net, card):
                 "expand": K.expand.launches,
                 "conv3x3": conv.conv3x3.launches,
                 "bn_act": epilogue.bn_act.launches,
-                "se_residual": epilogue.se_residual.launches}
+                "se_residual": epilogue.se_residual.launches,
+                "tower_forward": fused.tower_forward.launches}
     check(launches["descend"] > 0 and launches["commit_edges"] > 0,
           f"a kernel was not launched on the main path: {launches}")
     # the root's evaluation and one a simulation, replays counted
     check(launches["conv3x3"] == n_conv * moves * (SIMS + 1)
           and launches["bn_act"] == n_bn * moves * (SIMS + 1)
-          and launches["se_residual"] == n_tail * moves * (SIMS + 1),
+          and launches["se_residual"] == n_tail * moves * (SIMS + 1)
+          and launches["tower_forward"] == n_tower * moves * (SIMS + 1),
           f"{launches}: the bf16 evaluator's forward is {n_conv} conv3x3, "
-          f"{n_bn} bn_act and {n_tail} se_residual launches")
+          f"{n_bn} bn_act, {n_tail} se_residual and {n_tower} "
+          f"tower_forward launches")
     st = mcts.STATS
     check(launches["descend"] == launches["commit_edges"] == moves * SIMS
           == launches["encode_planes"] == launches["expand"]
@@ -957,17 +959,21 @@ def phase_search(dev, net, card):
                   if "cudnn" in k.lower() and k not in cudnn)
     memsets = sum(n for k, n in calls.items() if "Memset" in k)
     ours = sum(n for k, n in calls.items() if "conv3x3_kernel" in k)
+    towers = sum(n for k, n in calls.items() if "tower_kernel" in k)
     rest = captured["classes"]["rest"]["launches"]
     check(rest <= REST_LAUNCHES,
           f"the bf16 captured profile of {PROFILE_SIMS} simulations runs "
           f"{rest} launches that are neither hand kernels nor cuDNN's or "
           f"cuBLAS's, more than {REST_LAUNCHES}")
-    out["profile_convs"] = {"conv3x3": ours, "cudnn": sum(cudnn.values()),
+    out["profile_convs"] = {"conv3x3": ours, "tower": towers,
+                            "cudnn": sum(cudnn.values()),
                             "cudnn_helpers": helpers, "memset": memsets,
                             "forwards": forwards}
-    check(ours == n_conv * forwards and sum(cudnn.values()) <= 2 * forwards
+    check(ours == n_conv * forwards and towers == n_tower * forwards
+          and sum(cudnn.values()) <= 2 * forwards
           and memsets <= 2 * forwards,
           f"captured profile of {forwards} forwards: {ours} conv3x3_kernel, "
+          f"{towers} tower_kernel, "
           f"cuDNN convs {cudnn}, {memsets} memsets (at most two a forward: "
           f"the input and value convs)")
     print(f"bf16 captured profile: {out['launches_per_forward']} device "
@@ -976,6 +982,21 @@ def phase_search(dev, net, card):
           f"convs ({sorted(cudnn)}), {helpers} other cuDNN kernels, "
           f"{memsets} memsets", flush=True)
     return launches, out
+
+
+def bf16_forward_launches(net, B):
+    """Launches of one bf16 forward of ``net`` at B boards on the card:
+    (conv3x3, bn_act, se_residual, tower_forward). Both routes of the tower
+    run ``bn_act`` after the input and value convs and ``conv3x3`` for the
+    policy head, each with its BatchNorm; the tower is one
+    ``tower_forward`` where ``inference.fused_tower`` takes the batch, else
+    ``conv3x3`` twice a block and a tail a block."""
+    from alphazero_torch.models import inference
+
+    n = len(net.blocks)
+    if inference.fused_tower(inference.prepare_inference(net), B):
+        return 1, 2, 0, 1
+    return 2 * n + 1, 2, n, 0
 
 
 STAGES = ("mcts.descend", "mcts.evaluate", "mcts.expand", "mcts.backprop")
@@ -1842,9 +1863,11 @@ def phase_epilogue(dev, net):
     # the inputs of every epilogue of the archived net in one forward of
     # each evaluator: bf16 (2 bn_act, after the input and value convs, and
     # 20 se_residual with no affine: bn2 is conv3x3's epilogue) and
-    # int8-static (20 se_residual, no affine)
+    # int8-static (20 se_residual, no affine); the bf16 forward on its
+    # per-layer route (no fused tower's operands), which the bot's batch and
+    # C 256 take
     planes = env.encoded_state(random_positions(GAMES, 81)).to(dev)
-    prep = inference.prepare_inference(net, torch.bfloat16)
+    prep = {**inference.prepare_inference(net, torch.bfloat16), "tower": None}
     qp = quant.quantize_network(net)
     int8 = quant.make_quant_evaluator(net, qp=qp, act_scales=quant.calibrate(
         qp, calibration_batches(ARCHIVE, dev)[0]))
@@ -2079,8 +2102,10 @@ def conv_bound_ms(B, C, affine=True):
 
 def conv_sites(prep, planes):
     """(x, w, bn, relu, image) of every ``conv3x3`` call of one bf16
-    forward: the forward reaches the wrapper as ``inference.cv.conv3x3``,
-    and a stand-in records each call's inputs and passes it on."""
+    forward on the per-layer route (``prep`` without the fused tower's
+    operands), at any batch: the forward reaches the wrapper as
+    ``inference.cv.conv3x3``, and a stand-in records each call's inputs
+    and passes it on."""
     from alphazero_torch.models import conv, inference
 
     sites = []
@@ -2091,7 +2116,7 @@ def conv_sites(prep, planes):
 
     inference.cv = types.SimpleNamespace(conv3x3=record)
     try:
-        inference.inference_apply(prep, planes)
+        inference.inference_apply({**prep, "tower": None}, planes)
     finally:
         inference.cv = conv
     return sites
@@ -2310,7 +2335,7 @@ def launches_per_forward(eval_fn, planes):
 def phase_quant_search(dev, net, card, qp, act):
     from alphazero_torch.config import Config
     from alphazero_torch.env import breakthrough as env
-    from alphazero_torch.models import conv, epilogue, quant
+    from alphazero_torch.models import conv, epilogue, fused, quant
     from alphazero_torch.models.network import wl_to_value
     from alphazero_torch.search import graph
     from alphazero_torch.search import kernels as K
@@ -2318,7 +2343,8 @@ def phase_quant_search(dev, net, card, qp, act):
     from alphazero_torch.train import selfplay
 
     cfg = Config(num_simulations=SIMS, parallel_games=GAMES)
-    n_bn, n_tail = 2, len(net.blocks)           # the bf16 forward's
+    n_tail = len(net.blocks)                    # the int8 forward's
+    b_conv, b_bn, b_tail, b_tower = bf16_forward_launches(net, GAMES)
     evals = {"int8": quant.make_quant_evaluator(net, act_scales=act, qp=qp),
              "bf16": mcts.make_net_evaluator(net, torch.bfloat16)}
     spec = selfplay.search_spec(cfg)
@@ -2355,6 +2381,7 @@ def phase_quant_search(dev, net, card, qp, act):
         K.expand.launches = 0
         epilogue.bn_act.launches = 0
         epilogue.se_residual.launches = 0
+        fused.tower_forward.launches = 0
         mcts.STATS.reset()
         graph.STATS.reset()
         gen = torch.Generator(device=dev).manual_seed(2)
@@ -2389,12 +2416,14 @@ def phase_quant_search(dev, net, card, qp, act):
                   f"{mcts.STATS.host_syncs} syncs")
         else:
             check(quant.qconv3x3.launches == 0, "bf16 move ran an s8 conv")
-            check(conv.conv3x3.launches == n_conv * (SIMS + 1)
-                  and epilogue.bn_act.launches == n_bn * (SIMS + 1)
-                  and epilogue.se_residual.launches == n_tail * (SIMS + 1),
+            check(conv.conv3x3.launches == b_conv * (SIMS + 1)
+                  and epilogue.bn_act.launches == b_bn * (SIMS + 1)
+                  and epilogue.se_residual.launches == b_tail * (SIMS + 1)
+                  and fused.tower_forward.launches == b_tower * (SIMS + 1),
                   f"bf16 move: {conv.conv3x3.launches} conv3x3, "
                   f"{epilogue.bn_act.launches} bn_act, "
-                  f"{epilogue.se_residual.launches} se_residual launches")
+                  f"{epilogue.se_residual.launches} se_residual, "
+                  f"{fused.tower_forward.launches} tower_forward launches")
     out["int8_over_bf16"] = (sum(out["int8_sims_per_s"])
                              / sum(out["bf16_sims_per_s"]))
     out["launches_per_move"] = launches
@@ -3377,7 +3406,7 @@ def main(argv=None) -> int:
     if want("continuous"):
         phase_continuous(dev, net, card)
     if want("fused"):
-        launches["tower_forward"] = phase_fused(dev, net, card)
+        fused_launches = phase_fused(dev, net, card)
     trainer_step_ms = None
     if want("trainer"):
         trainer_launches, trainer_step_ms = phase_trainer(dev, card)
@@ -3399,11 +3428,13 @@ def main(argv=None) -> int:
     if not only:
         # "launches" are the main path's own; fetch_rows is launched by the
         # plain descent that phase 1 holds descend against ("check_launches")
-        # and nowhere on the search path
+        # and nowhere on the search path; at 512 boards the bf16 forward
+        # runs its tower as tower_forward, so se_residual's are the int8
+        # forward's
         on_path = ("descend", "commit_edges", "encode_planes", "expand",
-                   "tower_forward", "qconv3x3", "conv3x3", "bn_act",
-                   "se_residual")
+                   "tower_forward", "qconv3x3", "conv3x3", "bn_act")
         check(all(launches[k] > 0 for k in on_path)
+              and int8_tail_launches > 0
               and all(v > 0 for v in trainer_launches.values())
               and all(v > 0 for v in web_launches.values())
               and all(v > 0 for v in dist_launches.values()),
@@ -3458,6 +3489,7 @@ def main(argv=None) -> int:
             "source": "alphazero_torch/csrc/tower_kernel.cu",
             "replaces": "alphazero_tpu/models/fused.py:178",
             "launches": launches["tower_forward"],
+            "fused_path_launches": fused_launches,
             "max_abs_err": tower_err, **tower_t,
             "bound_ms": tower_bound[0], "bound_by": tower_bound[1]})
         # an XLA conv of the JAX package's int8 evaluator, not a Pallas

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 torch.set_num_threads(1)
 
-from alphazero_torch.models import convert, fused
+from alphazero_torch.models import convert, fused, inference
 from alphazero_torch.models.network import AlphaZeroNet
 
 BF16_STEP = 2.0 ** -7      # spacing of bf16 values, relative, at most
@@ -345,3 +345,175 @@ def test_cuda_tower_kernel_against_plain(cuda, games, blocks):
     with pytest.raises(ValueError, match="multiple"):
         fused.tower_forward(x[:64], packed, 1)
     assert fused.tower_forward.launches == launches + 1
+
+
+# -----------------------------------------------------------------------------
+# The bf16 evaluator's choice of route for its tower
+# -----------------------------------------------------------------------------
+
+def _random_net(blocks, C, seed):
+    """Imports no JAX: small random weights and BatchNorm variances."""
+    gen = torch.Generator().manual_seed(seed)
+    net = AlphaZeroNet(blocks, C, 8).eval()
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+        for name, b in net.named_buffers():
+            if name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
+    return net
+
+
+@pytest.mark.parametrize("dev,dtype,C,want", [
+    ("cuda", torch.bfloat16, 128, True),
+    ("cuda", torch.bfloat16, 256, False),
+    ("cuda", torch.bfloat16, 32, False),
+    ("cuda", torch.float32, 128, False),
+    ("cpu", torch.bfloat16, 128, False)])
+def test_packs_tower_on_a_card_in_bf16_at_C_128(dev, dtype, C, want):
+    assert inference.packs_tower(torch.device(dev), dtype, C) is want
+
+
+@pytest.mark.parametrize("B,want", [
+    (inference.B_MIN, True), (inference.B_MIN + fused.TB, True),
+    (512, True), (1, False), (130, False),
+    (inference.B_MIN - fused.TB, False), (inference.B_MIN + 2, False)])
+def test_fused_tower_route_is_chosen_by_the_batch(B, want):
+    """A card's prep has its tower operands; the route then takes whole
+    thread blocks of ``fused.TB`` boards from ``B_MIN`` up."""
+    assert inference.B_MIN % fused.TB == 0
+    assert inference.fused_tower({"tower": {}}, B) is want
+
+
+def test_cpu_prep_keeps_no_tower_and_takes_the_per_layer_route():
+    prep = inference.prepare_inference(AlphaZeroNet(1, 128, 8).eval(),
+                                       torch.bfloat16)
+    assert prep["tower"] is None
+    assert not inference.fused_tower(prep, 512)
+
+
+def test_fused_route_of_inference_apply_on_the_cpu(monkeypatch):
+    """The fused route's plumbing, at a batch lowered to 8 boards: the
+    input conv's NHWC map goes through ``tower_forward`` (its plain
+    version here) as ``(B*64, 128)`` rows and back, with no
+    ``se_residual``, and the logits land within ``BF16_LIMITS`` of the
+    per-layer route's."""
+    import chip_smoke
+    from alphazero_torch.models import epilogue
+
+    net = _random_net(2, 128, 3)
+    planes = torch.from_numpy(_planes(np.random.default_rng(4), 8))
+    prep = inference.prepare_inference(net, torch.bfloat16)
+    want = inference.inference_apply(prep, planes)
+    calls, kernel = [], fused.tower_forward
+
+    def tower_forward(x2d, packed, num_blocks):
+        calls.append((tuple(x2d.shape), num_blocks))
+        return kernel(x2d, packed, num_blocks)
+
+    def se_residual(*args, **kw):
+        raise AssertionError("the fused route ran a per-layer block")
+
+    monkeypatch.setattr(inference, "B_MIN", 8)
+    monkeypatch.setattr(fused, "tower_forward", tower_forward)
+    monkeypatch.setattr(epilogue, "se_residual", se_residual)
+    prep["tower"] = inference.tower_operands(net)
+    got = inference.inference_apply(prep, planes)
+    assert calls == [((8 * 64, 128), 2)]
+    apart = _limits_apart(got, want)
+    assert all(d <= lim for d, lim in zip(apart, chip_smoke.BF16_LIMITS))
+    assert apart[0] > 0    # BatchNorm folded: the rounding points moved
+
+
+def _archive_net(dev):
+    import chip_smoke
+
+    return convert.load_archive(chip_smoke.ARCHIVE, device=dev)
+
+
+def _limits_apart(got, want):
+    """(logit, probability, value) differences, as ``BF16_LIMITS`` has
+    them."""
+    value = lambda wl: torch.softmax(wl, -1)[:, 0] - torch.softmax(wl, -1)[:, 1]
+    return (max(float((g - w).abs().max()) for g, w in zip(got, want)),
+            float((torch.softmax(got[0], -1)
+                   - torch.softmax(want[0], -1)).abs().max()),
+            float((value(got[1]) - value(want[1])).abs().max()))
+
+
+def _launches():
+    from alphazero_torch.models import conv, epilogue
+
+    return (fused.tower_forward.launches, conv.conv3x3.launches,
+            epilogue.se_residual.launches)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_route_within_bf16_limits_of_the_per_layer_route(
+        cuda, monkeypatch):
+    """The archived net's bf16 forward of 512 random-play positions on the
+    card: the fused route (one ``tower_forward``, the policy head's one
+    ``conv3x3``, no ``se_residual``) within ``BF16_LIMITS`` of the
+    per-layer route's policy and value."""
+    import chip_smoke
+    from alphazero_torch.env import breakthrough as env
+
+    prep = inference.prepare_inference(_archive_net(cuda), torch.bfloat16)
+    planes = env.encoded_state(chip_smoke.random_positions(512, 19)) \
+        .to(cuda)
+    before = _launches()
+    got = inference.inference_apply(prep, planes)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 1, 0)
+    monkeypatch.setattr(inference, "B_MIN", 10 ** 9)
+    before = _launches()
+    want = inference.inference_apply(prep, planes)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (0, 41, 20)
+    apart = _limits_apart(got, want)
+    assert all(d <= lim for d, lim in zip(apart, chip_smoke.BF16_LIMITS)), \
+        apart
+
+
+@pytest.mark.gpu
+def test_cuda_captured_search_replays_the_fused_tower(cuda):
+    """A 512-lane search of the archived net's bf16 evaluator, captured,
+    then searched again from reset roots: every replay adds one
+    ``tower_forward`` launch (and the eager root's forward one more), the
+    policy head's ``conv3x3`` alone, and no ``se_residual``."""
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.search import graph, mcts
+
+    states = env.initial_state((512,), device=cuda)
+    spec = mcts.SearchSpec(num_simulations=8)
+    eval_fn = mcts.make_net_evaluator(_archive_net(cuda), torch.bfloat16)
+    tree = mcts.search(states, eval_fn, spec)
+    captures, replays = graph.STATS.captures, graph.STATS.replays
+    before = _launches()
+    tree = mcts.search(states, eval_fn, spec,
+                       tree=mcts.init_tree(states, spec, tree=tree))
+    torch.cuda.synchronize()
+    assert graph.STATS.captures == captures
+    n = graph.STATS.replays - replays
+    assert n == spec.num_simulations
+    assert tuple(a - b for a, b in zip(_launches(), before)) == \
+        (n + 1, n + 1, 0)
+    assert bool((tree.root_visit == spec.num_simulations).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C", [(1, 128), (512, 256)])
+def test_cuda_one_board_and_C_256_keep_the_per_layer_route(cuda, B, C):
+    """At one board, and at C 256 (which the kernel does not take), the
+    forward launches no ``tower_forward``: two ``conv3x3`` and one
+    ``se_residual`` a block."""
+    net = _archive_net(cuda) if C == 128 else _random_net(2, C, 5).to(cuda)
+    prep = inference.prepare_inference(net, torch.bfloat16)
+    assert (prep["tower"] is None) is (C != 128)
+    planes = torch.from_numpy(_planes(np.random.default_rng(B), B)).to(cuda)
+    before = _launches()
+    inference.inference_apply(prep, planes)
+    torch.cuda.synchronize()
+    n = len(net.blocks)
+    assert tuple(a - b for a, b in zip(_launches(), before)) == \
+        (0, 2 * n + 1, n)
