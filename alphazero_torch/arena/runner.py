@@ -67,10 +67,8 @@ def load_model(cfg: Config, path: str, device="cuda") -> AlphaZeroNet:
     """The float32 net of a checkpoint, in eval mode on ``device``, built
     with the architecture stored beside it (not the live config's)."""
     dev = resolve_device(device)
-    arch = ckpt.checkpoint_arch(path)
-    net = build_network(cfg.replace(
-        num_blocks=arch["num_blocks"], num_filters=arch["num_filters"],
-        se_ratio=arch.get("se_ratio", cfg.se_ratio)), device=dev)
+    net = build_network(cfg.with_arch(ckpt.checkpoint_arch(path)),
+                        device=dev)
     return ckpt.load_net_weights(path, net).eval()
 
 

@@ -20,9 +20,26 @@ class Config:
     input_planes: int = 3           # mine / theirs / ones
 
     # --- Model ---
+    # "se_resnet" (the SE-ResNet of models/network.py, sized by the three
+    # fields below) or "encoder" (Leela Chess Zero's BT4 attention body,
+    # models/encoder.py, sized by the enc_* and smolgen_* fields)
+    body: str = "se_resnet"
     num_blocks: int = 20
     num_filters: int = 128
     se_ratio: int = 8
+    # the encoder body at BT4-1024x15x32h's widths: 15 layers of 1024
+    # (32 heads of 32), feed-forward 1536; smolgen compresses a square to
+    # 32 values, has a hidden width of 256 and 256 a head; the attention
+    # policy's embedding is 1024 wide. On a CUDA card the heads, their
+    # width and smolgen's width a head are BT4's alone (build_network)
+    enc_layers: int = 15
+    enc_embed: int = 1024
+    enc_heads: int = 32
+    enc_ffn: int = 1536
+    smolgen_compress: int = 32
+    smolgen_hidden: int = 256
+    smolgen_gen: int = 256
+    enc_policy_embed: int = 1024
 
     # --- MCTS ---
     num_simulations: int = 400
@@ -77,11 +94,32 @@ class Config:
     data_file: str = "training_data.npz"
     arena_state: str = "arena_state.json"
 
+    def arch(self) -> dict:
+        """The fields a checkpoint records, so that its net can be built
+        from it alone (``with_arch``): the SE-ResNet's three sizes, or the
+        encoder body's."""
+        names = (ENCODER_ARCH if self.body == "encoder"
+                 else ("num_blocks", "num_filters", "se_ratio"))
+        return {k: getattr(self, k) for k in names}
+
+    def with_arch(self, arch: dict) -> "Config":
+        """This config with a checkpoint's recorded ``arch`` in place of
+        its own; a record without ``body`` is an SE-ResNet's."""
+        arch = {"body": "se_resnet", **arch}
+        return self.replace(**{k: arch[k] for k in
+                               ("num_blocks", "num_filters", "se_ratio",
+                                *ENCODER_ARCH) if k in arch})
+
     def checkpoint_path(self, filename: str) -> str:
         return os.path.join(self.checkpoint_dir, filename)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+ENCODER_ARCH = ("body", "enc_layers", "enc_embed", "enc_heads", "enc_ffn",
+                "smolgen_compress", "smolgen_hidden", "smolgen_gen",
+                "enc_policy_embed")
 
 
 def tiny_config(**kw) -> Config:
@@ -90,3 +128,13 @@ def tiny_config(**kw) -> Config:
                 parallel_games=8, batch_size=32, max_game_length=256)
     base.update(kw)
     return Config(**base)
+
+
+def tiny_encoder_config(**kw) -> Config:
+    """``tiny_config`` with a small encoder body for tests: 2 layers of 64
+    (4 heads of 16), feed-forward 96, smolgen 8 / 32 / 32."""
+    base = dict(body="encoder", enc_layers=2, enc_embed=64, enc_heads=4,
+                enc_ffn=96, smolgen_compress=8, smolgen_hidden=32,
+                smolgen_gen=32, enc_policy_embed=64)
+    base.update(kw)
+    return tiny_config(**base)

@@ -22,8 +22,15 @@ from alphazero_torch.config import Config
 
 def add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint-dir", default="checkpoints")
-    p.add_argument("--blocks", type=int, default=None)
-    p.add_argument("--filters", type=int, default=None)
+    p.add_argument("--body", default=None,
+                   choices=["se_resnet", "encoder"],
+                   help="the net: the SE-ResNet, or Leela Chess Zero's BT4 "
+                        "attention body (by default at its published "
+                        "widths)")
+    p.add_argument("--blocks", type=int, default=None,
+                   help="residual blocks, or the encoder's layers")
+    p.add_argument("--filters", type=int, default=None,
+                   help="the SE-ResNet's filters")
     p.add_argument("--sims", type=int, default=None)
     p.add_argument("--games", type=int, default=None)
     p.add_argument("--cpu", action="store_true",
@@ -57,9 +64,15 @@ def add_common(p: argparse.ArgumentParser) -> None:
 
 def build_config(args) -> Config:
     over = {}
+    if args.body is not None:
+        over["body"] = args.body
+    encoder = args.body == "encoder"
     if args.blocks is not None:
-        over["num_blocks"] = args.blocks
+        over["enc_layers" if encoder else "num_blocks"] = args.blocks
     if args.filters is not None:
+        if encoder:
+            raise SystemExit("--filters sizes the SE-ResNet; the encoder "
+                             "body takes BT4's widths")
         over["num_filters"] = args.filters
     if args.sims is not None:
         over["num_simulations"] = args.sims
@@ -136,8 +149,7 @@ def main(argv=None) -> None:
 
         trainer = Trainer(cfg, seed=args.seed, device=device, mesh=mesh)
         trainer.profile_dir = args.profile
-        log.info("model: %d blocks x %d filters, %s params on %s",
-                 cfg.num_blocks, cfg.num_filters,
+        log.info("model: %s, %s params on %s", trainer.cfg.arch(),
                  f"{count_params(trainer.net):,}", trainer.device)
         trainer.train_forever(max_iterations=args.iterations)
     elif args.command == "web":

@@ -108,7 +108,11 @@ def state_dict_from_flat(flat: Dict[str, np.ndarray]
 def load_flat_into(net: AlphaZeroNet, flat: Dict[str, np.ndarray]
                    ) -> AlphaZeroNet:
     """Load an archive-scheme flat dict into ``net`` (every parameter and
-    BN statistic must be present, with matching shapes)."""
+    BN statistic must be present, with matching shapes). The JAX
+    package's archives hold SE-ResNets: any other net raises."""
+    if not isinstance(net, AlphaZeroNet):
+        raise ValueError(f"a JAX archive holds an SE-ResNet, not a "
+                         f"{type(net).__name__}")
     sd = state_dict_from_flat(flat)
     own = net.state_dict()
     missing = [k for k in own

@@ -187,20 +187,43 @@ class AlphaZeroNet(nn.Module):
 
 
 def build_network(cfg: Config, device="cuda",
-                  generator: torch.Generator | None = None) -> AlphaZeroNet:
-    """A randomly initialised net in eval mode on ``device``.
+                  generator: torch.Generator | None = None) -> nn.Module:
+    """A randomly initialised net of ``cfg.body`` in eval mode on
+    ``device``: the SE-ResNet (``AlphaZeroNet``) or the encoder body
+    (``models/encoder.py:EncoderNet``).
 
-    Weights are drawn on the CPU from ``generator`` (PyTorch's default
+    Weights are drawn on the CPU from ``generator`` (the modules' own
     initialisers, run under a seeded RNG fork) and then moved, so a seed
     gives the same net on every device.
     """
+    if cfg.body not in ("se_resnet", "encoder"):
+        raise ValueError(f"body={cfg.body!r}: expected 'se_resnet' or "
+                         "'encoder'")
     dev = resolve_device(device)
+    if cfg.body == "encoder" and dev.type == "cuda":
+        from alphazero_torch.models import attention as att
+
+        widths = (cfg.enc_heads, cfg.enc_embed / cfg.enc_heads,
+                  cfg.smolgen_gen)
+        if widths != (att.KERNEL_HEADS, att.KERNEL_DIM, att.KERNEL_GEN):
+            raise ValueError(
+                f"on a CUDA card the encoder takes {att.KERNEL_HEADS} heads "
+                f"of {att.KERNEL_DIM} and smolgen {att.KERNEL_GEN} a head "
+                f"(the widths smolgen_attention is compiled for), got "
+                f"{cfg.enc_heads} heads of {widths[1]:g} and smolgen "
+                f"{cfg.smolgen_gen}")
     with torch.random.fork_rng(devices=[]):
         if generator is not None:
             torch.random.default_generator.manual_seed(int(torch.randint(
                 0, 2 ** 62, (), generator=generator)))
-        net = AlphaZeroNet(cfg.num_blocks, cfg.num_filters, cfg.se_ratio,
-                           cfg.num_actions, cfg.input_planes, cfg.board_size)
+        if cfg.body == "encoder":
+            from alphazero_torch.models.encoder import encoder_from_config
+
+            net = encoder_from_config(cfg)
+        else:
+            net = AlphaZeroNet(cfg.num_blocks, cfg.num_filters,
+                               cfg.se_ratio, cfg.num_actions,
+                               cfg.input_planes, cfg.board_size)
     return net.to(dev).eval()
 
 

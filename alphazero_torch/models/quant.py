@@ -246,7 +246,14 @@ def _to(tree, device):
 
 def quantize_network(net: AlphaZeroNet) -> Dict[str, Any]:
     """Fold BN and quantise the net's weights into a QuantParams dict on
-    the net's device (folding and rounding run in float32 on the host)."""
+    the net's device (folding and rounding run in float32 on the host).
+    The int8 evaluator is the SE-ResNet's: any other net raises."""
+    if not isinstance(net, AlphaZeroNet):
+        raise ValueError(f"the int8 evaluator quantises the SE-ResNet's "
+                         f"convolutions; {type(net).__name__} has none "
+                         "(the encoder body searches with the bf16 "
+                         "evaluator: selfplay_quant 'off')")
+
     def entry(conv, bn):
         folded, bias = _fold(_hwio(conv), *_bn(bn))
         return qconv_entry(*_quant_weight(folded), bias)

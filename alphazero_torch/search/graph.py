@@ -69,6 +69,7 @@ _COUNTED = {
     "alphazero_torch.models.epilogue": ("bn_act", "se_residual"),
     "alphazero_torch.models.conv": ("conv3x3",),
     "alphazero_torch.models.fused": ("tower_forward",),
+    "alphazero_torch.models.attention": ("smolgen_attention",),
 }
 
 

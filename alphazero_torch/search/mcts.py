@@ -56,7 +56,8 @@ from torch.profiler import record_function
 
 from alphazero_torch import tracing
 from alphazero_torch.env import breakthrough as env
-from alphazero_torch.models import inference
+from alphazero_torch.models import encoder_inference, inference
+from alphazero_torch.models.encoder import EncoderNet
 from alphazero_torch.models.network import policy_value_apply, wl_to_value
 from alphazero_torch.search import kernels
 
@@ -660,7 +661,9 @@ def make_net_evaluator(net, dtype=torch.float32) -> Evaluator:
     and block-tail epilogues as hand-written kernels on the card, and at
     batches of ``inference.B_MIN`` or more the tower as one fused kernel
     (``inference.fused_tower``). It copies nothing from the host per
-    call, so a search can capture it.
+    call, so a search can capture it. An ``EncoderNet`` (the encoder
+    body) takes its own route in any dtype but float32,
+    ``models/encoder_inference.py``, chosen here once by the net's type.
     """
     if dtype == torch.float32:
         net.eval()
@@ -670,10 +673,15 @@ def make_net_evaluator(net, dtype=torch.float32) -> Evaluator:
 
         return eval_fn
 
-    prep = inference.prepare_inference(net, dtype)
+    if isinstance(net, EncoderNet):
+        prep = encoder_inference.prepare(net, dtype)
+        apply = encoder_inference.apply
+    else:
+        prep = inference.prepare_inference(net, dtype)
+        apply = inference.inference_apply
 
     def eval_fn(planes: torch.Tensor):
-        policy_logits, wl_logits = inference.inference_apply(prep, planes)
+        policy_logits, wl_logits = apply(prep, planes)
         return torch.softmax(policy_logits, dim=-1), wl_to_value(wl_logits)
 
     return eval_fn

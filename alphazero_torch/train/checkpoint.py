@@ -64,13 +64,11 @@ def save_iteration_checkpoint(cfg: Config, state: TrainState, iteration: int,
                os.path.join(tmp, _PAYLOAD))
     meta = {
         "iteration": int(iteration),
-        # everything a consumer needs to rebuild the net; scan_blocks is
-        # kept for field parity with the JAX package (this port's net has
-        # one parameter layout)
-        "arch": {"num_blocks": cfg.num_blocks,
-                 "num_filters": cfg.num_filters,
-                 "se_ratio": cfg.se_ratio,
-                 "scan_blocks": cfg.scan_blocks},
+        # everything a consumer needs to rebuild the net (Config.arch: the
+        # SE-ResNet's sizes, or the encoder body's with its "body");
+        # scan_blocks is kept for field parity with the JAX package (this
+        # port's net has one parameter layout)
+        "arch": {**cfg.arch(), "scan_blocks": cfg.scan_blocks},
     }
     with open(os.path.join(tmp, _META), "w") as f:
         json.dump(meta, f)

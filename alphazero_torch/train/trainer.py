@@ -71,6 +71,11 @@ class Trainer:
         if cfg.selfplay_quant not in ("off", "dynamic", "static"):
             raise ValueError(f"selfplay_quant={cfg.selfplay_quant!r}: "
                              "expected 'off', 'dynamic' or 'static'")
+        if cfg.body == "encoder" and cfg.selfplay_quant != "off":
+            raise ValueError(f"selfplay_quant={cfg.selfplay_quant!r}: the "
+                             "int8 evaluator is the SE-ResNet's; the "
+                             "encoder body searches in "
+                             f"{cfg.inference_dtype}")
         self.cfg = cfg
         self.mesh = mesh
         self.rank, self.world = (mesh.rank, mesh.world) if mesh else (0, 1)
@@ -281,18 +286,12 @@ class Trainer:
         if it > 0:
             path = self.cfg.checkpoint_path(f"iteration_{it}")
             try:
-                arch = ckpt.checkpoint_arch(path)
+                ck_cfg = self.cfg.with_arch(ckpt.checkpoint_arch(path))
             except (OSError, KeyError, ValueError):
-                arch = {}
-            ck_cfg = self.cfg.replace(
-                num_blocks=arch.get("num_blocks", self.cfg.num_blocks),
-                num_filters=arch.get("num_filters", self.cfg.num_filters),
-                se_ratio=arch.get("se_ratio", self.cfg.se_ratio))
+                ck_cfg = self.cfg
             if ck_cfg != self.cfg:
-                log.warning(
-                    "checkpoint %s arch %s overrides the live config", path,
-                    {k: getattr(ck_cfg, k) for k in
-                     ("num_blocks", "num_filters", "se_ratio")})
+                log.warning("checkpoint %s arch %s overrides the live "
+                            "config", path, ck_cfg.arch())
                 self._rebuild_net(ck_cfg)
             self.state = ckpt.load_checkpoint(path, self.state)
             self.state.net.eval()

@@ -91,6 +91,15 @@ launches of the replays.
   and every field of the tree bit-equal; their times at 512 games and at
   one beside their byte bounds, their plain versions and the launch
   floor;
+- phase 19 (``smolgen``): the encoder body's attention kernel
+  (``smolgen_attention``, ``csrc/attention_kernels.cu``) at BT4's widths
+  against its plain version, within the tolerance of its ``gpu`` test, on
+  random operands at 1, 32 and 512 boards and on the first layer's
+  operands of a seeded BT4 net at 512 boards; its times at 512 boards
+  beside its bound and its plain version; a captured BT4 self-play move
+  at 512 games x 400 simulations with its launches counted (15 a forward,
+  no capture, no host read), and a profile of the captured search for the
+  kernel's device time inside the replays;
 - phase 5: continuous self-play (128 lanes x 16 simulations);
 - phase 7: the fused path at full width (512 positions, 800 evaluations
   in a row) beside the layer-by-layer bf16 net;
@@ -3002,6 +3011,197 @@ def phase_glue(dev, net):
 
 
 # -----------------------------------------------------------------------------
+# Phase 19: the encoder body's attention kernel
+# -----------------------------------------------------------------------------
+
+BT4_SIMS = 400                     # the BT4 cell's simulations a move
+SMOLGEN_BATCHES = (1, 32, GAMES)
+
+
+def smolgen_bound_ms(B, H=32, D=32, G=256):
+    """The least time the card could take for one ``smolgen_attention`` of
+    B boards: the larger of its bytes at the memory rate (Q, K, V and the
+    output, the smolgen vectors and W_gen, once each, bf16) and its
+    operations at the bf16 peak (the bias, Q K^T and P V)."""
+    T, E = 64, H * D
+    nbytes = 2 * (4 * B * T * E + B * H * G + G * T * T)
+    ops = B * H * (2 * G * T * T + 4 * T * T * D)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / BF16_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations"), ops, nbytes
+
+
+def smolgen_far(qkv, s, wgen_t, H, got):
+    """Outputs of the kernel (``got``) past the tolerance of
+    ``tests/test_torch_encoder.py::
+    test_cuda_smolgen_attention_against_its_plain_version``: the plain
+    version may round a numerator to the neighbouring bf16 value (2^-8 of
+    it) where the kernel does not, so an output may differ by that share of
+    the attention's sum of |V|, twice over, and by two steps of its own
+    rounding. Returns (far, share unequal, max |d|)."""
+    from alphazero_torch.models import attention
+
+    want = attention.smolgen_attention_plain(qkv, s, wgen_t, H)
+    qkv_abs = qkv.clone()
+    qkv_abs[:, 2 * qkv.shape[1] // 3:] = qkv_abs[:, 2 * qkv.shape[1] // 3:].abs()
+    terms = attention.smolgen_attention_plain(qkv_abs, s, wgen_t, H).float()
+    g, w = got.float(), want.float()
+    m = torch.maximum(g.abs(), w.abs())
+    step = 2.0 ** (torch.floor(torch.log2(m.clamp_min(2 ** -60))) - 7)
+    far = int(((g - w).abs() > 2 * step + 2 ** -7 * terms).sum())
+    return far, float((got != want).float().mean()), float((g - w).abs().max())
+
+
+@phase("phase 19 smolgen")
+def phase_smolgen(dev, card):
+    """``smolgen_attention`` at BT4's widths against its plain version
+    (random operands at 1, 32 and 512 boards, and the first layer's
+    operands of a seeded BT4 net on 512 positions); its times at 512 boards
+    beside its bound and its plain version; then a captured BT4 search
+    move at the cell's 512 x 400, with the kernel's launches counted (15 a
+    forward) and its device time inside the replays from a profile."""
+    from alphazero_torch.config import Config
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import attention, encoder_inference as ei
+    from alphazero_torch.models.network import build_network
+    from alphazero_torch.search import graph, mcts
+    from alphazero_torch.train import selfplay
+
+    H, D, G = (attention.KERNEL_HEADS, attention.KERNEL_DIM,
+               attention.KERNEL_GEN)
+    fn = attention.smolgen_attention
+    out = {"checks": {}}
+    g = torch.Generator(device=dev).manual_seed(19)
+    operands = {}
+    for B in SMOLGEN_BATCHES:
+        qkv = torch.randn(B * 64, 3 * H * D, generator=g,
+                          device=dev).bfloat16()
+        s = torch.randn(B, H, G, generator=g, device=dev).bfloat16()
+        wgen_t = (torch.randn(4096, G, generator=g, device=dev)
+                  / 16).bfloat16()
+        operands[f"random_{B}"] = (qkv, s, wgen_t)
+
+    # the first layer's operands of a seeded BT4 net on random positions
+    cfg = Config(body="encoder", num_simulations=BT4_SIMS,
+                 parallel_games=GAMES)
+    net = build_network(cfg, dev, torch.Generator().manual_seed(19))
+    eval_fn = mcts.make_net_evaluator(net, torch.bfloat16)
+    prep = ei.prepare(net)
+    planes = env.encoded_state(random_positions(GAMES, 19)).to(dev)
+    with torch.no_grad():
+        tokens = planes.flatten(2).transpose(1, 2).bfloat16()
+        x = torch.nn.functional.mish(torch.matmul(tokens, prep["embed"])
+                                     + prep["position"])
+        x = torch.addcmul(prep["gate_add"], x,
+                          prep["gate_mult"]).reshape(GAMES * 64, -1)
+        L = prep["layers"][0]
+        c = (x @ L["compress"]).view(GAMES, -1)
+        h = ei._ln(torch.nn.functional.silu(ei._dense(c, L["sg1"])),
+                   L["sg_ln1"])
+        s = ei._ln(torch.nn.functional.silu(ei._dense(h, L["sg2"])),
+                   L["sg_ln2"]).view(GAMES, H, -1)
+        operands[f"bt4_layer0_{GAMES}"] = (ei._dense(x, L["qkv"]),
+                                           s.contiguous(), prep["wgen_t"])
+    for tag, (qkv, s, wgen_t) in operands.items():
+        before = fn.launches
+        got = fn(qkv, s, wgen_t, H)
+        torch.cuda.synchronize()
+        check(fn.launches == before + 1, f"{tag}: launches not counted")
+        check(got.shape == (qkv.shape[0], H * D)
+              and got.dtype == torch.bfloat16
+              and bool(torch.isfinite(got.float()).all()),
+              f"smolgen_attention output malformed ({tag})")
+        far, unequal, dmax = smolgen_far(qkv, s, wgen_t, H, got)
+        out["checks"][tag] = {"far": far, "unequal_share": unequal,
+                              "max_abs_err": dmax}
+        check(far == 0 and unequal < 0.02,
+              f"smolgen_attention against its plain version ({tag}): "
+              f"{far} outputs past the tolerance, {unequal:.4f} unequal")
+    print("smolgen_attention against its plain version "
+          + json.dumps(out["checks"]), flush=True)
+
+    # times at the main path's 512 boards, on the first layer's operands;
+    # the plain version's some 15 launches a call: ten calls queue
+    qkv, s, wgen_t = operands[f"bt4_layer0_{GAMES}"]
+    bound, bound_by, ops, nbytes = smolgen_bound_ms(GAMES, H, D, G)
+    t = {"ms": cuda_ms(lambda i: fn(qkv, s, wgen_t, H), iters=20, warmup=3),
+         "call_ms": cuda_ms(lambda i: fn(qkv, s, wgen_t, H), iters=20,
+                            warmup=3, queued=False),
+         "plain_ms": cuda_ms(lambda i: attention.smolgen_attention_plain(
+             qkv, s, wgen_t, H), iters=10, warmup=2, sleep_ms=200,
+             what="smolgen_attention_plain"),
+         "plain_call_ms": cuda_ms(lambda i: attention.smolgen_attention_plain(
+             qkv, s, wgen_t, H), iters=10, warmup=2, queued=False),
+         "bound_ms": bound, "bound_by": bound_by}
+    t["roofline_pct"] = 100 * bound / t["ms"]
+    t["by_batch_ms"] = {B: cuda_ms(lambda i: fn(*operands[f"random_{B}"], H),
+                                   iters=20, warmup=3)
+                        for B in SMOLGEN_BATCHES}
+    out["times"] = t
+    print(f"smolgen_attention at {GAMES} boards: {json.dumps(t)}; bound "
+          f"{bound:.4f} ms by {bound_by} ({ops:.4g} operations, "
+          f"{nbytes:.4g} bytes)", flush=True)
+    del operands, qkv, s, wgen_t
+    torch.cuda.empty_cache()
+
+    # the main path: a warm-up move captures the simulation, then one
+    # counted move of BT4_SIMS replays through selfplay_move
+    spec = selfplay.search_spec(cfg)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    states = env.initial_state((GAMES,), device=dev)
+    tree = mcts.init_tree(states, spec)
+    graph.STATS.reset()
+    tree, _, _, _, states = selfplay._searched_move(
+        states, tree, gen, eval_fn, spec, cfg.temperature_threshold)
+    torch.cuda.synchronize()
+    check(graph.STATS.captures == 1,
+          f"the first BT4 move made {graph.STATS.captures} captures")
+    graph.STATS.reset()
+    mcts.STATS.reset()
+    fn.launches = 0
+    t0 = time.time()
+    states, _, probs, _, values = selfplay.selfplay_move(
+        states, gen, eval_fn, spec, cfg.temperature_threshold, tree)
+    torch.cuda.synchronize()
+    move_s = time.time() - t0
+    launches = fn.launches
+    forwards = BT4_SIMS + 1               # the root's and one a simulation
+    layers = cfg.enc_layers
+    check(launches == layers * forwards and graph.STATS.captures == 0
+          and graph.STATS.replays == BT4_SIMS
+          and mcts.STATS.host_syncs == 0,
+          f"a captured BT4 move of {BT4_SIMS} simulations: {launches} "
+          f"smolgen_attention launches (want {layers} a forward, "
+          f"{layers * forwards}), {graph.STATS.captures} captures, "
+          f"{graph.STATS.replays} replays, {mcts.STATS.host_syncs} host "
+          f"syncs")
+    check(bool(((probs.sum(-1) - 1).abs() < 1e-5).all())
+          and bool(torch.isfinite(values).all()), "BT4 move's outputs")
+    out["move"] = {"games": GAMES, "sims": BT4_SIMS, "move_s": move_s,
+                   "launches": launches, "per_forward": launches / forwards,
+                   "sims_per_s": GAMES * BT4_SIMS / move_s}
+    # the kernel inside the replays: a short captured search profiled
+    prof = profile_search(states, eval_fn, tag=f"bt4_{GAMES}_captured")
+    name = next((k for k in prof["kernel_calls"]
+                 if "smolgen_attention_kernel" in k), None)
+    check(name is not None, "no smolgen_attention_kernel in the profile")
+    out["in_graph"] = {
+        "launches": prof["kernel_calls"][name],
+        "device_ms": prof["kernels_ms"][name],
+        "ms_per_launch": prof["kernels_ms"][name] / prof["kernel_calls"][name]}
+    check(out["in_graph"]["launches"] == layers * (PROFILE_SIMS + 1),
+          f"profile: {out['in_graph']['launches']} smolgen_attention_kernel "
+          f"launches in {PROFILE_SIMS + 1} forwards")
+    out["card"] = card
+    print("smolgen main path " + json.dumps(out["move"]) + "; in the "
+          "replays " + json.dumps(out["in_graph"]), flush=True)
+    del eval_fn, net, prep, tree
+    torch.cuda.empty_cache()
+    return out
+
+
+# -----------------------------------------------------------------------------
 # Phase 14: the distributed trainer (worker processes)
 # -----------------------------------------------------------------------------
 
@@ -3353,8 +3553,9 @@ def phase_distributed(card, single_step_ms):
 
 def main(argv=None) -> int:
     """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
-    kernels, tower, epilogue, conv, search, cpu, graph, glue, continuous,
-    fused, trainer, qconv, quant, arena, bench, web, dist) runs only those, for
+    kernels, tower, epilogue, conv, search, cpu, graph, glue, smolgen,
+    continuous, fused, trainer, qconv, quant, arena, bench, web, dist) runs
+    only those, for
     work on one of them, and then
     prints no ``kernels`` line (quant and arena run the qconv phase first,
     arena the quant phase)."""
@@ -3376,7 +3577,8 @@ def main(argv=None) -> int:
     card = device_line(dev)
     t0 = time.time()
     libs = cuda_build.build(["tree_kernels", "tower_kernel", "qconv_kernel",
-                             "epilogue_kernels", "conv_kernels"])
+                             "epilogue_kernels", "conv_kernels",
+                             "attention_kernels"])
     build_s = time.time() - t0
     print(f"[phase 0] card: {card}; torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}); kernel build {build_s:.1f} s", flush=True)
@@ -3403,6 +3605,8 @@ def main(argv=None) -> int:
         phase_graph(dev, net, card)
     if want("glue"):
         glue_err, glue_t, _ = phase_glue(dev, net)
+    if want("smolgen"):
+        smolgen = phase_smolgen(dev, card)
     if want("continuous"):
         phase_continuous(dev, net, card)
     if want("fused"):
@@ -3544,6 +3748,20 @@ def main(argv=None) -> int:
             "plain_ms": t.pop("plain_ms"), "bound_ms": t.pop("bound_ms"),
             "bound_by": t.pop("bound_by"),
             "library_ms": t.pop("library_ms"), **t})
+        # the encoder body's attention (no kernel of the JAX package);
+        # launches are phase 19's captured BT4 move
+        t = dict(smolgen["times"])
+        kernels.append({
+            "name": "smolgen_attention", "route": "cuda",
+            "source": "alphazero_torch/csrc/attention_kernels.cu",
+            "replaces": None, "launches": smolgen["move"]["launches"],
+            "tolerance": "2^-8 of the sum of |V| twice and two bf16 steps; "
+                         "under 2% unequal",
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in smolgen["checks"].values()),
+            "ms": t.pop("ms"), "plain_ms": t.pop("plain_ms"),
+            "bound_ms": t.pop("bound_ms"), "bound_by": t.pop("bound_by"),
+            "library_ms": None, "in_graph": smolgen["in_graph"], **t})
         print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
