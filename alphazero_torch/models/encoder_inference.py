@@ -10,12 +10,14 @@ as the (4096, G) matrix that ``attention.smolgen_attention`` reads.
 ``apply`` runs the forward on the (B*64, E) token rows, copying nothing
 from the host, so a search captures it as it captures the SE evaluator.
 The dense layers are bf16 matrix products with float32 sums (cuBLAS on
-the card), biases added by ``addmm``; the epilogues are PyTorch's own
-single-kernel ``layer_norm`` (float32 statistics), ``mish`` and ``silu``,
-and the DeepNorm residual ``o + alpha x`` is one ``add``; the attention
-with its smolgen bias is one ``smolgen_attention`` launch a layer. On the
-CPU the same code runs with the attention's plain version, in any float
-dtype.
+the card), biases added by ``addmm``. The DeepNorm residual ``o + alpha
+x`` and the LayerNorm after it, twice a layer, are one ``deepnorm_ln``
+launch on the card (``models/encoder_epilogue.py``: the sum rounded to
+bf16, float32 statistics); smolgen's LayerNorms are PyTorch's own
+``layer_norm``, and ``mish`` and ``silu`` PyTorch's; the attention with
+its smolgen bias is one ``smolgen_attention`` launch a layer. On the CPU
+the same code runs with the plain versions, the attention's and
+``torch.add`` then ``layer_norm``, in any float dtype.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from alphazero_torch.models.attention import smolgen_attention
 from alphazero_torch.models.encoder import LN_EPS, TOKENS, EncoderNet
+from alphazero_torch.models.encoder_epilogue import deepnorm_ln
 
 
 def prepare(net: EncoderNet, dtype: torch.dtype = torch.bfloat16
@@ -97,10 +100,9 @@ def apply(prep: Dict[str, Any], planes: torch.Tensor
         h = _ln(F.silu(_dense(c, L["sg1"])), L["sg_ln1"])
         s = _ln(F.silu(_dense(h, L["sg2"])), L["sg_ln2"]).view(B, H, -1)
         a = smolgen_attention(_dense(x, L["qkv"]), s, prep["wgen_t"], H)
-        x = _ln(torch.add(_dense(a, L["o"]), x, alpha=prep["alpha"]),
-                L["ln1"])
+        x = deepnorm_ln(_dense(a, L["o"]), x, prep["alpha"], *L["ln1"])
         f = _dense(F.mish(_dense(x, L["ffn1"])), L["ffn2"])
-        x = _ln(torch.add(f, x, alpha=prep["alpha"]), L["ln2"])
+        x = deepnorm_ln(f, x, prep["alpha"], *L["ln2"])
 
     p = F.mish(_dense(x, prep["policy_embed"]))
     qk = _dense(p, prep["policy_qk"]).view(B, TOKENS, -1)

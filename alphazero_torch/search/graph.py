@@ -70,6 +70,7 @@ _COUNTED = {
     "alphazero_torch.models.conv": ("conv3x3",),
     "alphazero_torch.models.fused": ("tower_forward",),
     "alphazero_torch.models.attention": ("smolgen_attention",),
+    "alphazero_torch.models.encoder_epilogue": ("deepnorm_ln",),
 }
 
 

@@ -96,10 +96,15 @@ launches of the replays.
   against its plain version, within the tolerance of its ``gpu`` test, on
   random operands at 1, 32 and 512 boards and on the first layer's
   operands of a seeded BT4 net at 512 boards; its times at 512 boards
-  beside its bound and its plain version; a captured BT4 self-play move
-  at 512 games x 400 simulations with its launches counted (15 a forward,
-  no capture, no host read), and a profile of the captured search for the
-  kernel's device time inside the replays;
+  beside its bound and its plain version; the same for the fused DeepNorm
+  residual and LayerNorm (``deepnorm_ln``, ``csrc/encoder_kernels.cu``)
+  within ``encoder_epilogue.card_check``, on both sites of the seeded
+  net's first layer, its times in turns with ``torch.add`` and
+  ``F.layer_norm`` (its plain version, and the library's yardstick); a
+  captured BT4 self-play move at 512 games x 400 simulations with both
+  kernels' launches counted (15 and 30 a forward, no capture, no host
+  read), and a profile of the captured search for both kernels' device
+  time inside the replays;
 - phase 5: continuous self-play (128 lanes x 16 simulations);
 - phase 7: the fused path at full width (512 positions, 800 evaluations
   in a row) beside the layer-by-layer bf16 net;
@@ -1027,7 +1032,8 @@ def is_library_conv(name):
 HAND_KERNELS = ("descend_kernel", "commit_path_kernel", "commit_edges_kernel",
                 "fetch_rows_kernel", "encode_planes_kernel", "expand_kernel",
                 "conv3x3_kernel", "se_residual_kernel", "bn_act_kernel",
-                "qconv3x3_kernel", "tower_kernel")
+                "qconv3x3_kernel", "tower_kernel", "smolgen_attention_kernel",
+                "deepnorm_ln_kernel")
 LIBRARY_WORDS = ("cudnn", "cublas", "nvjet", "cutlass", "gemm", "fprop",
                  "nhwcaddpadding", "memset")
 # phase 3: the bf16 captured profile's launches that are neither the port's
@@ -3032,6 +3038,15 @@ def smolgen_bound_ms(B, H=32, D=32, G=256):
                                    else "operations"), ops, nbytes
 
 
+def deepnorm_bound_ms(rows, E=1024):
+    """The least time the card could take for one ``deepnorm_ln`` of
+    ``rows`` token rows: o and x read and the output written once, bf16
+    (gamma and beta, 4 KB, left out); its few operations a byte are far
+    below the bf16 peak's line."""
+    nbytes = 3 * rows * E * 2
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
 def smolgen_far(qkv, s, wgen_t, H, got):
     """Outputs of the kernel (``got``) past the tolerance of
     ``tests/test_torch_encoder.py::
@@ -3064,6 +3079,7 @@ def phase_smolgen(dev, card):
     from alphazero_torch.config import Config
     from alphazero_torch.env import breakthrough as env
     from alphazero_torch.models import attention, encoder_inference as ei
+    from alphazero_torch.models import encoder_epilogue as ee
     from alphazero_torch.models.network import build_network
     from alphazero_torch.search import graph, mcts
     from alphazero_torch.train import selfplay
@@ -3103,6 +3119,26 @@ def phase_smolgen(dev, card):
                    L["sg_ln2"]).view(GAMES, H, -1)
         operands[f"bt4_layer0_{GAMES}"] = (ei._dense(x, L["qkv"]),
                                            s.contiguous(), prep["wgen_t"])
+        # deepnorm_ln's two sites of the same layer: the attention's output
+        # projection and the feed-forward's second product, each with the
+        # rows it skipped over
+        alpha = prep["alpha"]
+        o = ei._dense(attention.smolgen_attention(
+            *operands[f"bt4_layer0_{GAMES}"], H), L["o"])
+        x1 = ee.deepnorm_ln_plain(o, x, alpha, *L["ln1"])
+        f = ei._dense(torch.nn.functional.mish(ei._dense(x1, L["ffn1"])),
+                      L["ffn2"])
+        ln_operands = {f"bt4_layer0_ln1_{GAMES}": (o, x, *L["ln1"]),
+                       f"bt4_layer0_ln2_{GAMES}": (f, x1, *L["ln2"])}
+    ln_gen = torch.Generator(device=dev).manual_seed(21)
+    for B in SMOLGEN_BATCHES:
+        o_, x_ = (torch.randn(B * 64, H * D, generator=ln_gen,
+                              device=dev).bfloat16() for _ in range(2))
+        ln_operands[f"random_{B}"] = (
+            o_, x_, (1 + 0.2 * torch.randn(H * D, generator=ln_gen,
+                                           device=dev)).bfloat16(),
+            (0.1 * torch.randn(H * D, generator=ln_gen,
+                               device=dev)).bfloat16())
     for tag, (qkv, s, wgen_t) in operands.items():
         before = fn.launches
         got = fn(qkv, s, wgen_t, H)
@@ -3120,6 +3156,22 @@ def phase_smolgen(dev, card):
               f"{far} outputs past the tolerance, {unequal:.4f} unequal")
     print("smolgen_attention against its plain version "
           + json.dumps(out["checks"]), flush=True)
+    ln = ee.deepnorm_ln
+    out["ln_checks"] = {}
+    for tag, (o, x, gamma, beta) in ln_operands.items():
+        before = ln.launches
+        got = ln(o, x, alpha, gamma, beta)
+        torch.cuda.synchronize()
+        check(ln.launches == before + 1, f"{tag}: launches not counted")
+        check(got.shape == o.shape and got.dtype == torch.bfloat16
+              and bool(torch.isfinite(got.float()).all()),
+              f"deepnorm_ln output malformed ({tag})")
+        r = ee.card_check(o, x, alpha, gamma, beta, got)
+        out["ln_checks"][tag] = r
+        check(r["ok"], f"deepnorm_ln against its plain version ({tag}): "
+                       f"{r}")
+    print("deepnorm_ln against its plain version "
+          + json.dumps(out["ln_checks"]), flush=True)
 
     # times at the main path's 512 boards, on the first layer's operands;
     # the plain version's some 15 launches a call: ten calls queue
@@ -3143,6 +3195,32 @@ def phase_smolgen(dev, card):
           f"{bound:.4f} ms by {bound_by} ({ops:.4g} operations, "
           f"{nbytes:.4g} bytes)", flush=True)
     del operands, qkv, s, wgen_t
+
+    # deepnorm_ln at 512 boards on the first layer's ln1 operands, in turns
+    # with its plain version (torch.add then F.layer_norm, which is also
+    # the library's yardstick: no one PyTorch call fuses the two)
+    o, x, gamma, beta = ln_operands[f"bt4_layer0_ln1_{GAMES}"]
+    kern = lambda i: ln(o, x, alpha, gamma, beta)
+    plain = lambda i: ee.deepnorm_ln_plain(o, x, alpha, gamma, beta)
+    turns = [cuda_ms(f, iters=50, warmup=5, what=w)
+             for f, w in ((kern, "deepnorm_ln"), (plain, "plain"),
+                          (kern, "deepnorm_ln"), (plain, "plain"))]
+    bound, nbytes = deepnorm_bound_ms(GAMES * 64)
+    t = {"ms": (turns[0] + turns[2]) / 2, "turns_ms": turns,
+         "call_ms": cuda_ms(kern, iters=50, warmup=5, queued=False),
+         "plain_ms": (turns[1] + turns[3]) / 2,
+         "plain_call_ms": cuda_ms(plain, iters=50, warmup=5, queued=False),
+         "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes}
+    t["library_ms"] = t["plain_ms"]
+    t["roofline_pct"] = 100 * bound / t["ms"]
+    t["by_batch_ms"] = {}
+    for B in SMOLGEN_BATCHES:
+        ob, xb, gb, bb = ln_operands[f"random_{B}"]
+        t["by_batch_ms"][B] = cuda_ms(lambda i: ln(ob, xb, alpha, gb, bb),
+                                      iters=50, warmup=5)
+    out["ln_times"] = t
+    print(f"deepnorm_ln at {GAMES} boards: {json.dumps(t)}", flush=True)
+    del ln_operands, o, x, gamma, beta, ob, xb, gb, bb
     torch.cuda.empty_cache()
 
     # the main path: a warm-up move captures the simulation, then one
@@ -3160,26 +3238,31 @@ def phase_smolgen(dev, card):
     graph.STATS.reset()
     mcts.STATS.reset()
     fn.launches = 0
+    ln.launches = 0
     t0 = time.time()
     states, _, probs, _, values = selfplay.selfplay_move(
         states, gen, eval_fn, spec, cfg.temperature_threshold, tree)
     torch.cuda.synchronize()
     move_s = time.time() - t0
-    launches = fn.launches
+    launches, ln_launches = fn.launches, ln.launches
     forwards = BT4_SIMS + 1               # the root's and one a simulation
     layers = cfg.enc_layers
-    check(launches == layers * forwards and graph.STATS.captures == 0
+    check(launches == layers * forwards
+          and ln_launches == 2 * layers * forwards
+          and graph.STATS.captures == 0
           and graph.STATS.replays == BT4_SIMS
           and mcts.STATS.host_syncs == 0,
           f"a captured BT4 move of {BT4_SIMS} simulations: {launches} "
           f"smolgen_attention launches (want {layers} a forward, "
-          f"{layers * forwards}), {graph.STATS.captures} captures, "
+          f"{layers * forwards}), {ln_launches} deepnorm_ln (want "
+          f"{2 * layers * forwards}), {graph.STATS.captures} captures, "
           f"{graph.STATS.replays} replays, {mcts.STATS.host_syncs} host "
           f"syncs")
     check(bool(((probs.sum(-1) - 1).abs() < 1e-5).all())
           and bool(torch.isfinite(values).all()), "BT4 move's outputs")
     out["move"] = {"games": GAMES, "sims": BT4_SIMS, "move_s": move_s,
                    "launches": launches, "per_forward": launches / forwards,
+                   "deepnorm_ln_launches": ln_launches,
                    "sims_per_s": GAMES * BT4_SIMS / move_s}
     # the kernel inside the replays: a short captured search profiled
     prof = profile_search(states, eval_fn, tag=f"bt4_{GAMES}_captured")
@@ -3193,9 +3276,20 @@ def phase_smolgen(dev, card):
     check(out["in_graph"]["launches"] == layers * (PROFILE_SIMS + 1),
           f"profile: {out['in_graph']['launches']} smolgen_attention_kernel "
           f"launches in {PROFILE_SIMS + 1} forwards")
+    name = next((k for k in prof["kernel_calls"]
+                 if "deepnorm_ln_kernel" in k), None)
+    check(name is not None, "no deepnorm_ln_kernel in the profile")
+    n = prof["kernel_calls"][name]
+    out["ln_in_graph"] = {"launches": n,
+                          "device_ms": prof["kernels_ms"][name],
+                          "ms_per_launch": prof["kernels_ms"][name] / n}
+    check(n == 2 * layers * (PROFILE_SIMS + 1),
+          f"profile: {n} deepnorm_ln_kernel launches in "
+          f"{PROFILE_SIMS + 1} forwards")
     out["card"] = card
     print("smolgen main path " + json.dumps(out["move"]) + "; in the "
-          "replays " + json.dumps(out["in_graph"]), flush=True)
+          "replays " + json.dumps(out["in_graph"]) + "; deepnorm_ln in the "
+          "replays " + json.dumps(out["ln_in_graph"]), flush=True)
     del eval_fn, net, prep, tree
     torch.cuda.empty_cache()
     return out
@@ -3578,7 +3672,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     libs = cuda_build.build(["tree_kernels", "tower_kernel", "qconv_kernel",
                              "epilogue_kernels", "conv_kernels",
-                             "attention_kernels"])
+                             "attention_kernels", "encoder_kernels"])
     build_s = time.time() - t0
     print(f"[phase 0] card: {card}; torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}); kernel build {build_s:.1f} s", flush=True)
@@ -3762,6 +3856,23 @@ def main(argv=None) -> int:
             "ms": t.pop("ms"), "plain_ms": t.pop("plain_ms"),
             "bound_ms": t.pop("bound_ms"), "bound_by": t.pop("bound_by"),
             "library_ms": None, "in_graph": smolgen["in_graph"], **t})
+        # the encoder body's DeepNorm residual and LayerNorm (no kernel of
+        # the JAX package); launches are phase 19's captured BT4 move
+        t = dict(smolgen["ln_times"])
+        kernels.append({
+            "name": "deepnorm_ln", "route": "cuda",
+            "source": "alphazero_torch/csrc/encoder_kernels.cu",
+            "replaces": None,
+            "launches": smolgen["move"]["deepnorm_ln_launches"],
+            "tolerance": "encoder_epilogue.card_check: two bf16 steps and "
+                         "2^-16 of the affine's terms; "
+                         "encoder_epilogue.UNEQUAL_SHARE unequal",
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in smolgen["ln_checks"].values()),
+            "ms": t.pop("ms"), "plain_ms": t.pop("plain_ms"),
+            "bound_ms": t.pop("bound_ms"), "bound_by": t.pop("bound_by"),
+            "library_ms": t.pop("library_ms"),
+            "in_graph": smolgen["ln_in_graph"], **t})
         print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,8 @@ torch.set_num_threads(1)
 
 from alphazero_torch.config import Config, tiny_encoder_config
 from alphazero_torch.env import breakthrough as env
-from alphazero_torch.models import attention, encoder_inference
+from alphazero_torch.models import (attention, encoder_epilogue,
+                                    encoder_inference)
 from alphazero_torch.models.encoder import EncoderNet, encoder_from_config
 from alphazero_torch.models.network import build_network, count_params
 from alphazero_torch.search import graph, mcts
@@ -334,7 +335,7 @@ def test_cuda_captured_bt4_search_against_eager(cuda):
     """Eight simulations of 512 games through ``mcts.search``, captured
     (two eager warm-up simulations, then replays) and eager: the same
     trees bit for bit, and the replays count one smolgen_attention launch
-    a layer a simulation."""
+    and two deepnorm_ln launches a layer a simulation."""
     cfg = Config(body="encoder")
     with torch.device(cuda):
         net = build_network(cfg, cuda)
@@ -343,6 +344,7 @@ def test_cuda_captured_bt4_search_against_eager(cuda):
     st = env.initial_state((512,), device=cuda)
     eager = mcts.search(st, eval_fn, spec, capture=False)
     before = attention.smolgen_attention.launches
+    before_ln = encoder_epilogue.deepnorm_ln.launches
     replays = graph.STATS.replays
     captured = mcts.search(st, eval_fn, spec, capture=True)
     torch.cuda.synchronize()
@@ -351,6 +353,8 @@ def test_cuda_captured_bt4_search_against_eager(cuda):
     assert done == 8 - graph.WARMUP
     # the root's evaluation, the warm-up and the replays: one a layer each
     assert attention.smolgen_attention.launches - before == 15 * (1 + 8)
+    assert encoder_epilogue.deepnorm_ln.launches - before_ln \
+        == 15 * 2 * (1 + 8)
 
 
 @pytest.mark.gpu
