@@ -19,14 +19,15 @@ less than the bf16 rounding of the inputs.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from alphazero_torch.cuda_build import load_library
+from alphazero_torch import cuda_build
+from alphazero_torch.cuda_build import I, P
 
-_LIB = "attention_kernels"
+LIB = cuda_build.Library("attention_kernels",
+                         smolgen_attention_bf16=[P] * 4 + [I] * 4 + [P])
 TOKENS = 64
 # the widths the kernel is compiled for: BT4's heads, head width and
 # smolgen's width a head
@@ -53,29 +54,7 @@ def smolgen_attention_plain(qkv: torch.Tensor, s: torch.Tensor,
     return a.transpose(1, 2).reshape(B * T, E).to(qkv.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library(_LIB)
-    if not getattr(lib, "_argtypes_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.smolgen_attention_bf16.argtypes = [p] * 4 + [i] * 4 + [p]
-        lib.smolgen_attention_bf16.restype = i
-        lib._argtypes_set = True
-    return lib
-
-
-def _check_operand(name: str, t: torch.Tensor, dev: torch.device,
-                   shape: tuple) -> None:
-    if t.device != dev:
-        raise ValueError(f"{name} on {t.device}, qkv on {dev}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"the kernel takes {name} in bfloat16, got "
-                        f"{t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-
-
+@cuda_build.counted
 def smolgen_attention(qkv: torch.Tensor, s: torch.Tensor,
                       wgen_t: torch.Tensor, heads: int) -> torch.Tensor:
     """The attention of every board and head, as
@@ -101,21 +80,14 @@ def smolgen_attention(qkv: torch.Tensor, s: torch.Tensor,
             f"smolgen {KERNEL_GEN} a head, got {heads} of {E // heads} and "
             f"{G}")
     dev = qkv.device
-    _check_operand("qkv", qkv, dev, (B * TOKENS, 3 * E))
-    _check_operand("s", s, dev, (B, heads, G))
-    _check_operand("wgen_t", wgen_t, dev, (TOKENS * TOKENS, G))
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(f"qkv on {dev}, current CUDA device is "
-                         f"{torch.cuda.current_device()}")
+    for name, t, shape in (("qkv", qkv, (B * TOKENS, 3 * E)),
+                           ("s", s, (B, heads, G)),
+                           ("wgen_t", wgen_t, (TOKENS * TOKENS, G))):
+        cuda_build.check_operand(name, t, dev, torch.bfloat16, shape)
+    cuda_build.check_device(dev)
     out = torch.empty((B * TOKENS, E), dtype=qkv.dtype, device=dev)
-    rc = _lib().smolgen_attention_bf16(
-        qkv.data_ptr(), s.data_ptr(), wgen_t.data_ptr(), out.data_ptr(), B,
-        heads, E // heads, G, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"smolgen_attention kernel launch failed: CUDA "
-                           f"error {rc}")
-    smolgen_attention.launches += 1
+    cuda_build.launch(
+        smolgen_attention, LIB.smolgen_attention_bf16, qkv.data_ptr(),
+        s.data_ptr(), wgen_t.data_ptr(), out.data_ptr(), B, heads,
+        E // heads, G, torch.cuda.current_stream(dev).cuda_stream)
     return out
-
-
-smolgen_attention.launches = 0

@@ -43,17 +43,20 @@ land up to 7 steps from the float64 sums (``conv3x3_kernel_order``,
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
-from alphazero_torch.cuda_build import load_library
+from alphazero_torch import cuda_build
+from alphazero_torch.cuda_build import I, P, align
 from alphazero_torch.models import epilogue
 from alphazero_torch.models.epilogue import BN
 
-_LIB = "conv_kernels"
+# conv3x3_init opts the kernel in to its shared memory
+LIB = cuda_build.Library("conv_kernels", init="conv3x3_init",
+                         conv3x3_smem_bytes=[I] * 3,
+                         conv3x3_bf16=[P] * 6 + [I] * 6 + [P])
 # what the kernel takes: cin = cout = C
 CHANNELS = (32, 128, 256)
 # K values (bf16) in a row of the weight image: 128 bytes, one row of the
@@ -245,10 +248,6 @@ def card_check(x: torch.Tensor, w: torch.Tensor, bn: BN,
 # The kernel's launch
 # -----------------------------------------------------------------------------
 
-def _align(n: int, a: int) -> int:
-    return (n + a - 1) // a * a
-
-
 def conv_stages(C: int, np_: int, per: int) -> int:
     """Stages of the weight ring of ``conv3x3_kernel<C, np_, per>``
     (``conv_kernels.cu:ring_stages``): as many chunks of ``np_`` channels
@@ -268,7 +267,7 @@ def conv_smem_bytes(C: int, np_: int, per: int) -> int:
     stages = conv_stages(C, np_, per)
     size = (stages * (np_ * CHUNK_K * 2 + 16) + per * 64 * (C + 8) * 2
             + (C + 8) * 2 + 3 * C * 4 + 8)
-    return _align(size, 8) + 1024
+    return align(size, 8) + 1024
 
 
 def conv_launch_shape(B: int, C: int, sms: int) -> Dict[str, int]:
@@ -305,40 +304,11 @@ def launch_in_shape(B: int, C: int, np_: int, per: int, sms: int
             "stages": conv_stages(C, np_, per)}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library(_LIB)
-    if not getattr(lib, "_argtypes_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3_init.argtypes = [ctypes.POINTER(i)]
-        lib.conv3x3_init.restype = i
-        lib.conv3x3_smem_bytes.argtypes = [i] * 3
-        lib.conv3x3_smem_bytes.restype = i
-        lib.conv3x3_bf16.argtypes = [p] * 6 + [i] * 6 + [p]
-        lib.conv3x3_bf16.restype = i
-        lib._argtypes_set = True
-    return lib
-
-
-_SMS: Dict[int, int] = {}
-
-
-def multiprocessors(dev: torch.device) -> int:
-    """The card's multiprocessor count, from ``conv3x3_init``, which runs
-    once a device (at its first launch, before any capture of one) and
-    opts the kernel in to its shared memory."""
-    if dev.index not in _SMS:
-        n = ctypes.c_int(0)
-        rc = _lib().conv3x3_init(ctypes.byref(n))
-        if rc != 0:
-            raise RuntimeError(f"conv3x3_init failed: CUDA error {rc}")
-        _SMS[dev.index] = n.value
-    return _SMS[dev.index]
-
-
 # -----------------------------------------------------------------------------
 # Wrapper
 # -----------------------------------------------------------------------------
 
+@cuda_build.counted
 def conv3x3(x: torch.Tensor, w: torch.Tensor, bn: BN | None = None,
             relu: bool = False, image: torch.Tensor | None = None
             ) -> torch.Tensor:
@@ -351,7 +321,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bn: BN | None = None,
     kernel reads it before it waits for that one) and takes contiguous
     bfloat16 maps with C one of ``CHANNELS``; on a CPU tensor
     ``conv3x3_plain``."""
-    epilogue._check_map("x", x)
+    epilogue.check_map("x", x)
     C = x.shape[3]
     if tuple(w.shape) != (C, C, 3, 3):
         raise ValueError(f"w must be ({C}, {C}, 3, 3) for the map's {C} "
@@ -361,33 +331,27 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bn: BN | None = None,
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, bn, relu).contiguous()
     dev = x.device
-    epilogue._check_card("x", x, dev, torch.bfloat16)
+    cuda_build.check_operand("x", x, dev, torch.bfloat16)
     if C not in CHANNELS:
         raise ValueError(f"the kernel takes C one of {CHANNELS}, got {C}")
     if image is None:
         raise ValueError("a CUDA launch needs the weight image "
                          "(weight_image(w), made once)")
     N = tile_width(C)
-    epilogue._check_card("image", image, dev, torch.bfloat16,
-                         (C // N, -(-9 * C // CHUNK_K), N, CHUNK_K))
+    cuda_build.check_operand("image", image, dev, torch.bfloat16,
+                             (C // N, -(-9 * C // CHUNK_K), N, CHUNK_K))
     if bn is not None:
-        epilogue._check_bn(bn, C, dev)
-    epilogue._check_device(x)
+        epilogue.check_bn(bn, C, dev)
+    cuda_build.check_device(dev)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     B = x.shape[0]
     if B == 0:
         return out
-    shape = conv_launch_shape(B, C, multiprocessors(dev))
+    shape = conv_launch_shape(B, C, LIB.multiprocessors(dev))
     consts = (None, None, None) if bn is None else \
         tuple(t.data_ptr() for t in bn)
-    rc = _lib().conv3x3_bf16(
-        x.data_ptr(), image.data_ptr(), *consts, out.data_ptr(), B, C,
-        _EPI[(bn is not None, relu)], shape["grid"], shape["np"],
-        shape["per"], torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {rc}")
-    conv3x3.launches += 1
+    cuda_build.launch(
+        conv3x3, LIB.conv3x3_bf16, x.data_ptr(), image.data_ptr(), *consts,
+        out.data_ptr(), B, C, _EPI[(bn is not None, relu)], shape["grid"],
+        shape["np"], shape["per"], torch.cuda.current_stream(dev).cuda_stream)
     return out
-
-
-conv3x3.launches = 0

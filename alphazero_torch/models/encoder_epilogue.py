@@ -21,15 +21,15 @@ kernel to that on the card.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from alphazero_torch.cuda_build import load_library
+from alphazero_torch import cuda_build
+from alphazero_torch.cuda_build import F32, I, LL, P
 from alphazero_torch.models.encoder import LN_EPS
 
-_LIB = "encoder_kernels"
+LIB = cuda_build.Library("encoder_kernels",
+                         deepnorm_ln_bf16=[P] * 5 + [LL, I, F32, F32, P])
 KERNEL_WIDTH = 1024                  # BT4's embedding width
 # the share of deepnorm_ln's outputs that may differ from its plain version
 # on the card (``card_check``): 5e-6 to 1.7e-5 measured at 1 to 512 boards
@@ -45,17 +45,6 @@ def deepnorm_ln_plain(o: torch.Tensor, x: torch.Tensor, alpha: float,
     ``torch.add`` rounds it."""
     return F.layer_norm(torch.add(o, x, alpha=alpha), (o.shape[-1],), gamma,
                         beta, eps)
-
-
-def _lib() -> ctypes.CDLL:
-    lib = load_library(_LIB)
-    if not getattr(lib, "_argtypes_set", False):
-        p, f = ctypes.c_void_p, ctypes.c_float
-        lib.deepnorm_ln_bf16.argtypes = ([p] * 5 + [ctypes.c_longlong,
-                                                    ctypes.c_int, f, f, p])
-        lib.deepnorm_ln_bf16.restype = ctypes.c_int
-        lib._argtypes_set = True
-    return lib
 
 
 def check_shapes(o: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
@@ -81,16 +70,10 @@ def check_kernel_operands(o: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"the kernel takes width {KERNEL_WIDTH}, got "
                          f"{o.shape[1]}")
     for name, t in (("o", o), ("x", x), ("gamma", gamma), ("beta", beta)):
-        if t.device != o.device:
-            raise ValueError(f"{name} on {t.device}, o on {o.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the kernel takes {name} in bfloat16, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte "
-                             f"aligned")
+        cuda_build.check_operand(name, t, o.device, torch.bfloat16)
 
 
+@cuda_build.counted
 def deepnorm_ln(o: torch.Tensor, x: torch.Tensor, alpha: float,
                 gamma: torch.Tensor, beta: torch.Tensor,
                 eps: float = LN_EPS) -> torch.Tensor:
@@ -103,22 +86,13 @@ def deepnorm_ln(o: torch.Tensor, x: torch.Tensor, alpha: float,
         return deepnorm_ln_plain(o, x, alpha, gamma, beta, eps)
     check_kernel_operands(o, x, gamma, beta)
     dev = o.device
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(f"o on {dev}, current CUDA device is "
-                         f"{torch.cuda.current_device()}")
+    cuda_build.check_device(dev)
     out = torch.empty_like(o)
-    rc = _lib().deepnorm_ln_bf16(
-        o.data_ptr(), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), o.shape[0], o.shape[1], alpha, eps,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"deepnorm_ln kernel launch failed: CUDA error "
-                           f"{rc}")
-    deepnorm_ln.launches += 1
+    cuda_build.launch(
+        deepnorm_ln, LIB.deepnorm_ln_bf16, o.data_ptr(), x.data_ptr(),
+        gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), o.shape[0],
+        o.shape[1], alpha, eps, torch.cuda.current_stream(dev).cuda_stream)
     return out
-
-
-deepnorm_ln.launches = 0
 
 
 def card_check(o: torch.Tensor, x: torch.Tensor, alpha: float,

@@ -48,14 +48,17 @@ sums may each round to a neighbouring value, such as Flax's under XLA.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Tuple
 
 import torch
 
-from alphazero_torch.cuda_build import load_library
+from alphazero_torch import cuda_build
+from alphazero_torch.cuda_build import I, LL, P, align
 
-_LIB = "epilogue_kernels"
+# se_residual_init opts se_residual's kernel in to its shared memory
+LIB = cuda_build.Library("epilogue_kernels", init="se_residual_init",
+                         bn_act_bf16=[P] * 5 + [LL, I, I, P],
+                         se_residual_bf16=[P] * 10 + [I] * 6 + [P])
 # a block's dynamic shared memory on an H100 after the kernel's opt-in
 SMEM_PER_BLOCK = 232_448
 # what se_residual's kernel takes: channels (a multiple of 8; a thread
@@ -172,19 +175,15 @@ def se_residual_bound(y: torch.Tensor, x: torch.Tensor, fc1: Dense,
 # se_residual's launch shape
 # -----------------------------------------------------------------------------
 
-def _align(n: int, a: int) -> int:
-    return (n + a - 1) // a * a
-
-
 def se_smem_bytes(C: int, H: int, waves: int, stages: int) -> int:
     """A block's shared memory in ``se_residual_kernel``
     (``epilogue_kernels.cu:se_layout``): 256 bytes of mbarriers, the bf16
     weights w1 and w2, each warpgroup's scratch (float64: 1024 partial
     column sums, pooled, hidden; bf16 gate and shift), then the stages, a
     board's ``x`` each."""
-    scratch = 256 + _align(2 * C * H, 16) + _align(4 * C * H, 16)
-    per_wave = _align(8 * (1024 + C + H), 16) + 4 * C
-    return _align(scratch + waves * per_wave, 128) + stages * 128 * C
+    scratch = 256 + align(2 * C * H, 16) + align(4 * C * H, 16)
+    per_wave = align(8 * (1024 + C + H), 16) + 4 * C
+    return align(scratch + waves * per_wave, 128) + stages * 128 * C
 
 
 def se_launch_shape(B: int, C: int, H: int, sms: int) -> Dict[str, int]:
@@ -215,38 +214,10 @@ def se_launch_shape(B: int, C: int, H: int, sms: int) -> Dict[str, int]:
 # Wrappers
 # -----------------------------------------------------------------------------
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library(_LIB)
-    if not getattr(lib, "_argtypes_set", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.se_residual_init.argtypes = [ctypes.POINTER(i)]
-        lib.se_residual_init.restype = i
-        lib.bn_act_bf16.argtypes = [p, p, p, p, p, ll, i, i, p]
-        lib.bn_act_bf16.restype = i
-        lib.se_residual_bf16.argtypes = [p] * 10 + [i] * 6 + [p]
-        lib.se_residual_bf16.restype = i
-        lib._argtypes_set = True
-    return lib
-
-
-_SMS: Dict[int, int] = {}
-
-
-def multiprocessors(dev: torch.device) -> int:
-    """The card's multiprocessor count, from ``se_residual_init``, which
-    runs once a device (at its first launch of either kernel, before any
-    capture of one) and opts the kernel in to its shared memory."""
-    if dev.index not in _SMS:
-        n = ctypes.c_int(0)
-        rc = _lib().se_residual_init(ctypes.byref(n))
-        if rc != 0:
-            raise RuntimeError(f"se_residual_init failed: CUDA error {rc}")
-        _SMS[dev.index] = n.value
-    return _SMS[dev.index]
-
-
-def _check_map(name: str, t: torch.Tensor, like: torch.Tensor | None = None
-               ) -> None:
+def check_map(name: str, t: torch.Tensor, like: torch.Tensor | None = None
+              ) -> None:
+    """Raises unless ``t`` is a (B, 8, 8, C) map (shaped ``like``, if
+    given)."""
     if t.dim() != 4 or tuple(t.shape[1:3]) != (8, 8) \
             or (like is not None and t.shape != like.shape):
         raise ValueError(f"{name} must be a (B, 8, 8, C) map"
@@ -255,60 +226,39 @@ def _check_map(name: str, t: torch.Tensor, like: torch.Tensor | None = None
                          + f", got {tuple(t.shape)}")
 
 
-def _check_card(name: str, t: torch.Tensor, dev: torch.device,
-                dtype: torch.dtype, shape: tuple | None = None) -> None:
-    """An operand of a launch: on ``dev``, of ``dtype``, contiguous and
-    16-byte aligned (the kernels read 16-byte vectors)."""
-    if t.device != dev:
-        raise ValueError(f"{name} on {t.device}, the map on {dev}")
-    if t.dtype != dtype:
-        raise TypeError(f"the kernel takes {name} in {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != shape:
-        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-
-
-def _check_device(y: torch.Tensor) -> None:
-    if y.device.index != torch.cuda.current_device():
-        raise ValueError(f"input on {y.device}, current CUDA device is "
-                         f"{torch.cuda.current_device()}")
-
-
-def _check_bn(bn: BN, C: int, dev: torch.device) -> None:
+def check_bn(bn: BN, C: int, dev: torch.device) -> None:
+    """Raises unless the BatchNorm's constants are launch operands: (C,)
+    float32 on ``dev``."""
     for name, t in zip(("mean", "mul", "beta"), bn):
-        _check_card(name, t, dev, torch.float32, (C,))
+        cuda_build.check_operand(name, t, dev, torch.float32, (C,))
 
 
+@cuda_build.counted
 def bn_act(y: torch.Tensor, bn: BN) -> torch.Tensor:
     """Inference BatchNorm (``bn`` = float32 (mean, mul, beta) of C) and
     ReLU on the NHWC map ``y`` (B, 8, 8, C); a new map of ``y``'s dtype. On
     a CUDA tensor one launch of ``bn_act_kernel``, which takes contiguous
     bfloat16 maps with C a multiple of 8; on a CPU tensor
     ``bn_act_plain``."""
-    _check_map("y", y)
+    check_map("y", y)
     if y.device.type == "cpu":
         return bn_act_plain(y, bn)
     C = y.shape[3]
-    _check_card("y", y, y.device, torch.bfloat16)
-    _check_bn(bn, C, y.device)
+    dev = y.device
+    cuda_build.check_operand("y", y, dev, torch.bfloat16)
+    check_bn(bn, C, dev)
     if C % 8:
         raise ValueError(f"the kernel takes C a multiple of 8, got {C}")
-    _check_device(y)
+    cuda_build.check_device(dev)
     out = torch.empty_like(y)
-    rc = _lib().bn_act_bf16(
-        y.data_ptr(), *(t.data_ptr() for t in bn), out.data_ptr(),
-        y.numel(), C, multiprocessors(y.device),
-        torch.cuda.current_stream(y.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bn_act kernel launch failed: CUDA error {rc}")
-    bn_act.launches += 1
+    cuda_build.launch(
+        bn_act, LIB.bn_act_bf16, y.data_ptr(), *(t.data_ptr() for t in bn),
+        out.data_ptr(), y.numel(), C, LIB.multiprocessors(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
-bn_act.launches = 0
-
-
+@cuda_build.counted
 def se_residual(y: torch.Tensor, x: torch.Tensor, fc1: Dense, fc2: Dense,
                 bn: BN | None = None) -> torch.Tensor:
     """The tail of a tower block on NHWC maps (B, 8, 8, C): ``y`` (the
@@ -320,8 +270,8 @@ def se_residual(y: torch.Tensor, x: torch.Tensor, fc1: Dense, fc2: Dense,
     bfloat16 maps and weights, C a multiple of 8 up to ``MAX_SE_CHANNELS``
     and H up to ``MAX_SE_HIDDEN``; on a CPU tensor
     ``se_residual_plain``."""
-    _check_map("y", y)
-    _check_map("x", x, y)
+    check_map("y", y)
+    check_map("x", x, y)
     if y.device.type == "cpu":
         return se_residual_plain(y, x, fc1, fc2, bn)
     B, C = y.shape[0], y.shape[3]
@@ -332,30 +282,24 @@ def se_residual(y: torch.Tensor, x: torch.Tensor, fc1: Dense, fc2: Dense,
                            ("fc1 bias", fc1[1], (H,)),
                            ("fc2 kernel", fc2[0], (H, 2 * C)),
                            ("fc2 bias", fc2[1], (2 * C,))):
-        _check_card(name, t, dev, torch.bfloat16, shape)
+        cuda_build.check_operand(name, t, dev, torch.bfloat16, shape)
     if bn is not None:
-        _check_bn(bn, C, dev)
+        check_bn(bn, C, dev)
     if C % 8 or C > MAX_SE_CHANNELS or not 0 < H <= MAX_SE_HIDDEN:
         raise ValueError(f"the kernel takes C a multiple of 8 up to "
                          f"{MAX_SE_CHANNELS} and H up to {MAX_SE_HIDDEN}, "
                          f"got C {C}, H {H}")
-    _check_device(y)
+    cuda_build.check_device(dev)
     out = torch.empty_like(y)
     if B == 0:
         return out
-    shape = se_launch_shape(B, C, H, multiprocessors(dev))
+    shape = se_launch_shape(B, C, H, LIB.multiprocessors(dev))
     consts = (None, None, None) if bn is None else \
         tuple(t.data_ptr() for t in bn)
-    rc = _lib().se_residual_bf16(
-        y.data_ptr(), x.data_ptr(), out.data_ptr(), *consts,
-        fc1[0].data_ptr(), fc1[1].data_ptr(), fc2[0].data_ptr(),
-        fc2[1].data_ptr(), B, C, H, shape["grid"], shape["waves"],
-        shape["stages"], torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"se_residual kernel launch failed: CUDA error "
-                           f"{rc}")
-    se_residual.launches += 1
+    cuda_build.launch(
+        se_residual, LIB.se_residual_bf16, y.data_ptr(), x.data_ptr(),
+        out.data_ptr(), *consts, fc1[0].data_ptr(), fc1[1].data_ptr(),
+        fc2[0].data_ptr(), fc2[1].data_ptr(), B, C, H, shape["grid"],
+        shape["waves"], shape["stages"],
+        torch.cuda.current_stream(dev).cuda_stream)
     return out
-
-
-se_residual.launches = 0

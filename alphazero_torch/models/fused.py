@@ -28,14 +28,14 @@ layer-by-layer net.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from alphazero_torch.cuda_build import load_library
+from alphazero_torch import cuda_build
+from alphazero_torch.cuda_build import I, P
 from alphazero_torch.models.conv import weight_image_kmajor
 
 # Games per thread block of the CUDA kernel: a batch must be a multiple of
@@ -47,7 +47,8 @@ TB = 4
 # bf16 are one 128-byte row of the swizzled image.
 _CHUNK_K = 64
 _C = 128
-_LIB = "tower_kernel"
+LIB = cuda_build.Library("tower_kernel",
+                         tower_forward_bf16=[P] * 10 + [I, I, P])
 
 
 # -----------------------------------------------------------------------------
@@ -271,16 +272,7 @@ _KERNEL_OPERANDS = (("wconv_smem", torch.bfloat16,
                     ("bse2b", torch.float32, (_C,)))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library(_LIB)
-    if not getattr(lib, "_argtypes_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tower_forward_bf16.argtypes = [p] * 10 + [i, i, p]
-        lib.tower_forward_bf16.restype = i
-        lib._argtypes_set = True
-    return lib
-
-
+@cuda_build.counted
 def tower_forward(x2d: torch.Tensor, packed, num_blocks: int) -> torch.Tensor:
     """(B*64, 128) bf16 tower input -> (B*64, 128) bf16 tower output after
     ``num_blocks`` blocks; B must be a multiple of ``TB``. On a CUDA tensor
@@ -306,33 +298,21 @@ def tower_forward(x2d: torch.Tensor, packed, num_blocks: int) -> torch.Tensor:
     if x2d.device.type == "cpu":
         return _tower_plain(x2d, packed, num_blocks)
 
-    if not x2d.is_contiguous() or x2d.data_ptr() % 16:
-        raise ValueError("the tower input must be contiguous and 16-byte "
-                         "aligned; it is never copied")
-    if x2d.device.index != torch.cuda.current_device():
-        raise ValueError(f"input on {x2d.device}, current CUDA device is "
-                         f"{torch.cuda.current_device()}")
+    dev = x2d.device
+    # the input is never copied
+    cuda_build.check_operand("the tower input", x2d, dev, torch.bfloat16)
     n = packed["wconv"].shape[0]
     for key, dtype, shape in _KERNEL_OPERANDS:
-        t = packed[key]
-        if t.device != x2d.device or t.dtype != dtype \
-                or tuple(t.shape) != (n,) + shape or not t.is_contiguous() \
-                or t.data_ptr() % 16:
-            raise ValueError(f"packed[{key!r}] must be a contiguous "
-                             f"{(n,) + shape} {dtype} tensor on {x2d.device}")
+        cuda_build.check_operand(f"packed[{key!r}]", packed[key], dev, dtype,
+                                 (n,) + shape, dtype_error=ValueError)
+    cuda_build.check_device(dev)
     out = torch.empty_like(x2d)
-    rc = _lib().tower_forward_bf16(
-        x2d.data_ptr(), out.data_ptr(),
+    cuda_build.launch(
+        tower_forward, LIB.tower_forward_bf16, x2d.data_ptr(), out.data_ptr(),
         *(packed[key].data_ptr() for key, _, _ in _KERNEL_OPERANDS),
         x2d.shape[0] // 64, num_blocks,
-        torch.cuda.current_stream(x2d.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"tower kernel launch failed: CUDA error {rc}")
-    tower_forward.launches += 1
+        torch.cuda.current_stream(dev).cuda_stream)
     return out
-
-
-tower_forward.launches = 0
 
 
 # -----------------------------------------------------------------------------

@@ -35,17 +35,19 @@ tensor it runs ``qconv_plain``, which rounds as the kernel does.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from alphazero_torch.cuda_build import load_library
+from alphazero_torch import cuda_build
+from alphazero_torch.cuda_build import I, LL, P
 from alphazero_torch.models import epilogue, fused
 from alphazero_torch.models.network import AlphaZeroNet, wl_to_value
 
-_LIB = "qconv_kernel"
+LIB = cuda_build.Library(
+    "qconv_kernel",
+    qconv3x3_s8=[P, I, LL, LL, LL, LL, P, P, P, P, P, I, P, I, I, I, I, P])
 # K bytes in a row of the kernel's weight image: at cin 128 one tap, and
 # one row of the card's 128-byte shared-memory swizzle
 _CHUNK = 128
@@ -135,17 +137,7 @@ def qconv_plain(x: torch.Tensor, xs: torch.Tensor, entry, relu: bool = False,
     return (out, acc.contiguous()) if sums else out
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library(_LIB)
-    if not getattr(lib, "_argtypes_set", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.qconv3x3_s8.argtypes = [p, i, ll, ll, ll, ll, p, p, p, p, p, i,
-                                    p, i, i, i, i, p]
-        lib.qconv3x3_s8.restype = i
-        lib._argtypes_set = True
-    return lib
-
-
+@cuda_build.counted
 def qconv3x3(x: torch.Tensor, xs: torch.Tensor, entry, relu: bool = False,
              out_dtype: torch.dtype = torch.bfloat16, sums: bool = False):
     """s8 x s8 -> s32 3x3 SAME conv of ``x`` (B, 8, 8, cin), float32 or
@@ -170,47 +162,36 @@ def qconv3x3(x: torch.Tensor, xs: torch.Tensor, entry, relu: bool = False,
 
     wk, ws, bias = entry["wk"], entry["scale"], entry["bias"]
     cin, cout = x.shape[3], wk.shape[1] if wk.dim() == 3 else -1
-    if cin not in _CINS or cout not in _COUTS or wk.dtype != torch.int8 \
-            or tuple(wk.shape) != (-(-9 * cin // _CHUNK), cout, _CHUNK) \
-            or not wk.is_contiguous() or wk.data_ptr() % 16:
+    if cin not in _CINS or cout not in _COUTS \
+            or tuple(wk.shape) != (-(-9 * cin // _CHUNK), cout, _CHUNK):
         raise ValueError(f"the kernel takes cin in {_CINS} and cout in "
                          f"{_COUTS}, with int8 weights in wk_smem_image's "
-                         f"(ceil(9*cin/128), cout, 128) form, 16-byte "
-                         f"aligned; got {tuple(wk.shape)} {wk.dtype} for "
-                         f"cin {cin}")
+                         f"(ceil(9*cin/128), cout, 128) form; got "
+                         f"{tuple(wk.shape)} for cin {cin}")
+    dev = x.device
+    cuda_build.check_operand("wk", wk, dev, torch.int8,
+                             dtype_error=ValueError)
     for name, t, shape in (("xs", xs, None), ("scale", ws, (cout,)),
                            ("bias", bias, (cout,))):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or (t.numel() != 1 if shape is None
-                    else tuple(t.shape) != shape):
-            raise ValueError(f"{name} must be a contiguous float32 "
-                             f"{'scalar' if shape is None else shape}")
-    for t in (xs, wk, ws, bias):
-        if t.device != x.device:
-            raise ValueError(f"operand on {t.device}, activations on "
-                             f"{x.device}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"input on {x.device}, current CUDA device is "
-                         f"{torch.cuda.current_device()}")
+        cuda_build.check_operand(name, t, dev, torch.float32, shape,
+                                 aligned=False, dtype_error=ValueError)
+    if xs.numel() != 1:
+        raise ValueError(f"xs must be a float32 scalar, got "
+                         f"{tuple(xs.shape)}")
+    cuda_build.check_device(dev)
     if min(x.stride()) < 0:
         raise ValueError("negative strides")
     B = x.shape[0]
-    out = torch.empty((B, 8, 8, cout), dtype=out_dtype, device=x.device)
-    acc = (torch.empty((B, 8, 8, cout), dtype=torch.int32, device=x.device)
+    out = torch.empty((B, 8, 8, cout), dtype=out_dtype, device=dev)
+    acc = (torch.empty((B, 8, 8, cout), dtype=torch.int32, device=dev)
            if sums else None)
-    rc = _lib().qconv3x3_s8(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), *x.stride(),
-        xs.data_ptr(), wk.data_ptr(), ws.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), int(out_dtype == torch.bfloat16),
-        acc.data_ptr() if sums else None, B, cin, cout, int(relu),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"qconv3x3 kernel launch failed: CUDA error {rc}")
-    qconv3x3.launches += 1
+    cuda_build.launch(
+        qconv3x3, LIB.qconv3x3_s8, x.data_ptr(),
+        int(x.dtype == torch.bfloat16), *x.stride(), xs.data_ptr(),
+        wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), acc.data_ptr() if sums else None,
+        B, cin, cout, int(relu), torch.cuda.current_stream(dev).cuda_stream)
     return (out, acc) if sums else out
-
-
-qconv3x3.launches = 0
 
 
 # -----------------------------------------------------------------------------

@@ -39,9 +39,9 @@ The capture is made with ``capture_error_mode="thread_local"``: the web
 server captures in a handler thread while other threads run host work.
 
 Launch counts: a replay does not pass through the kernels' Python
-wrappers, so their ``.launches`` counters, as the wrappers counted them
-during the capture, are taken back (a capture launches nothing) and added
-once per replay. ``mcts.STATS.simulations`` is advanced by the host the
+wrappers, so the ``.launches`` counters of the counted wrappers
+(``cuda_build.COUNTED``), as the wrappers counted them during the capture,
+are taken back (a capture launches nothing) and added once per replay. ``mcts.STATS.simulations`` is advanced by the host the
 same way. The ``record_function`` spans of the stages are recorded only
 at the capture.
 
@@ -51,27 +51,14 @@ A failed capture raises; nothing falls back to eager or to the CPU.
 from __future__ import annotations
 
 import dataclasses
-import sys
 import time
 
 import torch
 
+from alphazero_torch import cuda_build
 from alphazero_torch.env import breakthrough as env
 
 WARMUP = 2
-
-# the kernel wrappers whose ``.launches`` a replay adds to, by module
-_COUNTED = {
-    "alphazero_torch.search.kernels": ("fetch_rows", "commit_edges",
-                                       "descend", "encode_planes",
-                                       "expand"),
-    "alphazero_torch.models.quant": ("qconv3x3",),
-    "alphazero_torch.models.epilogue": ("bn_act", "se_residual"),
-    "alphazero_torch.models.conv": ("conv3x3",),
-    "alphazero_torch.models.fused": ("tower_forward",),
-    "alphazero_torch.models.attention": ("smolgen_attention",),
-    "alphazero_torch.models.encoder_epilogue": ("deepnorm_ln",),
-}
 
 
 @dataclasses.dataclass
@@ -88,12 +75,6 @@ class GraphStats:
 
 
 STATS = GraphStats()
-
-
-def _counters() -> list:
-    return [f for mod, names in _COUNTED.items() if mod in sys.modules
-            for f in (getattr(sys.modules[mod], n) for n in names)
-            if hasattr(f, "launches")]
 
 
 def _state_tensors(state: env.EnvState) -> tuple:
@@ -156,7 +137,7 @@ def _capture(tree, eval_fn, spec, eval_ctx, warmup: int):
     for t in (*_state_tensors(out[0]), *out[1:5]):
         t.record_stream(cur)
 
-    counters = _counters()
+    counters = list(cuda_build.COUNTED)
     before = [f.launches for f in counters]
     simulations = mcts.STATS.simulations
     graph = torch.cuda.CUDAGraph()

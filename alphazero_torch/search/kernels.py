@@ -24,14 +24,21 @@ public function counts its kernel launches in ``<function>.launches``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from alphazero_torch.cuda_build import load_library
+from alphazero_torch import cuda_build
+from alphazero_torch.cuda_build import F32, I, LL, P
 from alphazero_torch.env import breakthrough as env
 
-_LIB = "tree_kernels"
+LIB = cuda_build.Library(
+    "tree_kernels",
+    fetch_rows_f32=[P, P, P, I, LL, I, P],
+    commit_edges_f32=[P] * 4 + [I] * 7 + [LL, I, P],
+    commit_path_f32=[P] * 7 + [I] * 5 + [LL, I, P],
+    descend_f32=[P, LL, I, I] + [P] * 7 + [F32, F32, I, I, I] + [P] * 10,
+    encode_planes_f32=[P, P, P, I, P],
+    expand_f32=[P] * 17 + [LL, I, I, I, I, P],
+    launch_floor=[P])
 
 # Child-pointer sentinels (stored as floats; slots <= capacity are exactly
 # representable in every value dtype used).
@@ -39,72 +46,25 @@ ILLEGAL = -2.0       # action illegal at this node
 UNALLOCATED = -1.0   # legal action whose child node does not exist yet
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library(_LIB)
-    if not getattr(lib, "_argtypes_set", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fetch_rows_f32.argtypes = [p, p, p, i, ll, i, p]
-        lib.fetch_rows_f32.restype = i
-        lib.commit_edges_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                         ll, i, p]
-        lib.commit_edges_f32.restype = i
-        lib.commit_path_f32.argtypes = [p] * 7 + [i] * 5 + [ll, i, p]
-        lib.commit_path_f32.restype = i
-        f = ctypes.c_float
-        lib.descend_f32.argtypes = ([p, ll, i, i] + [p] * 7 + [f, f, i, i, i]
-                                    + [p] * 10)
-        lib.descend_f32.restype = i
-        lib.encode_planes_f32.argtypes = [p, p, p, i, p]
-        lib.encode_planes_f32.restype = i
-        lib.expand_f32.argtypes = [p] * 17 + [ll, i, i, i, i, p]
-        lib.expand_f32.restype = i
-        lib.launch_floor.argtypes = [p]
-        lib.launch_floor.restype = i
-        lib._argtypes_set = True
-    return lib
+def _check_tensors(operands, device: torch.device) -> None:
+    # (name, tensor, dtype, shape) each, read with scalar loads: any
+    # mismatch, the dtype's too, is a ValueError
+    for name, t, dtype, shape in operands:
+        cuda_build.check_operand(name, t, device, dtype, shape,
+                                 aligned=False, dtype_error=ValueError)
 
 
-def _check_cuda_operands(rows: torch.Tensor, *index: torch.Tensor,
-                         levels: tuple = ()) -> None:
+def _check_tree(rows: torch.Tensor, *index: torch.Tensor,
+                levels: tuple = ()) -> None:
     if rows.dtype != torch.float32:
         raise TypeError(f"the CUDA tree kernels take float32 trees, got "
                         f"{rows.dtype} (16-bit trees are CPU-only)")
     if not rows.is_contiguous():
         raise ValueError("the tree must be contiguous; it is never copied")
-    if rows.device.index != torch.cuda.current_device():
-        raise ValueError(f"tree on {rows.device}, current CUDA device is "
-                         f"{torch.cuda.current_device()}")
     shape = levels + (rows.shape[0],)
-    for t in index:
-        if t.device != rows.device or t.dtype != torch.int32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"node/act must be contiguous {shape} int32 "
-                             f"tensors on the tree's device")
-
-
-def _raise_on_error(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
-def _check_tensors(operands, device: torch.device) -> None:
-    # (name, tensor, dtype, shape) each: what needs no card to be told
-    for name, t, dtype, shape in operands:
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != device:
-            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
-                             f"tensor on {device}; got {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}"
-                             f"{'' if t.is_contiguous() else ', strided'}")
-
-
-def _check_card(device: torch.device) -> None:
-    if device.type != "cuda":
-        raise ValueError(f"the kernels take CPU or CUDA tensors, got "
-                         f"{device}")
-    if device.index != torch.cuda.current_device():
-        raise ValueError(f"tensors on {device}, current CUDA device is "
-                         f"{torch.cuda.current_device()}")
+    _check_tensors([(name, t, torch.int32, shape)
+                    for name, t in zip(("node", "act"), index)], rows.device)
+    cuda_build.check_device(rows.device)
 
 
 # -----------------------------------------------------------------------------
@@ -118,27 +78,24 @@ def _fetch_rows_plain(rows: torch.Tensor, node: torch.Tensor) -> torch.Tensor:
     return flat.gather(1, idx).reshape(B, -1)
 
 
+@cuda_build.counted
 def fetch_rows(rows: torch.Tensor, node: torch.Tensor) -> torch.Tensor:
     """(B, R) rows gathered from the (B, M, RS, 128) tree at per-game node
     indices (R = RS*128). ``node`` is (B,) int32 in [0, M): the kernel
     does not check the range."""
     if rows.device.type == "cpu":
         return _fetch_rows_plain(rows, node)
-    _check_cuda_operands(rows, node)
+    _check_tree(rows, node)
     B, M, RS, L = rows.shape
     R = RS * L
     if R % 4 or rows.data_ptr() % 16:
         raise ValueError("fetch_rows kernel needs 16-byte aligned rows")
     out = torch.empty((B, R), dtype=rows.dtype, device=rows.device)
-    rc = _lib().fetch_rows_f32(
-        rows.data_ptr(), node.data_ptr(), out.data_ptr(), B, M, R,
+    cuda_build.launch(
+        fetch_rows, LIB.fetch_rows_f32, rows.data_ptr(), node.data_ptr(),
+        out.data_ptr(), B, M, R,
         torch.cuda.current_stream(rows.device).cuda_stream)
-    _raise_on_error(rc, "fetch_rows")
-    fetch_rows.launches += 1
     return out
-
-
-fetch_rows.launches = 0
 
 
 # -----------------------------------------------------------------------------
@@ -176,6 +133,7 @@ def _check_offsets(offsets, num_actions: int, row_len: int) -> None:
                          f"offsets at least num_actions={num_actions} apart")
 
 
+@cuda_build.counted
 def commit_edges(rows: torch.Tensor, node: torch.Tensor, act: torch.Tensor,
                  upd: torch.Tensor, offsets: tuple, num_actions: int
                  ) -> torch.Tensor:
@@ -206,21 +164,17 @@ def commit_edges(rows: torch.Tensor, node: torch.Tensor, act: torch.Tensor,
     upd = upd.to(torch.float32)
     if rows.device.type == "cpu":
         return _commit_edges_plain(rows, node, act, upd, tuple(offsets))
-    _check_cuda_operands(rows, node, act, levels=levels)
+    _check_tree(rows, node, act, levels=levels)
     upd = upd.contiguous()
     if upd.device != rows.device:
         raise ValueError("upd must be on the tree's device")
     o = list(offsets) + [0] * (4 - len(offsets))
-    rc = _lib().commit_edges_f32(
-        rows.data_ptr(), node.data_ptr(), act.data_ptr(), upd.data_ptr(),
-        levels[0] if levels else 1, B, len(offsets), o[0], o[1], o[2], o[3],
-        M, RS * L, torch.cuda.current_stream(rows.device).cuda_stream)
-    _raise_on_error(rc, "commit_edges")
-    commit_edges.launches += 1
+    cuda_build.launch(
+        commit_edges, LIB.commit_edges_f32, rows.data_ptr(), node.data_ptr(),
+        act.data_ptr(), upd.data_ptr(), levels[0] if levels else 1, B,
+        len(offsets), o[0], o[1], o[2], o[3], M, RS * L,
+        torch.cuda.current_stream(rows.device).cuda_stream)
     return rows
-
-
-commit_edges.launches = 0
 
 
 # -----------------------------------------------------------------------------
@@ -305,14 +259,13 @@ def commit_path(rows: torch.Tensor, path_nodes: torch.Tensor,
     if rows.device.type == "cpu":
         return _commit_path_plain(rows, path_nodes, path_actions, depth,
                                   needs_alloc, value, slot, tuple(offsets))
-    _check_cuda_operands(rows)
-    rc = _lib().commit_path_f32(
-        rows.data_ptr(), path_nodes.data_ptr(), path_actions.data_ptr(),
-        depth.data_ptr(), needs_alloc.data_ptr(), value.data_ptr(),
-        slot.data_ptr(), B, N, *offsets, M, RS * L,
+    _check_tree(rows)
+    cuda_build.launch(
+        commit_edges, LIB.commit_path_f32, rows.data_ptr(),
+        path_nodes.data_ptr(), path_actions.data_ptr(), depth.data_ptr(),
+        needs_alloc.data_ptr(), value.data_ptr(), slot.data_ptr(), B, N,
+        *offsets, M, RS * L,
         torch.cuda.current_stream(rows.device).cuda_stream)
-    _raise_on_error(rc, "commit_path")
-    commit_edges.launches += 1
     return rows
 
 
@@ -438,9 +391,10 @@ def _check_descend_operands(rows, root_state, root_visit, root_vsum,
                      ("out path_actions", path_actions, torch.int32,
                       (B, M - 1))]
     _check_tensors(operands, rows.device)
-    _check_card(rows.device)
+    cuda_build.check_device(rows.device)
 
 
+@cuda_build.counted
 def descend(rows: torch.Tensor, root_state: env.EnvState,
             root_visit: torch.Tensor, root_vsum: torch.Tensor,
             num_actions: int, c_puct: float, fpu_reduction: float = 0.0,
@@ -492,8 +446,8 @@ def descend(rows: torch.Tensor, root_state: env.EnvState,
         needs_alloc = torch.empty((B,), dtype=torch.bool, device=dev)
         leaf = env.EnvState(*(torch.empty_like(getattr(root_state, name))
                               for name, _ in _STATE_DTYPES))
-    rc = _lib().descend_f32(
-        rows.data_ptr(), M, RS * L, num_actions,
+    cuda_build.launch(
+        descend, LIB.descend_f32, rows.data_ptr(), M, RS * L, num_actions,
         *(getattr(root_state, name).data_ptr() for name, _ in _STATE_DTYPES),
         root_visit.data_ptr(), root_vsum.data_ptr(),
         c_puct, fpu_reduction, int(bool(fpu_reduction)), B, N,
@@ -501,18 +455,14 @@ def descend(rows: torch.Tensor, root_state: env.EnvState,
         needs_alloc.data_ptr(),
         *(getattr(leaf, name).data_ptr() for name, _ in _STATE_DTYPES),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_error(rc, "descend")
-    descend.launches += 1
     return leaf, needs_alloc, depth, path_nodes, path_actions, None
-
-
-descend.launches = 0
 
 
 # -----------------------------------------------------------------------------
 # encode_planes and expand: the simulation's glue around its evaluation
 # -----------------------------------------------------------------------------
 
+@cuda_build.counted
 def encode_planes(state: env.EnvState, out: torch.Tensor | None = None
                   ) -> torch.Tensor:
     """(B, 3, 8, 8) float32 network input planes of the B games of
@@ -533,16 +483,12 @@ def encode_planes(state: env.EnvState, out: torch.Tensor | None = None
     _check_tensors((("state.board", state.board, torch.int8, (B, 8, 8)),
                     ("state.turn", state.turn, torch.int8, (B,)),
                     ("out", out, torch.float32, (B, 3, 8, 8))), dev)
-    _check_card(dev)
-    rc = _lib().encode_planes_f32(
-        state.board.data_ptr(), state.turn.data_ptr(), out.data_ptr(), B,
+    cuda_build.check_device(dev)
+    cuda_build.launch(
+        encode_planes, LIB.encode_planes_f32, state.board.data_ptr(),
+        state.turn.data_ptr(), out.data_ptr(), B,
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_error(rc, "encode_planes")
-    encode_planes.launches += 1
     return out
-
-
-encode_planes.launches = 0
 
 
 def legal_mass(masked: torch.Tensor) -> torch.Tensor:
@@ -638,6 +584,7 @@ def _expand_plain(tree, leaf_state, needs_alloc, depth, path_nodes, policy,
     return value
 
 
+@cuda_build.counted
 def expand(tree, leaf_state: env.EnvState, needs_alloc: torch.Tensor,
            depth: torch.Tensor, path_nodes: torch.Tensor,
            policy: torch.Tensor, value: torch.Tensor, tree_reuse: bool,
@@ -696,11 +643,12 @@ def expand(tree, leaf_state: env.EnvState, needs_alloc: torch.Tensor,
         ("policy", policy, torch.float32, (B, A)),
         ("value", value, torch.float32, (B,)),
         ("depth_sum", depth_sum, torch.int64, ())), rows.device)
-    _check_card(rows.device)
+    cuda_build.check_device(rows.device)
     value_out = torch.empty((B,), dtype=torch.float32, device=rows.device)
-    rc = _lib().expand_f32(
-        rows.data_ptr(), tree.parents.data_ptr(), tree.root_visit.data_ptr(),
-        tree.root_vsum.data_ptr(), tree.node_count.data_ptr(),
+    cuda_build.launch(
+        expand, LIB.expand_f32, rows.data_ptr(), tree.parents.data_ptr(),
+        tree.root_visit.data_ptr(), tree.root_vsum.data_ptr(),
+        tree.node_count.data_ptr(),
         tree.next_slot.data_ptr(), leaf_state.board.data_ptr(),
         leaf_state.turn.data_ptr(), leaf_state.winner.data_ptr(),
         leaf_state.done.data_ptr(), needs_alloc.data_ptr(),
@@ -708,9 +656,4 @@ def expand(tree, leaf_state: env.EnvState, needs_alloc: torch.Tensor,
         value.data_ptr(), value_out.data_ptr(), depth_sum.data_ptr(),
         M, RS * L, B, M - 1, int(bool(tree_reuse)),
         torch.cuda.current_stream(rows.device).cuda_stream)
-    _raise_on_error(rc, "expand")
-    expand.launches += 1
     return value_out
-
-
-expand.launches = 0

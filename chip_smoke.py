@@ -387,7 +387,7 @@ def phase_kernels(dev):
     check(torch.equal(rows, lib_rows), "commit_edges differs from index_put_")
     del lib_rows
 
-    lib = K._lib()
+    lib = K.LIB
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def floor(i):
@@ -1027,13 +1027,8 @@ def is_library_conv(name):
         w in low for w in ("implicit_gemm", "fprop", "convolve"))
 
 
-# the port's hand-written kernels, and words of cuDNN's and cuBLAS's
-# kernels (the helpers and memsets of cuDNN's convs among them), by name
-HAND_KERNELS = ("descend_kernel", "commit_path_kernel", "commit_edges_kernel",
-                "fetch_rows_kernel", "encode_planes_kernel", "expand_kernel",
-                "conv3x3_kernel", "se_residual_kernel", "bn_act_kernel",
-                "qconv3x3_kernel", "tower_kernel", "smolgen_attention_kernel",
-                "deepnorm_ln_kernel")
+# words of cuDNN's and cuBLAS's kernels (the helpers and memsets of cuDNN's
+# convs among them), by name; the port's own are cuda_build.kernel_names()
 LIBRARY_WORDS = ("cudnn", "cublas", "nvjet", "cutlass", "gemm", "fprop",
                  "nhwcaddpadding", "memset")
 # phase 3: the bf16 captured profile's launches that are neither the port's
@@ -1047,10 +1042,13 @@ def launch_classes(kernel_calls, kernels_ms, sims):
     each: the port's hand kernels, the libraries' (cuDNN, cuBLAS), and the
     rest (PyTorch's own elementwise, reduction and copy kernels), with the
     rest's launches per simulation."""
+    from alphazero_torch.cuda_build import kernel_names
+
+    hand = kernel_names()
     out = {c: {"launches": 0, "ms": 0.0} for c in ("hand", "library", "rest")}
     for key, n in kernel_calls.items():
         low = key.lower()
-        c = ("hand" if any(k in key for k in HAND_KERNELS) else
+        c = ("hand" if any(k in key for k in hand) else
              "library" if any(w in low for w in LIBRARY_WORDS) else "rest")
         out[c]["launches"] += n
         out[c]["ms"] += kernels_ms[key]
@@ -1974,7 +1972,7 @@ def phase_epilogue(dev, net):
     check(bool(((lib_out - ker_out).abs()
                 <= 2.0 ** -6 * ker_out.abs() + 2.0 ** -12).all()),
           "F.batch_norm + F.relu does not compute bn_act's function")
-    lib = K._lib()
+    lib = K.LIB
     stream = torch.cuda.current_stream(dev).cuda_stream
     floor = {"floor_ms": cuda_ms(lambda i: lib.launch_floor(stream),
                                  what="launch floor"),
@@ -2017,7 +2015,7 @@ def phase_epilogue(dev, net):
     # both tails at the continuous self-play and trainer lanes' 128 boards
     # and at the web bot's one (bn2 at one board is timed above), beside
     # their bounds, with the launch shape each took
-    sms = epilogue.multiprocessors(dev)
+    sms = epilogue.LIB.multiprocessors(dev)
     se = out["se_residual"]
     se["shape"] = epilogue.se_launch_shape(GAMES, C, H, sms)
     for B in (128, 1):
@@ -2256,7 +2254,7 @@ def phase_conv(dev, net):
                           what=f"conv3x3 C {C}")
         t["bound_ms"] = conv_bound_ms(GAMES, C)[0]
         t["shape"] = conv.conv_launch_shape(GAMES, C,
-                                            conv.multiprocessors(dev))
+                                            conv.LIB.multiprocessors(dev))
         wide[C] = t
 
     # times at block 0's conv1 (affine and ReLU), at each of CONV_TIMED
@@ -2278,7 +2276,7 @@ def phase_conv(dev, net):
             "library_ms": (turns_b[1] + turns_b[2]) / 2,
             "bound_ms": conv_bound_ms(B, 128)[0],
             "shape": conv.conv_launch_shape(B, 128,
-                                            conv.multiprocessors(dev))}
+                                            conv.LIB.multiprocessors(dev))}
         print(f"conv3x3 at {B} boards, C 128, affine and ReLU, in turns "
               f"with cuDNN: {json.dumps(batches[B])}", flush=True)
     x1 = x[:1].contiguous()
@@ -2288,7 +2286,7 @@ def phase_conv(dev, net):
     library = lambda i: torch.nn.functional.conv2d(x_cl, w, padding=1)
     library1 = lambda i: torch.nn.functional.conv2d(x1_cl, w, padding=1)
     turns, turns1 = (batches[GAMES]["ms_turns"], batches[1]["ms_turns"])
-    lib = K._lib()
+    lib = K.LIB
     stream = torch.cuda.current_stream(dev).cuda_stream
     plain = lambda i: conv.conv3x3_plain(x, w, bn, True)
     t = {"ms": (turns[0] + turns[3]) / 2, "ms_turns": turns,
@@ -2312,7 +2310,7 @@ def phase_conv(dev, net):
              tflops=ops / t["ms"] / 1e9,
              b1_bound_ms=conv_bound_ms(1, 128)[0],
              shape=conv.conv_launch_shape(GAMES, 128,
-                                          conv.multiprocessors(dev)),
+                                          conv.LIB.multiprocessors(dev)),
              max_abs_err=total["max_abs_err"], unequal=total["unequal"],
              elements=total["elements"], share=total["share"],
              cudnn_share=total["cudnn_share"],
@@ -2978,7 +2976,7 @@ def phase_glue(dev, net):
           f"versions at {GLUE_BATCHES} games, bf16 and int8 leaves, tree "
           f"reuse off and on: {json.dumps(seen)}", flush=True)
 
-    lib = K._lib()
+    lib = K.LIB
     stream = torch.cuda.current_stream(dev).cuda_stream
     times = {"floor_ms": cuda_ms(lambda i: lib.launch_floor(stream),
                                  what="launch floor"),
@@ -3670,9 +3668,8 @@ def main(argv=None) -> int:
 
     card = device_line(dev)
     t0 = time.time()
-    libs = cuda_build.build(["tree_kernels", "tower_kernel", "qconv_kernel",
-                             "epilogue_kernels", "conv_kernels",
-                             "attention_kernels", "encoder_kernels"])
+    libs = cuda_build.build(sorted(p.stem
+                                   for p in cuda_build.CSRC.glob("*.cu")))
     build_s = time.time() - t0
     print(f"[phase 0] card: {card}; torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}); kernel build {build_s:.1f} s", flush=True)

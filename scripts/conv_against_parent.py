@@ -75,8 +75,8 @@ def main(argv) -> int:
     sms = ctypes.c_int(0)
     if old.conv3x3_init(ctypes.byref(sms)) != 0:
         sys.exit("conv_against_parent: the old conv3x3_init failed")
-    lib = conv._lib()
-    conv.multiprocessors(dev)
+    lib = conv.LIB
+    conv.LIB.multiprocessors(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     print(f"device: {device_line(dev)}", flush=True)
 

@@ -34,8 +34,8 @@ def main():
     from alphazero_torch.strength.common import device_line
 
     dev = torch.device("cuda")
-    lib = conv._lib()
-    sms = conv.multiprocessors(dev)
+    lib = conv.LIB
+    sms = conv.LIB.multiprocessors(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     print(f"device: {device_line(dev)}", flush=True)
     for C in (128, 256):

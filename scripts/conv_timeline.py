@@ -157,7 +157,7 @@ def main() -> int:
     sms = ctypes.c_int(0)
     if lib.conv3x3_init(ctypes.byref(sms)) != 0:
         sys.exit("conv_timeline: conv3x3_init failed")
-    conv.multiprocessors(dev)
+    conv.LIB.multiprocessors(dev)
     batches = [int(b) for b in sys.argv[1:]] or BATCHES
     out = [timeline(lib, B, sms.value, dev) for B in batches]
     print(json.dumps(out))

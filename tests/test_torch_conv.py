@@ -458,7 +458,7 @@ def test_cuda_conv3x3_refuses_what_the_kernel_does_not_take(cuda):
 def test_cuda_shared_memory_layout_is_the_kernels(cuda):
     """``conv_smem_bytes`` counts what the kernel's ``Smem`` takes, shape
     by shape, and the kernel has no shape that ``SHAPES`` lacks."""
-    lib = conv._lib()
+    lib = conv.LIB
     for C, shapes in conv.SHAPES.items():
         for np_, per in shapes:
             assert lib.conv3x3_smem_bytes(C, np_, per) == \
@@ -469,9 +469,10 @@ def test_cuda_shared_memory_layout_is_the_kernels(cuda):
 
 def _launch(x, image, bn, C, np_, per, epi=2):
     """One launch of the kernel in a shape of the caller's choosing."""
-    lib = conv._lib()
+    lib = conv.LIB
     B = x.shape[0]
-    s = conv.launch_in_shape(B, C, np_, per, conv.multiprocessors(x.device))
+    s = conv.launch_in_shape(B, C, np_, per,
+                             conv.LIB.multiprocessors(x.device))
     out = torch.empty_like(x)
     consts = (None,) * 3 if bn is None else tuple(t.data_ptr() for t in bn)
     rc = lib.conv3x3_bf16(x.data_ptr(), image.data_ptr(), *consts,

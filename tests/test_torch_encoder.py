@@ -21,6 +21,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from alphazero_torch import cuda_build
 from alphazero_torch.config import Config, tiny_encoder_config
 from alphazero_torch.env import breakthrough as env
 from alphazero_torch.models import (attention, encoder_epilogue,
@@ -131,8 +132,7 @@ def test_make_net_evaluator_takes_the_encoder_route_by_type():
     torch.testing.assert_close(p, torch.softmax(logits, -1))
     p32, v32 = mcts.make_net_evaluator(net)(planes)
     torch.testing.assert_close(p32, torch.softmax(net(planes)[0], -1))
-    assert "smolgen_attention" in graph._COUNTED[
-        "alphazero_torch.models.attention"]
+    assert attention.smolgen_attention in cuda_build.COUNTED
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -13,13 +13,13 @@ import torch.nn.functional as F
 
 torch.set_num_threads(1)
 
+from alphazero_torch import cuda_build
 from alphazero_torch.config import Config, tiny_encoder_config
 from alphazero_torch.env import breakthrough as env
 from alphazero_torch.models import encoder_epilogue as ee
 from alphazero_torch.models import encoder_inference
 from alphazero_torch.models.encoder import LN_EPS, deepnorm_alpha
 from alphazero_torch.models.network import build_network
-from alphazero_torch.search import graph
 
 ALPHA = deepnorm_alpha(15)
 
@@ -95,9 +95,7 @@ def test_deepnorm_ln_refuses_operands_that_do_not_fit(case, error, match):
 
 
 def test_deepnorm_ln_is_counted_on_replays():
-    assert "deepnorm_ln" in graph._COUNTED[
-        "alphazero_torch.models.encoder_epilogue"]
-    assert ee.deepnorm_ln in graph._counters()
+    assert ee.deepnorm_ln in cuda_build.COUNTED
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
