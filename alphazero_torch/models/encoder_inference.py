@@ -5,7 +5,8 @@ the layout ``apply`` reads: every dense matrix as (in, out) in the
 evaluator's dtype, the Q, K and V projections packed into one E x 3E
 matrix (and the attention policy's q and k into one), the input stage's
 position term ``W_emb[3:] + b_emb`` summed once in float32, and ``W_gen``
-as the (4096, G) matrix that ``attention.smolgen_attention`` reads.
+as the (4096, G) matrix that ``attention.smolgen_attention`` takes (on a
+card also packed once into the kernel's ``attention.wgen_image``).
 
 ``apply`` runs the forward on the (B*64, E) token rows, copying nothing
 from the host, so a search captures it as it captures the SE evaluator.
@@ -28,7 +29,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from alphazero_torch.models.attention import smolgen_attention
+from alphazero_torch.models.attention import smolgen_attention, wgen_image
 from alphazero_torch.models.encoder import LN_EPS, TOKENS, EncoderNet
 from alphazero_torch.models.encoder_epilogue import deepnorm_ln
 
@@ -61,13 +62,15 @@ def prepare(net: EncoderNet, dtype: torch.dtype = torch.bfloat16
         "ln1": ln(layer.ln1), "ffn1": dense(layer.ffn1),
         "ffn2": dense(layer.ffn2), "ln2": ln(layer.ln2),
     } for layer in net.layers]
+    wgen_t = cast(net.smolgen_gen.weight)
     return {
         "dtype": dtype, "heads": net.layers[0].heads, "alpha": net.alpha,
         "embed": cast(emb[:, :planes].T),
         "position": cast(emb[:, planes:].T + net.embed.bias.detach().float()),
         "gate_mult": cast(net.gate_mult), "gate_add": cast(net.gate_add),
         "layers": layers,
-        "wgen_t": cast(net.smolgen_gen.weight),
+        "wgen_t": wgen_t,
+        "wgen_image": wgen_image(wgen_t) if dev.type == "cuda" else None,
         "policy_embed": dense(net.policy_embed),
         "policy_qk": dense(net.policy_q, net.policy_k),
         "policy_index": net.policy_index.to(dev),
@@ -99,7 +102,8 @@ def apply(prep: Dict[str, Any], planes: torch.Tensor
         c = (x @ L["compress"]).view(B, -1)
         h = _ln(F.silu(_dense(c, L["sg1"])), L["sg_ln1"])
         s = _ln(F.silu(_dense(h, L["sg2"])), L["sg_ln2"]).view(B, H, -1)
-        a = smolgen_attention(_dense(x, L["qkv"]), s, prep["wgen_t"], H)
+        a = smolgen_attention(_dense(x, L["qkv"]), s, prep["wgen_t"], H,
+                              prep["wgen_image"])
         x = deepnorm_ln(_dense(a, L["o"]), x, prep["alpha"], *L["ln1"])
         f = _dense(F.mish(_dense(x, L["ffn1"])), L["ffn2"])
         x = deepnorm_ln(f, x, prep["alpha"], *L["ln2"])

@@ -94,9 +94,12 @@ launches of the replays.
 - phase 19 (``smolgen``): the encoder body's attention kernel
   (``smolgen_attention``, ``csrc/attention_kernels.cu``) at BT4's widths
   against its plain version, within the tolerance of its ``gpu`` test, on
-  random operands at 1, 32 and 512 boards and on the first layer's
-  operands of a seeded BT4 net at 512 boards; its times at 512 boards
-  beside its bound and its plain version; the same for the fused DeepNorm
+  random operands at 1, 3, 32, 129 and 512 boards (3 and 129 leave a
+  cluster's second board missing) and on the first layer's operands of a
+  seeded BT4 net at 512 boards; its times at 512 boards beside its bound
+  and its plain version, at 32 boards and one beside theirs (no slower than
+  the design it replaced), and each half alone at 512 (builds with
+  ``-DSMOLGEN_HALF``); the same for the fused DeepNorm
   residual and LayerNorm (``deepnorm_ln``, ``csrc/encoder_kernels.cu``)
   within ``encoder_epilogue.card_check``, on both sites of the seeded
   net's first layer, its times in turns with ``torch.add`` and
@@ -3020,6 +3023,10 @@ def phase_glue(dev, net):
 
 BT4_SIMS = 400                     # the BT4 cell's simulations a move
 SMOLGEN_BATCHES = (1, 32, GAMES)
+SMOLGEN_RAGGED = (3, 129)          # a cluster's second board missing
+# the mma.sync design that the kernel replaced, at one board and at 32
+# (PERF.md section 6): the kernel may be no slower, within 5%
+SMOLGEN_REPLACED_MS = {1: 0.0710, 32: 0.0712}
 
 
 def smolgen_bound_ms(B, H=32, D=32, G=256):
@@ -3034,6 +3041,37 @@ def smolgen_bound_ms(B, H=32, D=32, G=256):
     by_ops = ops / BF16_FLOPS * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations"), ops, nbytes
+
+
+def smolgen_half_ms(half, qkv, s, image, B, H=32, D=32, G=256):
+    """Device time of one half of ``smolgen_attention`` alone at B boards:
+    ``csrc/attention_kernels.cu`` built with ``-DSMOLGEN_HALF=1`` (the bias
+    product and its exchange, no attention) or ``=2`` (the attention on an
+    unset bias, no bias product) into ``build/smolgen_half/``."""
+    import ctypes
+
+    from alphazero_torch.cuda_build import CSRC, NVCC_FLAGS, _nvcc
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smolgen_half")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, f"libsmolgen_half{half}.so")
+    subprocess.run([_nvcc(), *NVCC_FLAGS, f"-DSMOLGEN_HALF={half}", "-o",
+                    lib, str(CSRC / "attention_kernels.cu")], check=True,
+                   capture_output=True)
+    entry = ctypes.CDLL(lib).smolgen_attention_bf16
+    entry.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    out = torch.empty(B * 64, H * D, dtype=torch.bfloat16,
+                      device=qkv.device)
+
+    def launch(i):
+        rc = entry(qkv.data_ptr(), s.data_ptr(), image.data_ptr(),
+                   out.data_ptr(), B, H, D, G,
+                   torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"smolgen half {half}: CUDA error {rc}")
+
+    return cuda_ms(launch, iters=20, warmup=3)
 
 
 def deepnorm_bound_ms(rows, E=1024):
@@ -3088,7 +3126,7 @@ def phase_smolgen(dev, card):
     out = {"checks": {}}
     g = torch.Generator(device=dev).manual_seed(19)
     operands = {}
-    for B in SMOLGEN_BATCHES:
+    for B in SMOLGEN_BATCHES + SMOLGEN_RAGGED:
         qkv = torch.randn(B * 64, 3 * H * D, generator=g,
                           device=dev).bfloat16()
         s = torch.randn(B, H, G, generator=g, device=dev).bfloat16()
@@ -3173,11 +3211,14 @@ def phase_smolgen(dev, card):
 
     # times at the main path's 512 boards, on the first layer's operands;
     # the plain version's some 15 launches a call: ten calls queue
+    # (W_gen packed once, as encoder_inference.prepare packs it)
     qkv, s, wgen_t = operands[f"bt4_layer0_{GAMES}"]
+    image = prep["wgen_image"]
     bound, bound_by, ops, nbytes = smolgen_bound_ms(GAMES, H, D, G)
-    t = {"ms": cuda_ms(lambda i: fn(qkv, s, wgen_t, H), iters=20, warmup=3),
-         "call_ms": cuda_ms(lambda i: fn(qkv, s, wgen_t, H), iters=20,
-                            warmup=3, queued=False),
+    t = {"ms": cuda_ms(lambda i: fn(qkv, s, wgen_t, H, image), iters=20,
+                       warmup=3),
+         "call_ms": cuda_ms(lambda i: fn(qkv, s, wgen_t, H, image),
+                            iters=20, warmup=3, queued=False),
          "plain_ms": cuda_ms(lambda i: attention.smolgen_attention_plain(
              qkv, s, wgen_t, H), iters=10, warmup=2, sleep_ms=200,
              what="smolgen_attention_plain"),
@@ -3185,14 +3226,25 @@ def phase_smolgen(dev, card):
              qkv, s, wgen_t, H), iters=10, warmup=2, queued=False),
          "bound_ms": bound, "bound_by": bound_by}
     t["roofline_pct"] = 100 * bound / t["ms"]
-    t["by_batch_ms"] = {B: cuda_ms(lambda i: fn(*operands[f"random_{B}"], H),
-                                   iters=20, warmup=3)
-                        for B in SMOLGEN_BATCHES}
+    t["by_batch_ms"] = {}
+    for B in SMOLGEN_BATCHES:
+        ob = operands[f"random_{B}"]
+        ib = attention.wgen_image(ob[2])
+        t["by_batch_ms"][B] = cuda_ms(lambda i: fn(*ob, H, ib), iters=20,
+                                      warmup=3)
+    t["by_batch_bound_ms"] = {B: smolgen_bound_ms(B, H, D, G)[0]
+                              for B in SMOLGEN_BATCHES}
+    t["half_ms"] = {"bias": smolgen_half_ms(1, qkv, s, image, GAMES),
+                    "attention": smolgen_half_ms(2, qkv, s, image, GAMES)}
+    for B, was in SMOLGEN_REPLACED_MS.items():
+        check(t["by_batch_ms"][B] <= 1.05 * was,
+              f"smolgen_attention at {B} boards: {t['by_batch_ms'][B]:.4f} "
+              f"ms, slower than the replaced design's {was} ms")
     out["times"] = t
     print(f"smolgen_attention at {GAMES} boards: {json.dumps(t)}; bound "
           f"{bound:.4f} ms by {bound_by} ({ops:.4g} operations, "
           f"{nbytes:.4g} bytes)", flush=True)
-    del operands, qkv, s, wgen_t
+    del operands, qkv, s, wgen_t, image, ob, ib
 
     # deepnorm_ln at 512 boards on the first layer's ln1 operands, in turns
     # with its plain version (torch.add then F.layer_norm, which is also

@@ -157,6 +157,57 @@ def test_smolgen_attention_plain_against_the_reference_attention(dtype):
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
 
 
+def _wgen_from_image(image, gen):
+    """The (4096, ``gen``) matrix that ``attention.wgen_image`` packed: the
+    packing's index map read backwards."""
+    pb, kt = image.shape[:2]
+    n = torch.arange(128)
+    src = torch.arange(8)[None, :] ^ (n[:, None] % 8)
+    w = image.reshape(pb, kt, 128, 8, 8)
+    w = w.gather(-2, src[..., None].expand(w.shape)).transpose(1, 2)
+    w = w.reshape(pb * 128, kt * 64)
+    out = torch.empty_like(w)
+    out[:, attention.k_order(kt * 64)] = w
+    return out[:, :gen]
+
+
+@pytest.mark.parametrize("gen", [256, 32])
+def test_the_wgen_image_reads_back_through_its_inverse(gen):
+    """``wgen_image`` at BT4's smolgen width and at
+    ``tiny_encoder_config``'s (padded to one 64-wide k-tile): its inverse
+    gives the (4096, G) matrix back, and each value lies where the
+    kernel's descriptor reads it: k in ``k_order`` (place 16 h + 8 u + 2 t
+    + e of each 32 holds k 8 t + 4 h + 2 u + e), then tile (position // 128,
+    place // 64), row position % 128, 16-byte piece (place % 64 // 8) ^
+    (position % 8)."""
+    order = attention.k_order(64)
+    assert sorted(order.tolist()) == list(range(64))
+    assert order[:8].tolist() == [0, 1, 8, 9, 16, 17, 24, 25]
+    assert order[8:16].tolist() == [2, 3, 10, 11, 18, 19, 26, 27]
+    assert order[16:18].tolist() == [4, 5] and order[24:26].tolist() == [6, 7]
+    g = torch.Generator().manual_seed(gen)
+    w = torch.randn(4096, gen, generator=g).bfloat16()
+    image = attention.wgen_image(w)
+    assert image.shape == (32, -(-gen // 64), 128, 64) \
+        and image.is_contiguous()
+    assert torch.equal(_wgen_from_image(image, gen), w)
+    p = torch.arange(4096)[:, None]
+    place = torch.arange(-(-gen // 64) * 64)[None, :]
+    at = image[p // 128, place // 64, p % 128,
+               ((place % 64 // 8) ^ (p % 8)) * 8 + place % 8]
+    k = attention.k_order(place.shape[1])
+    padded = torch.nn.functional.pad(w, (0, place.shape[1] - gen))
+    assert torch.equal(at, padded[:, k])
+    # the padding of k past G is zeros
+    assert torch.count_nonzero(image) == torch.count_nonzero(w)
+
+
+def test_prepare_packs_the_wgen_image_only_on_a_card():
+    prep = encoder_inference.prepare(_net(), torch.bfloat16)
+    assert prep["wgen_image"] is None
+    assert prep["wgen_t"].shape == (4096, tiny_encoder_config().smolgen_gen)
+
+
 def test_smolgen_attention_refuses_operands_that_do_not_fit():
     qkv = torch.zeros(64, 3 * 64)
     with pytest.raises(ValueError, match="do not fit"):
@@ -273,15 +324,17 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("boards", [1, 32, 512])
+@pytest.mark.parametrize("boards", [1, 3, 32, 129, 512])
 def test_cuda_smolgen_attention_against_its_plain_version(cuda, boards):
     """The kernel against the plain version on the same bf16 operands at
-    BT4's widths. The two take float32 sums in other orders and exp2
+    BT4's widths (3 and 129 boards leave the last cluster's second board
+    missing). The two take float32 sums in other orders and exp2
     against exp, so a numerator may round to the neighbouring bf16 value
     (2^-8 of it) in one and not the other: an output may differ by that
     share of the attention's sum of |V| (the plain version with V's
     magnitudes), twice over, and by two steps of its own rounding; at most
-    2% of the outputs unequal."""
+    2% of the outputs unequal. A second launch gives the same bits, and a
+    launch on the prepacked ``wgen_image`` the same again."""
     g = torch.Generator(device=cuda).manual_seed(boards)
     H, D, G = 32, 32, 256
     qkv = torch.randn(boards * 64, 3 * H * D, generator=g,
@@ -302,6 +355,10 @@ def test_cuda_smolgen_attention_against_its_plain_version(cuda, boards):
     far = (got.float() - want.float()).abs() > 2 * step + 2 ** -7 * terms
     assert not bool(far.any()), int(far.sum())
     assert float((got != want).float().mean()) < 0.02
+    image = attention.wgen_image(wgen_t)
+    assert torch.equal(attention.smolgen_attention(qkv, s, wgen_t, H), got)
+    assert torch.equal(attention.smolgen_attention(qkv, s, wgen_t, H, image),
+                       got)
 
 
 @pytest.mark.gpu
