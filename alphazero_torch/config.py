@@ -21,8 +21,10 @@ class Config:
 
     # --- Model ---
     # "se_resnet" (the SE-ResNet of models/network.py, sized by the three
-    # fields below) or "encoder" (Leela Chess Zero's BT4 attention body,
-    # models/encoder.py, sized by the enc_* and smolgen_* fields)
+    # fields below), "encoder" (Leela Chess Zero's BT4 attention body,
+    # models/encoder.py, sized by the enc_* and smolgen_* fields) or "nbt"
+    # (KataGo's nested-bottleneck residual net, models/nbt.py, sized by the
+    # nbt_* fields)
     body: str = "se_resnet"
     num_blocks: int = 20
     num_filters: int = 128
@@ -40,6 +42,19 @@ class Config:
     smolgen_hidden: int = 256
     smolgen_gen: int = 256
     enc_policy_embed: int = 1024
+    # the nested-bottleneck body at KataGo b28c512nbt's widths: 28 blocks on
+    # a trunk of 512, each a 1x1 conv down to 256, two inner 3x3 residual
+    # blocks and a 1x1 conv back up; every third block (3, 6, ..., 27)
+    # pools 64 channels of its first inner block over the board into a
+    # bias of the other 192; policy and value heads 64 wide, the value's
+    # hidden layer 128. On a CUDA card nbt_mid is a conv3x3 width
+    # (build_network)
+    nbt_blocks: int = 28
+    nbt_trunk: int = 512
+    nbt_mid: int = 256
+    nbt_gpool: int = 64
+    nbt_head: int = 64
+    nbt_value_hidden: int = 128
 
     # --- MCTS ---
     num_simulations: int = 400
@@ -97,9 +112,9 @@ class Config:
     def arch(self) -> dict:
         """The fields a checkpoint records, so that its net can be built
         from it alone (``with_arch``): the SE-ResNet's three sizes, or the
-        encoder body's."""
-        names = (ENCODER_ARCH if self.body == "encoder"
-                 else ("num_blocks", "num_filters", "se_ratio"))
+        encoder body's or the nested-bottleneck body's."""
+        names = {"encoder": ENCODER_ARCH, "nbt": NBT_ARCH}.get(
+            self.body, ("num_blocks", "num_filters", "se_ratio"))
         return {k: getattr(self, k) for k in names}
 
     def with_arch(self, arch: dict) -> "Config":
@@ -108,7 +123,7 @@ class Config:
         arch = {"body": "se_resnet", **arch}
         return self.replace(**{k: arch[k] for k in
                                ("num_blocks", "num_filters", "se_ratio",
-                                *ENCODER_ARCH) if k in arch})
+                                *ENCODER_ARCH, *NBT_ARCH) if k in arch})
 
     def checkpoint_path(self, filename: str) -> str:
         return os.path.join(self.checkpoint_dir, filename)
@@ -120,6 +135,8 @@ class Config:
 ENCODER_ARCH = ("body", "enc_layers", "enc_embed", "enc_heads", "enc_ffn",
                 "smolgen_compress", "smolgen_hidden", "smolgen_gen",
                 "enc_policy_embed")
+NBT_ARCH = ("body", "nbt_blocks", "nbt_trunk", "nbt_mid", "nbt_gpool",
+            "nbt_head", "nbt_value_hidden")
 
 
 def tiny_config(**kw) -> Config:
@@ -136,5 +153,15 @@ def tiny_encoder_config(**kw) -> Config:
     base = dict(body="encoder", enc_layers=2, enc_embed=64, enc_heads=4,
                 enc_ffn=96, smolgen_compress=8, smolgen_hidden=32,
                 smolgen_gen=32, enc_policy_embed=64)
+    base.update(kw)
+    return tiny_config(**base)
+
+
+def tiny_nbt_config(**kw) -> Config:
+    """``tiny_config`` with a small nested-bottleneck body for tests: 3
+    blocks on a trunk of 32, mid 16, the third block pooling 8 channels,
+    heads of 8 and a value hidden layer of 16."""
+    base = dict(body="nbt", nbt_blocks=3, nbt_trunk=32, nbt_mid=16,
+                nbt_gpool=8, nbt_head=8, nbt_value_hidden=16)
     base.update(kw)
     return tiny_config(**base)

@@ -23,12 +23,14 @@ from alphazero_torch.config import Config
 def add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--body", default=None,
-                   choices=["se_resnet", "encoder"],
-                   help="the net: the SE-ResNet, or Leela Chess Zero's BT4 "
-                        "attention body (by default at its published "
+                   choices=["se_resnet", "encoder", "nbt"],
+                   help="the net: the SE-ResNet, Leela Chess Zero's BT4 "
+                        "attention body or KataGo's nested-bottleneck "
+                        "body (the last two by default at their published "
                         "widths)")
     p.add_argument("--blocks", type=int, default=None,
-                   help="residual blocks, or the encoder's layers")
+                   help="residual blocks, the encoder's layers or the "
+                        "nested-bottleneck body's blocks")
     p.add_argument("--filters", type=int, default=None,
                    help="the SE-ResNet's filters")
     p.add_argument("--sims", type=int, default=None)
@@ -66,13 +68,13 @@ def build_config(args) -> Config:
     over = {}
     if args.body is not None:
         over["body"] = args.body
-    encoder = args.body == "encoder"
     if args.blocks is not None:
-        over["enc_layers" if encoder else "num_blocks"] = args.blocks
+        over[{"encoder": "enc_layers", "nbt": "nbt_blocks"}.get(
+            args.body, "num_blocks")] = args.blocks
     if args.filters is not None:
-        if encoder:
-            raise SystemExit("--filters sizes the SE-ResNet; the encoder "
-                             "body takes BT4's widths")
+        if args.body in ("encoder", "nbt"):
+            raise SystemExit(f"--filters sizes the SE-ResNet; the "
+                             f"{args.body} body takes its published widths")
         over["num_filters"] = args.filters
     if args.sims is not None:
         over["num_simulations"] = args.sims

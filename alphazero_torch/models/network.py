@@ -189,17 +189,26 @@ class AlphaZeroNet(nn.Module):
 def build_network(cfg: Config, device="cuda",
                   generator: torch.Generator | None = None) -> nn.Module:
     """A randomly initialised net of ``cfg.body`` in eval mode on
-    ``device``: the SE-ResNet (``AlphaZeroNet``) or the encoder body
-    (``models/encoder.py:EncoderNet``).
+    ``device``: the SE-ResNet (``AlphaZeroNet``), the encoder body
+    (``models/encoder.py:EncoderNet``) or the nested-bottleneck body
+    (``models/nbt.py:NbtNet``).
 
     Weights are drawn on the CPU from ``generator`` (the modules' own
     initialisers, run under a seeded RNG fork) and then moved, so a seed
     gives the same net on every device.
     """
-    if cfg.body not in ("se_resnet", "encoder"):
-        raise ValueError(f"body={cfg.body!r}: expected 'se_resnet' or "
-                         "'encoder'")
+    if cfg.body not in ("se_resnet", "encoder", "nbt"):
+        raise ValueError(f"body={cfg.body!r}: expected 'se_resnet', "
+                         "'encoder' or 'nbt'")
     dev = resolve_device(device)
+    if cfg.body == "nbt" and dev.type == "cuda":
+        from alphazero_torch.models import conv
+
+        if cfg.nbt_mid not in conv.CHANNELS:
+            raise ValueError(
+                f"on a CUDA card the nbt body's mid width is one that "
+                f"conv3x3 is compiled for, {conv.CHANNELS}, got "
+                f"{cfg.nbt_mid}")
     if cfg.body == "encoder" and dev.type == "cuda":
         from alphazero_torch.models import attention as att
 
@@ -220,6 +229,10 @@ def build_network(cfg: Config, device="cuda",
             from alphazero_torch.models.encoder import encoder_from_config
 
             net = encoder_from_config(cfg)
+        elif cfg.body == "nbt":
+            from alphazero_torch.models.nbt import nbt_from_config
+
+            net = nbt_from_config(cfg)
         else:
             net = AlphaZeroNet(cfg.num_blocks, cfg.num_filters,
                                cfg.se_ratio, cfg.num_actions,

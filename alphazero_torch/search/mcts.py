@@ -56,8 +56,9 @@ from torch.profiler import record_function
 
 from alphazero_torch import tracing
 from alphazero_torch.env import breakthrough as env
-from alphazero_torch.models import encoder_inference, inference
+from alphazero_torch.models import encoder_inference, inference, nbt_inference
 from alphazero_torch.models.encoder import EncoderNet
+from alphazero_torch.models.nbt import NbtNet
 from alphazero_torch.models.network import policy_value_apply, wl_to_value
 from alphazero_torch.search import kernels
 
@@ -662,8 +663,9 @@ def make_net_evaluator(net, dtype=torch.float32) -> Evaluator:
     batches of ``inference.B_MIN`` or more the tower as one fused kernel
     (``inference.fused_tower``). It copies nothing from the host per
     call, so a search can capture it. An ``EncoderNet`` (the encoder
-    body) takes its own route in any dtype but float32,
-    ``models/encoder_inference.py``, chosen here once by the net's type.
+    body) and an ``NbtNet`` (the nested-bottleneck body) take their own
+    routes in any dtype but float32, ``models/encoder_inference.py`` and
+    ``models/nbt_inference.py``, chosen here once by the net's type.
     """
     if dtype == torch.float32:
         net.eval()
@@ -676,6 +678,9 @@ def make_net_evaluator(net, dtype=torch.float32) -> Evaluator:
     if isinstance(net, EncoderNet):
         prep = encoder_inference.prepare(net, dtype)
         apply = encoder_inference.apply
+    elif isinstance(net, NbtNet):
+        prep = nbt_inference.prepare(net, dtype)
+        apply = nbt_inference.apply
     else:
         prep = inference.prepare_inference(net, dtype)
         apply = inference.inference_apply

@@ -71,10 +71,10 @@ class Trainer:
         if cfg.selfplay_quant not in ("off", "dynamic", "static"):
             raise ValueError(f"selfplay_quant={cfg.selfplay_quant!r}: "
                              "expected 'off', 'dynamic' or 'static'")
-        if cfg.body == "encoder" and cfg.selfplay_quant != "off":
+        if cfg.body != "se_resnet" and cfg.selfplay_quant != "off":
             raise ValueError(f"selfplay_quant={cfg.selfplay_quant!r}: the "
-                             "int8 evaluator is the SE-ResNet's; the "
-                             "encoder body searches in "
+                             f"int8 evaluator is the SE-ResNet's; the "
+                             f"{cfg.body} body searches in "
                              f"{cfg.inference_dtype}")
         self.cfg = cfg
         self.mesh = mesh

@@ -108,6 +108,17 @@ launches of the replays.
   kernels' launches counted (15 and 30 a forward, no capture, no host
   read), and a profile of the captured search for both kernels' device
   time inside the replays;
+- phase 20 (``nbt``): the nested-bottleneck body (KataGo's b28c512nbt,
+  its norms set to one batch's statistics) at every site shape of a
+  512-board forward: ``residual_act`` (C 256 and 512) and ``bn_act`` (C
+  512, 256 and 64) bit-equal to their plain versions, ``gpool_bias`` (R
+  192 | G 64 of 256, and the policy head's 64 | 64 of 128) within
+  ``nbt_epilogue.gpool_card_check``, each timed in turns with its plain
+  version beside its bound; a captured self-play move at 512 games x 400
+  simulations with the launch counters zeroed just before it (84
+  ``residual_act``, 10 ``gpool_bias``, 30 ``bn_act`` and 112 ``conv3x3``
+  a forward, no capture, no host read), and a profile of the captured
+  search for both kernels' device time inside the replays;
 - phase 5: continuous self-play (128 lanes x 16 simulations);
 - phase 7: the fused path at full width (512 positions, 800 evaluations
   in a row) beside the layer-by-layer bf16 net;
@@ -3346,6 +3357,234 @@ def phase_smolgen(dev, card):
 
 
 # -----------------------------------------------------------------------------
+# Phase 20: the nested-bottleneck body's kernels and its captured move
+# -----------------------------------------------------------------------------
+
+NBT_SIMS = 400                     # the nbt cell's simulations a move
+
+
+def nbt_bound_ms(kind, B, C, G=0, cout=0):
+    """The least time the card could take for one launch at B boards:
+    ``residual_act`` of C channels (y and the residual read, the sum and
+    the norm-act written, bf16; four float32 operations an element),
+    ``gpool_bias`` of C regular and G pooled channels into ``cout`` (the
+    R + G channels read and ``cout`` written, bf16, the float32 matrix and
+    norms once; the pool's norm, ReLU and sums, the (3G, R) product and
+    the regular channels' add, norm and ReLU as float32 operations) or
+    ``bn_act`` (``epilogue_bound_ms``): its bytes at the memory rate or its
+    operations at the rate outside the tensor cores, whichever is
+    larger."""
+    if kind == "bn_act":
+        return epilogue_bound_ms("bn_act", B, C)
+    n = B * 64
+    if kind == "residual_act":
+        nbytes, ops = 4 * n * C * 2 + 3 * C * 4, 4 * n * C
+    else:
+        nbytes = (n * (C + G + cout) * 2
+                  + (3 * G * C + 3 * (G + C)) * 4)
+        ops = B * (4 * 64 * G + 2 * 3 * G * C + 4 * 64 * C)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations"), nbytes, ops
+
+
+def nbt_sites(prep, planes):
+    """The operands of each distinct site of ``nbt_inference.apply`` on
+    ``planes``: the first call of ``residual_act``, ``gpool_bias`` and
+    ``bn_act`` at each shape, under ``(kind, shape)``."""
+    from alphazero_torch.models import nbt_inference as ni
+
+    sites, saved = {}, {}
+
+    def recorder(kind, fn):
+        def record(*args):
+            key = f"{kind}_{args[0].shape[-1]}"
+            if kind == "gpool_bias":
+                key += f"_R{args[4]}"
+            sites.setdefault(key, (kind, args))
+            return fn(*args)
+        return record
+
+    for kind in ("residual_act", "gpool_bias", "bn_act"):
+        saved[kind] = getattr(ni, kind)
+        setattr(ni, kind, recorder(kind, saved[kind]))
+    try:
+        ni.apply(prep, planes)
+    finally:
+        for kind, fn in saved.items():
+            setattr(ni, kind, fn)
+    torch.cuda.synchronize()
+    return sites
+
+
+@phase("phase 20 nbt")
+def phase_nbt(dev, card):
+    """The nested-bottleneck body at b28c512nbt's widths, its norms set to
+    the statistics of 512 random-play positions: ``residual_act``,
+    ``gpool_bias`` and ``bn_act`` at every site shape of a 512-board
+    forward against their plain versions (bit-equal; ``gpool_bias``
+    within ``gpool_card_check``) and timed beside their bounds and plain
+    versions; then a captured 512 x 400 self-play move with the launch
+    counters zeroed just before it (84 ``residual_act``, 10 ``gpool_bias``,
+    30 ``bn_act`` and 112 ``conv3x3`` a forward, no capture, no host read)
+    and a profile of the captured search for the two kernels' device time
+    inside the replays."""
+    from alphazero_torch.config import Config
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import conv, epilogue
+    from alphazero_torch.models import nbt_epilogue as ne
+    from alphazero_torch.models import nbt_inference as ni
+    from alphazero_torch.models.nbt import INNER, is_gpool_block
+    from alphazero_torch.models.network import BatchNorm2d, build_network
+    from alphazero_torch.search import graph, mcts
+    from alphazero_torch.train import selfplay
+
+    cfg = Config(body="nbt", num_simulations=NBT_SIMS, parallel_games=GAMES)
+    net = build_network(cfg, dev, torch.Generator().manual_seed(20))
+    planes = env.encoded_state(random_positions(GAMES, 20)).to(dev)
+    # the norms' running statistics := one float32 batch's, as trained
+    # BatchNorms would hold them (an uncalibrated 28-block trunk grows)
+    norms = [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.momentum = 1.0
+    net.train()
+    with torch.no_grad():
+        net(planes)
+    net.eval()
+    for m in norms:
+        m.momentum = 0.01
+    prep = ni.prepare(net)
+    sites = nbt_sites(prep, planes)
+    out = {"checks": {}, "times": {}}
+    for key, (kind, args) in sites.items():
+        before = getattr(ne if kind != "bn_act" else epilogue, kind).launches
+        if kind == "residual_act":
+            got, want = ne.residual_act(*args), ne.residual_act_plain(*args)
+            r = {"far": int(sum((g != w).sum() for g, w in zip(got, want))),
+                 "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                                    for g, w in zip(got, want))}
+            r["ok"] = r["far"] == 0
+        elif kind == "bn_act":
+            got = epilogue.bn_act(*args)
+            want = epilogue.bn_act_plain(*args)
+            r = {"far": int((got != want).sum()),
+                 "max_abs_err": float((got.float() - want.float()).abs()
+                                      .max())}
+            r["ok"] = r["far"] == 0
+        else:
+            got = ne.gpool_bias(*args)
+            r = ne.gpool_card_check(*args, got)
+        torch.cuda.synchronize()
+        after = getattr(ne if kind != "bn_act" else epilogue, kind).launches
+        check(after == before + 1, f"{key}: launches not counted")
+        out["checks"][key] = r
+        check(r["ok"], f"{kind} against its plain version at {key}: {r}")
+    check(len([k for k in sites if k.startswith("residual_act")]) == 2
+          and len([k for k in sites if k.startswith("gpool_bias")]) == 2
+          and len([k for k in sites if k.startswith("bn_act")]) == 3,
+          f"the forward's sites: {sorted(sites)}")
+    print("nbt kernels against their plain versions at every site of a "
+          f"{GAMES}-board forward " + json.dumps(out["checks"]), flush=True)
+
+    # times at every site, the kernel and its plain version in turns
+    for key, (kind, args) in sites.items():
+        if kind == "residual_act":
+            kern = lambda i, a=args: ne.residual_act(*a)
+            plain = lambda i, a=args: ne.residual_act_plain(*a)
+            bound = nbt_bound_ms(kind, GAMES, args[0].shape[1])
+        elif kind == "bn_act":
+            kern = lambda i, a=args: epilogue.bn_act(*a)
+            plain = lambda i, a=args: epilogue.bn_act_plain(*a)
+            bound = nbt_bound_ms(kind, GAMES, args[0].shape[3])
+        else:
+            kern = lambda i, a=args: ne.gpool_bias(*a)
+            plain = lambda i, a=args: ne.gpool_bias_plain(*a)
+            bound = nbt_bound_ms(kind, GAMES, args[4], args[2].shape[0] // 3,
+                                 args[5])
+        turns = [cuda_ms(f, iters=20, warmup=3, sleep_ms=200, what=w)
+                 for f, w in ((kern, kind), (plain, "plain"),
+                              (kern, kind), (plain, "plain"))]
+        t = {"ms": (turns[0] + turns[2]) / 2,
+             "plain_ms": (turns[1] + turns[3]) / 2, "turns_ms": turns,
+             "call_ms": cuda_ms(kern, iters=20, warmup=3, queued=False),
+             "bound_ms": bound[0], "bound_by": bound[1], "bytes": bound[2],
+             "ops": bound[3]}
+        t["roofline_pct"] = 100 * t["bound_ms"] / t["ms"]
+        out["times"][key] = t
+    print(f"nbt kernels at {GAMES} boards: " + json.dumps(out["times"]),
+          flush=True)
+    del sites
+    torch.cuda.empty_cache()
+
+    # the main path: a warm-up move captures the simulation, then one
+    # counted move of NBT_SIMS replays through selfplay_move
+    eval_fn = mcts.make_net_evaluator(net, torch.bfloat16)
+    spec = selfplay.search_spec(cfg)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    states = env.initial_state((GAMES,), device=dev)
+    tree = mcts.init_tree(states, spec)
+    graph.STATS.reset()
+    tree, _, _, _, states = selfplay._searched_move(
+        states, tree, gen, eval_fn, spec, cfg.temperature_threshold)
+    torch.cuda.synchronize()
+    check(graph.STATS.captures == 1,
+          f"the first nbt move made {graph.STATS.captures} captures")
+    counted = {"residual_act": ne.residual_act, "gpool_bias": ne.gpool_bias,
+               "bn_act": epilogue.bn_act, "conv3x3": conv.conv3x3}
+    graph.STATS.reset()
+    mcts.STATS.reset()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.time()
+    states, _, probs, _, values = selfplay.selfplay_move(
+        states, gen, eval_fn, spec, cfg.temperature_threshold, tree)
+    torch.cuda.synchronize()
+    move_s = time.time() - t0
+    got = {k: fn.launches for k, fn in counted.items()}
+    forwards = NBT_SIMS + 1               # the root's and one a simulation
+    blocks = cfg.nbt_blocks
+    pooled = sum(is_gpool_block(b) for b in range(blocks))
+    per_forward = {"residual_act": (INNER + 1) * blocks,
+                   "gpool_bias": pooled + 1, "bn_act": 1 + blocks + 1,
+                   "conv3x3": 2 * INNER * blocks}
+    check(all(got[k] == n * forwards for k, n in per_forward.items())
+          and graph.STATS.captures == 0
+          and graph.STATS.replays == NBT_SIMS
+          and mcts.STATS.host_syncs == 0,
+          f"a captured nbt move of {NBT_SIMS} simulations: launches {got} "
+          f"(want {per_forward} a forward, {forwards} forwards), "
+          f"{graph.STATS.captures} captures, {graph.STATS.replays} replays, "
+          f"{mcts.STATS.host_syncs} host syncs")
+    check(bool(((probs.sum(-1) - 1).abs() < 1e-5).all())
+          and bool(torch.isfinite(values).all()), "nbt move's outputs")
+    out["move"] = {"games": GAMES, "sims": NBT_SIMS, "move_s": move_s,
+                   "launches": got,
+                   "per_forward": {k: v / forwards for k, v in got.items()},
+                   "sims_per_s": GAMES * NBT_SIMS / move_s}
+    # the kernels inside the replays: a short captured search profiled
+    prof = profile_search(states, eval_fn, tag=f"nbt_{GAMES}_captured")
+    out["in_graph"] = {}
+    for kind in ("residual_act", "gpool_bias"):
+        name = next((k for k in prof["kernel_calls"]
+                     if f"{kind}_kernel" in k), None)
+        check(name is not None, f"no {kind}_kernel in the profile")
+        n = prof["kernel_calls"][name]
+        check(n == per_forward[kind] * (PROFILE_SIMS + 1),
+              f"profile: {n} {kind}_kernel launches in {PROFILE_SIMS + 1} "
+              "forwards")
+        out["in_graph"][kind] = {"launches": n,
+                                 "device_ms": prof["kernels_ms"][name],
+                                 "ms_per_launch": prof["kernels_ms"][name] / n}
+    out["card"] = card
+    print("nbt main path " + json.dumps(out["move"]) + "; in the replays "
+          + json.dumps(out["in_graph"]), flush=True)
+    del eval_fn, net, prep, tree
+    torch.cuda.empty_cache()
+    return out
+
+
+# -----------------------------------------------------------------------------
 # Phase 14: the distributed trainer (worker processes)
 # -----------------------------------------------------------------------------
 
@@ -3697,7 +3936,7 @@ def phase_distributed(card, single_step_ms):
 
 def main(argv=None) -> int:
     """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
-    kernels, tower, epilogue, conv, search, cpu, graph, glue, smolgen,
+    kernels, tower, epilogue, conv, search, cpu, graph, glue, smolgen, nbt,
     continuous, fused, trainer, qconv, quant, arena, bench, web, dist) runs
     only those, for
     work on one of them, and then
@@ -3750,6 +3989,8 @@ def main(argv=None) -> int:
         glue_err, glue_t, _ = phase_glue(dev, net)
     if want("smolgen"):
         smolgen = phase_smolgen(dev, card)
+    if want("nbt"):
+        nbt = phase_nbt(dev, card)
     if want("continuous"):
         phase_continuous(dev, net, card)
     if want("fused"):
@@ -3922,6 +4163,31 @@ def main(argv=None) -> int:
             "bound_ms": t.pop("bound_ms"), "bound_by": t.pop("bound_by"),
             "library_ms": t.pop("library_ms"),
             "in_graph": smolgen["ln_in_graph"], **t})
+        # the nested-bottleneck body's residual closes and global-pooling
+        # bias (no kernel of the JAX package); launches are phase 20's
+        # captured move, times at the trunk's sites (C 512, and R 192 | G
+        # 64 of 256), by_site at every site of a 512-board forward
+        tolerance = {"residual_act": "bit-equal",
+                     "gpool_bias": "nbt_epilogue.gpool_card_check: one bf16 "
+                                   "step and 2^-18 of the norm's terms; "
+                                   "GPOOL_UNEQUAL_SHARE unequal"}
+        trunk = {"residual_act": "residual_act_512",
+                 "gpool_bias": "gpool_bias_256_R192"}
+        for name in ("residual_act", "gpool_bias"):
+            t = dict(nbt["times"][trunk[name]])
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "alphazero_torch/csrc/nbt_kernels.cu",
+                "replaces": None, "launches": nbt["move"]["launches"][name],
+                "tolerance": tolerance[name],
+                "max_abs_err": max(c["max_abs_err"]
+                                   for k, c in nbt["checks"].items()
+                                   if k.startswith(name)),
+                "ms": t.pop("ms"), "plain_ms": t.pop("plain_ms"),
+                "bound_ms": t.pop("bound_ms"), "bound_by": t.pop("bound_by"),
+                "library_ms": None, "in_graph": nbt["in_graph"][name],
+                "by_site": {k: v for k, v in nbt["times"].items()
+                            if k.startswith(name)}, **t})
         print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
