@@ -6,18 +6,24 @@ evaluator's dtype, the Q, K and V projections packed into one E x 3E
 matrix (and the attention policy's q and k into one), the input stage's
 position term ``W_emb[3:] + b_emb`` summed once in float32, and ``W_gen``
 as the (4096, G) matrix that ``attention.smolgen_attention`` takes (on a
-card also packed once into the kernel's ``attention.wgen_image``).
+card also packed once into the kernel's ``attention.wgen_image``); on a
+card the feed-forward's first matrix and the policy embedding's are also
+packed once into ``dense_mish``'s ``encoder_epilogue.dense_image``.
 
 ``apply`` runs the forward on the (B*64, E) token rows, copying nothing
 from the host, so a search captures it as it captures the SE evaluator.
 The dense layers are bf16 matrix products with float32 sums (cuBLAS on
-the card), biases added by ``addmm``. The DeepNorm residual ``o + alpha
-x`` and the LayerNorm after it, twice a layer, are one ``deepnorm_ln``
-launch on the card (``models/encoder_epilogue.py``: the sum rounded to
-bf16, float32 statistics); smolgen's LayerNorms are PyTorch's own
-``layer_norm``, and ``mish`` and ``silu`` PyTorch's; the attention with
-its smolgen bias is one ``smolgen_attention`` launch a layer. On the CPU
-the same code runs with the plain versions, the attention's and
+the card), biases added by ``addmm``. The feed-forward's first product
+and the policy embedding, each with its bias and the Mish after it, are
+one ``dense_mish`` launch on the card (``models/encoder_epilogue.py``:
+float32 sums, Mish on the float32 sum, one rounding to bf16), 16 a
+forward. The DeepNorm residual ``o + alpha x`` and the LayerNorm after
+it, twice a layer, are one ``deepnorm_ln`` launch on the card (the sum
+rounded to bf16, float32 statistics); smolgen's LayerNorms are PyTorch's
+own ``layer_norm``, the input stage's and the value head's ``mish`` and
+smolgen's ``silu`` PyTorch's; the attention with its smolgen bias is one
+``smolgen_attention`` launch a layer. On the CPU the same code runs with
+the plain versions, the attention's, ``dense_mish_plain`` and
 ``torch.add`` then ``layer_norm``, in any float dtype.
 """
 
@@ -31,7 +37,9 @@ import torch.nn.functional as F
 
 from alphazero_torch.models.attention import smolgen_attention, wgen_image
 from alphazero_torch.models.encoder import LN_EPS, TOKENS, EncoderNet
-from alphazero_torch.models.encoder_epilogue import deepnorm_ln
+from alphazero_torch.models.encoder_epilogue import (deepnorm_ln,
+                                                      dense_image,
+                                                      dense_mish)
 
 
 def prepare(net: EncoderNet, dtype: torch.dtype = torch.bfloat16
@@ -52,6 +60,11 @@ def prepare(net: EncoderNet, dtype: torch.dtype = torch.bfloat16
     def ln(m: torch.nn.LayerNorm) -> Tuple[torch.Tensor, torch.Tensor]:
         return cast(m.weight), cast(m.bias)
 
+    def dense_with_image(fc: torch.nn.Linear) -> Tuple[torch.Tensor, ...]:
+        """``dense(fc)`` and, on a card, ``dense_mish``'s packed image."""
+        w, b = dense(fc)
+        return w, b, dense_image(w) if dev.type == "cuda" else None
+
     planes = net.embed.in_features - TOKENS
     emb = net.embed.weight.detach().float()
     layers = [{
@@ -59,7 +72,7 @@ def prepare(net: EncoderNet, dtype: torch.dtype = torch.bfloat16
         "sg1": dense(layer.sg_dense1), "sg_ln1": ln(layer.sg_ln1),
         "sg2": dense(layer.sg_dense2), "sg_ln2": ln(layer.sg_ln2),
         "qkv": dense(layer.q, layer.k, layer.v), "o": dense(layer.o),
-        "ln1": ln(layer.ln1), "ffn1": dense(layer.ffn1),
+        "ln1": ln(layer.ln1), "ffn1": dense_with_image(layer.ffn1),
         "ffn2": dense(layer.ffn2), "ln2": ln(layer.ln2),
     } for layer in net.layers]
     wgen_t = cast(net.smolgen_gen.weight)
@@ -71,7 +84,7 @@ def prepare(net: EncoderNet, dtype: torch.dtype = torch.bfloat16
         "layers": layers,
         "wgen_t": wgen_t,
         "wgen_image": wgen_image(wgen_t) if dev.type == "cuda" else None,
-        "policy_embed": dense(net.policy_embed),
+        "policy_embed": dense_with_image(net.policy_embed),
         "policy_qk": dense(net.policy_q, net.policy_k),
         "policy_index": net.policy_index.to(dev),
         "policy_valid": net.policy_valid.to(dev, torch.float32),
@@ -105,10 +118,10 @@ def apply(prep: Dict[str, Any], planes: torch.Tensor
         a = smolgen_attention(_dense(x, L["qkv"]), s, prep["wgen_t"], H,
                               prep["wgen_image"])
         x = deepnorm_ln(_dense(a, L["o"]), x, prep["alpha"], *L["ln1"])
-        f = _dense(F.mish(_dense(x, L["ffn1"])), L["ffn2"])
+        f = _dense(dense_mish(x, *L["ffn1"]), L["ffn2"])
         x = deepnorm_ln(f, x, prep["alpha"], *L["ln2"])
 
-    p = F.mish(_dense(x, prep["policy_embed"]))
+    p = dense_mish(x, *prep["policy_embed"])
     qk = _dense(p, prep["policy_qk"]).view(B, TOKENS, -1)
     P = qk.shape[-1] // 2
     logits = torch.bmm(qk[..., :P], qk[..., P:].transpose(1, 2)).float()

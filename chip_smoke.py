@@ -103,11 +103,18 @@ launches of the replays.
   residual and LayerNorm (``deepnorm_ln``, ``csrc/encoder_kernels.cu``)
   within ``encoder_epilogue.card_check``, on both sites of the seeded
   net's first layer, its times in turns with ``torch.add`` and
-  ``F.layer_norm`` (its plain version, and the library's yardstick); a
-  captured BT4 self-play move at 512 games x 400 simulations with both
-  kernels' launches counted (15 and 30 a forward, no capture, no host
-  read), and a profile of the captured search for both kernels' device
-  time inside the replays;
+  ``F.layer_norm`` (its plain version, and the library's yardstick); the
+  feed-forward's first product with its bias and Mish (``dense_mish``,
+  the same source) within ``encoder_epilogue.dense_card_check`` on random
+  operands at 1, 3, 32, 129 and 512 boards (N 1536 and 1024) and on the
+  seeded net's feed-forward and policy embedding, its times on them at
+  512, 32 and one board in turns with cuBLAS's ``addmm`` and PyTorch's
+  ``mish`` (the pair it replaces) and with ``addmm`` alone, beside its
+  bound (at 512 boards no more than 0.20 ms); a captured BT4 self-play
+  move at 512 games x 400 simulations with the three kernels' launches
+  counted (15, 30 and 16 a forward, no capture, no host read), and a
+  profile of the captured search for their device time inside the
+  replays;
 - phase 20 (``nbt``): the nested-bottleneck body (KataGo's b28c512nbt,
   its norms set to one batch's statistics) at every site shape of a
   512-board forward: ``residual_act`` (C 256 and 512) and ``bn_act`` (C
@@ -3094,6 +3101,19 @@ def deepnorm_bound_ms(rows, E=1024):
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
+def dense_mish_bound_ms(rows, K=1024, N=1536):
+    """The least time the card could take for one ``dense_mish`` of
+    ``rows`` token rows, K into N: the larger of its operations at the
+    bf16 peak (2 rows K N) and its bytes at the memory rate (x and W read
+    and the output written once, bf16; the bias left out)."""
+    ops = 2 * rows * K * N
+    nbytes = 2 * (rows * K + K * N + rows * N)
+    by_ops = ops / BF16_FLOPS * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                   else "bytes"), ops, nbytes
+
+
 def smolgen_far(qkv, s, wgen_t, H, got):
     """Outputs of the kernel (``got``) past the tolerance of
     ``tests/test_torch_encoder.py::
@@ -3117,12 +3137,16 @@ def smolgen_far(qkv, s, wgen_t, H, got):
 
 @phase("phase 19 smolgen")
 def phase_smolgen(dev, card):
-    """``smolgen_attention`` at BT4's widths against its plain version
-    (random operands at 1, 32 and 512 boards, and the first layer's
-    operands of a seeded BT4 net on 512 positions); its times at 512 boards
-    beside its bound and its plain version; then a captured BT4 search
-    move at the cell's 512 x 400, with the kernel's launches counted (15 a
-    forward) and its device time inside the replays from a profile."""
+    """``smolgen_attention``, ``deepnorm_ln`` and ``dense_mish`` at BT4's
+    widths against their plain versions (random operands at 1 to 512
+    boards, and the first layer's operands of a seeded BT4 net on 512
+    positions); their times at 512 boards beside their bounds, their plain
+    versions and the library calls they replace; then a captured BT4
+    search move at the cell's 512 x 400, with the kernels' launches
+    counted (15, 30 and 16 a forward) and their device time inside the
+    replays from a profile."""
+    import torch.nn.functional as F
+
     from alphazero_torch.config import Config
     from alphazero_torch.env import breakthrough as env
     from alphazero_torch.models import attention, encoder_inference as ei
@@ -3177,6 +3201,13 @@ def phase_smolgen(dev, card):
                       L["ffn2"])
         ln_operands = {f"bt4_layer0_ln1_{GAMES}": (o, x, *L["ln1"]),
                        f"bt4_layer0_ln2_{GAMES}": (f, x1, *L["ln2"])}
+        # dense_mish's two sites: the same layer's feed-forward on the rows
+        # it reads, and the policy embedding on the layer's output
+        dm_operands = {
+            f"bt4_layer0_ffn1_{GAMES}": (x1, *L["ffn1"]),
+            f"bt4_policy_embed_{GAMES}": (
+                ee.deepnorm_ln_plain(f, x1, alpha, *L["ln2"]),
+                *prep["policy_embed"])}
     ln_gen = torch.Generator(device=dev).manual_seed(21)
     for B in SMOLGEN_BATCHES:
         o_, x_ = (torch.randn(B * 64, H * D, generator=ln_gen,
@@ -3186,6 +3217,15 @@ def phase_smolgen(dev, card):
                                            device=dev)).bfloat16(),
             (0.1 * torch.randn(H * D, generator=ln_gen,
                                device=dev)).bfloat16())
+    for N in (1536, 1024):
+        for B in SMOLGEN_BATCHES + SMOLGEN_RAGGED:
+            xr = torch.randn(B * 64, H * D, generator=ln_gen,
+                             device=dev).bfloat16()
+            wr = (torch.randn(H * D, N, generator=ln_gen, device=dev)
+                  / 32).bfloat16()
+            br = (0.5 * torch.randn(N, generator=ln_gen,
+                                    device=dev)).bfloat16()
+            dm_operands[f"random_{N}_{B}"] = (xr, wr, br, ee.dense_image(wr))
     for tag, (qkv, s, wgen_t) in operands.items():
         before = fn.launches
         got = fn(qkv, s, wgen_t, H)
@@ -3219,6 +3259,22 @@ def phase_smolgen(dev, card):
                        f"{r}")
     print("deepnorm_ln against its plain version "
           + json.dumps(out["ln_checks"]), flush=True)
+    dm = ee.dense_mish
+    out["dm_checks"] = {}
+    for tag, (xd, wd, bd, image) in dm_operands.items():
+        before = dm.launches
+        got = dm(xd, wd, bd, image)
+        torch.cuda.synchronize()
+        check(dm.launches == before + 1, f"{tag}: launches not counted")
+        check(got.shape == (xd.shape[0], wd.shape[1])
+              and got.dtype == torch.bfloat16
+              and bool(torch.isfinite(got.float()).all()),
+              f"dense_mish output malformed ({tag})")
+        r = ee.dense_card_check(xd, wd, bd, got)
+        out["dm_checks"][tag] = r
+        check(r["ok"], f"dense_mish against its plain version ({tag}): {r}")
+    print("dense_mish against its plain version "
+          + json.dumps(out["dm_checks"]), flush=True)
 
     # times at the main path's 512 boards, on the first layer's operands;
     # the plain version's some 15 launches a call: ten calls queue
@@ -3282,6 +3338,49 @@ def phase_smolgen(dev, card):
     out["ln_times"] = t
     print(f"deepnorm_ln at {GAMES} boards: {json.dumps(t)}", flush=True)
     del ln_operands, o, x, gamma, beta, ob, xb, gb, bb
+
+    # dense_mish on the seeded layer's feed-forward at 512, 32 and one
+    # board (its first rows), and on the policy embedding at 512, each in
+    # turns with the pair it replaces (cuBLAS's addmm, then PyTorch's
+    # mish: the library's yardstick) and with addmm alone
+    def dm_turns(xd, wd, bd, image):
+        kern = lambda i: dm(xd, wd, bd, image)
+        pair = lambda i: F.mish(torch.addmm(bd, xd, wd))
+        mm = lambda i: torch.addmm(bd, xd, wd)
+        turns = {"dense_mish": [], "pair": [], "addmm": []}
+        for _ in range(2):
+            for name, f_ in (("dense_mish", kern), ("pair", pair),
+                             ("addmm", mm)):
+                turns[name].append(cuda_ms(f_, iters=50, warmup=5,
+                                           what=name))
+        return {k: sum(v) / len(v) for k, v in turns.items()}, turns
+
+    xd, wd, bd, image = dm_operands[f"bt4_layer0_ffn1_{GAMES}"]
+    mean, turns = dm_turns(xd, wd, bd, image)
+    bound, bound_by, ops, nbytes = dense_mish_bound_ms(GAMES * 64)
+    t = {"ms": mean["dense_mish"], "turns_ms": turns,
+         "call_ms": cuda_ms(lambda i: dm(xd, wd, bd, image), iters=50,
+                            warmup=5, queued=False),
+         "plain_ms": cuda_ms(lambda i: ee.dense_mish_plain(xd, wd, bd),
+                             iters=10, warmup=2, what="dense_mish_plain"),
+         "library_ms": mean["pair"], "addmm_ms": mean["addmm"],
+         "bound_ms": bound, "bound_by": bound_by, "ops": ops,
+         "bytes": nbytes}
+    t["roofline_pct"] = 100 * bound / t["ms"]
+    xp, wp, bp, ip = dm_operands[f"bt4_policy_embed_{GAMES}"]
+    pmean, _ = dm_turns(xp, wp, bp, ip)
+    t["policy_embed_ms"] = {**pmean, "bound_ms": dense_mish_bound_ms(
+        GAMES * 64, N=1024)[0]}
+    t["by_batch_ms"] = {}
+    for B in SMOLGEN_BATCHES[:-1]:       # the seeded layer's first rows
+        t["by_batch_ms"][B] = dm_turns(xd[:B * 64], wd, bd, image)[0]
+    t["by_batch_bound_ms"] = {B: dense_mish_bound_ms(B * 64)[0]
+                              for B in SMOLGEN_BATCHES}
+    check(t["ms"] <= 0.20,
+          f"dense_mish at {GAMES} boards: {t['ms']:.4f} ms, past 0.20 ms")
+    out["dm_times"] = t
+    print(f"dense_mish at {GAMES} boards: {json.dumps(t)}", flush=True)
+    del dm_operands, xd, wd, bd, image, xp, wp, bp, ip
     torch.cuda.empty_cache()
 
     # the main path: a warm-up move captures the simulation, then one
@@ -3300,14 +3399,19 @@ def phase_smolgen(dev, card):
     mcts.STATS.reset()
     fn.launches = 0
     ln.launches = 0
+    dm.launches = 0
     t0 = time.time()
     states, _, probs, _, values = selfplay.selfplay_move(
         states, gen, eval_fn, spec, cfg.temperature_threshold, tree)
     torch.cuda.synchronize()
     move_s = time.time() - t0
     launches, ln_launches = fn.launches, ln.launches
+    dm_launches = dm.launches
     forwards = BT4_SIMS + 1               # the root's and one a simulation
     layers = cfg.enc_layers
+    check(dm_launches == (layers + 1) * forwards,
+          f"a captured BT4 move: {dm_launches} dense_mish launches (want "
+          f"{layers + 1} a forward, {(layers + 1) * forwards})")
     check(launches == layers * forwards
           and ln_launches == 2 * layers * forwards
           and graph.STATS.captures == 0
@@ -3324,6 +3428,7 @@ def phase_smolgen(dev, card):
     out["move"] = {"games": GAMES, "sims": BT4_SIMS, "move_s": move_s,
                    "launches": launches, "per_forward": launches / forwards,
                    "deepnorm_ln_launches": ln_launches,
+                   "dense_mish_launches": dm_launches,
                    "sims_per_s": GAMES * BT4_SIMS / move_s}
     # the kernel inside the replays: a short captured search profiled
     prof = profile_search(states, eval_fn, tag=f"bt4_{GAMES}_captured")
@@ -3347,10 +3452,21 @@ def phase_smolgen(dev, card):
     check(n == 2 * layers * (PROFILE_SIMS + 1),
           f"profile: {n} deepnorm_ln_kernel launches in "
           f"{PROFILE_SIMS + 1} forwards")
+    name = next((k for k in prof["kernel_calls"]
+                 if "dense_mish_kernel" in k), None)
+    check(name is not None, "no dense_mish_kernel in the profile")
+    n = prof["kernel_calls"][name]
+    out["dm_in_graph"] = {"launches": n,
+                          "device_ms": prof["kernels_ms"][name],
+                          "ms_per_launch": prof["kernels_ms"][name] / n}
+    check(n == (layers + 1) * (PROFILE_SIMS + 1),
+          f"profile: {n} dense_mish_kernel launches in "
+          f"{PROFILE_SIMS + 1} forwards")
     out["card"] = card
     print("smolgen main path " + json.dumps(out["move"]) + "; in the "
           "replays " + json.dumps(out["in_graph"]) + "; deepnorm_ln in the "
-          "replays " + json.dumps(out["ln_in_graph"]), flush=True)
+          "replays " + json.dumps(out["ln_in_graph"]) + "; dense_mish in "
+          "the replays " + json.dumps(out["dm_in_graph"]), flush=True)
     del eval_fn, net, prep, tree
     torch.cuda.empty_cache()
     return out
@@ -4163,6 +4279,23 @@ def main(argv=None) -> int:
             "bound_ms": t.pop("bound_ms"), "bound_by": t.pop("bound_by"),
             "library_ms": t.pop("library_ms"),
             "in_graph": smolgen["ln_in_graph"], **t})
+        # the encoder body's feed-forward product with its bias and Mish
+        # (no kernel of the JAX package); launches are phase 19's move
+        t = dict(smolgen["dm_times"])
+        kernels.append({
+            "name": "dense_mish", "route": "cuda",
+            "source": "alphazero_torch/csrc/encoder_kernels.cu",
+            "replaces": None,
+            "launches": smolgen["move"]["dense_mish_launches"],
+            "tolerance": "encoder_epilogue.dense_card_check: two bf16 steps "
+                         "and 2^-16 of the sum of |x w|; "
+                         "encoder_epilogue.DENSE_UNEQUAL_SHARE unequal",
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in smolgen["dm_checks"].values()),
+            "ms": t.pop("ms"), "plain_ms": t.pop("plain_ms"),
+            "bound_ms": t.pop("bound_ms"), "bound_by": t.pop("bound_by"),
+            "library_ms": t.pop("library_ms"),
+            "in_graph": smolgen["dm_in_graph"], **t})
         # the nested-bottleneck body's residual closes and global-pooling
         # bias (no kernel of the JAX package); launches are phase 20's
         # captured move, times at the trunk's sites (C 512, and R 192 | G

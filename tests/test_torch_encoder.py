@@ -203,9 +203,17 @@ def test_the_wgen_image_reads_back_through_its_inverse(gen):
 
 
 def test_prepare_packs_the_wgen_image_only_on_a_card():
+    """On the CPU no packed image is made: neither W_gen's nor
+    ``dense_mish``'s of the feed-forward and the policy embedding, which
+    keep their plain (in, out) matrices."""
     prep = encoder_inference.prepare(_net(), torch.bfloat16)
     assert prep["wgen_image"] is None
     assert prep["wgen_t"].shape == (4096, tiny_encoder_config().smolgen_gen)
+    cfg = tiny_encoder_config()
+    for w, b, image in [L["ffn1"] for L in prep["layers"]] \
+            + [prep["policy_embed"]]:
+        assert image is None and w.shape[0] == cfg.enc_embed
+        assert b.shape == (w.shape[1],)
 
 
 def test_smolgen_attention_refuses_operands_that_do_not_fit():
@@ -388,11 +396,14 @@ def test_cuda_captured_bt4_evaluator_against_eager(cuda):
 
 
 @pytest.mark.gpu
-def test_cuda_captured_bt4_search_against_eager(cuda):
+def test_cuda_captured_bt4_search_against_eager(cuda, monkeypatch):
     """Eight simulations of 512 games through ``mcts.search``, captured
     (two eager warm-up simulations, then replays) and eager: the same
-    trees bit for bit, and the replays count one smolgen_attention launch
-    and two deepnorm_ln launches a layer a simulation."""
+    trees bit for bit, and the replays count one smolgen_attention launch,
+    two deepnorm_ln launches a layer a simulation and 16 dense_mish
+    launches a simulation (the feed-forward's first product of each layer
+    and the policy embedding); the forwards run in Python call PyTorch's
+    ``mish`` only at the input stage and the value head, 3 a forward."""
     cfg = Config(body="encoder")
     with torch.device(cuda):
         net = build_network(cfg, cuda)
@@ -400,8 +411,21 @@ def test_cuda_captured_bt4_search_against_eager(cuda):
     spec = mcts.SearchSpec(num_simulations=8)
     st = env.initial_state((512,), device=cuda)
     eager = mcts.search(st, eval_fn, spec, capture=False)
+    calls = {"dense_mish": 0, "mish": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(encoder_inference, "dense_mish",
+                        counting("dense_mish", encoder_inference.dense_mish))
+    monkeypatch.setattr(encoder_inference.F, "mish",
+                        counting("mish", encoder_inference.F.mish))
     before = attention.smolgen_attention.launches
     before_ln = encoder_epilogue.deepnorm_ln.launches
+    before_dm = encoder_epilogue.dense_mish.launches
     replays = graph.STATS.replays
     captured = mcts.search(st, eval_fn, spec, capture=True)
     torch.cuda.synchronize()
@@ -412,6 +436,9 @@ def test_cuda_captured_bt4_search_against_eager(cuda):
     assert attention.smolgen_attention.launches - before == 15 * (1 + 8)
     assert encoder_epilogue.deepnorm_ln.launches - before_ln \
         == 15 * 2 * (1 + 8)
+    assert encoder_epilogue.dense_mish.launches - before_dm == 16 * (1 + 8)
+    assert calls["dense_mish"] > 0
+    assert calls["mish"] * 16 == calls["dense_mish"] * 3
 
 
 @pytest.mark.gpu

@@ -69,7 +69,8 @@ def test_only_the_seam_binds_and_loads_libraries(source):
 @pytest.mark.parametrize("entry, kernel, wrapper", [
     ("commit_path_f32", "commit_path", K.commit_edges),
     ("qconv3x3_s8", "qconv3x3", quant.qconv3x3),
-    ("deepnorm_ln_bf16", "deepnorm_ln", ee.deepnorm_ln)])
+    ("deepnorm_ln_bf16", "deepnorm_ln", ee.deepnorm_ln),
+    ("dense_mish_bf16", "dense_mish", ee.dense_mish)])
 def test_a_failed_launch_raises_naming_the_kernel(entry, kernel, wrapper):
     """A stand-in for a C entry point returns CUDA error 1: the launch
     raises, naming the kernel, and counts nothing; a return of 0 counts
