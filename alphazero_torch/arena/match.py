@@ -53,7 +53,18 @@ def random_opening(rng: random.Random,
 
 def select_evaluator(eval_a, eval_b):
     """eval_fn(planes, a_to_move (B,) bool): both evaluators on the whole
-    batch, rows selected by ``a_to_move``."""
+    batch, rows selected by ``a_to_move``. Two MuZero evaluators give a
+    recurrent pair (``muzero_inference.PairEvaluator``) that shares the
+    tree's latent store; a MuZero net plays only a MuZero net."""
+    from alphazero_torch.search.mcts import is_recurrent
+
+    if is_recurrent(eval_a) or is_recurrent(eval_b):
+        if not (is_recurrent(eval_a) and is_recurrent(eval_b)):
+            raise ValueError("a MuZero net searches its own hidden states: "
+                             "it plays another MuZero net only")
+        from alphazero_torch.models.muzero_inference import PairEvaluator
+
+        return PairEvaluator(eval_a, eval_b)
 
     def eval_fn(planes, a_to_move):
         pa, va = eval_a(planes)

@@ -22,9 +22,11 @@ class Config:
     # --- Model ---
     # "se_resnet" (the SE-ResNet of models/network.py, sized by the three
     # fields below), "encoder" (Leela Chess Zero's BT4 attention body,
-    # models/encoder.py, sized by the enc_* and smolgen_* fields) or "nbt"
+    # models/encoder.py, sized by the enc_* and smolgen_* fields), "nbt"
     # (KataGo's nested-bottleneck residual net, models/nbt.py, sized by the
-    # nbt_* fields)
+    # nbt_* fields) or "muzero" (MuZero's board-game representation,
+    # dynamics and prediction nets, models/muzero.py, sized by the mz_*
+    # fields; searched over a latent store in the tree)
     body: str = "se_resnet"
     num_blocks: int = 20
     num_filters: int = 128
@@ -55,6 +57,14 @@ class Config:
     nbt_gpool: int = 64
     nbt_head: int = 64
     nbt_value_hidden: int = 128
+    # MuZero's board-game nets at the paper's widths: a representation and
+    # a dynamics tower of 16 post-activation residual blocks of 256 each
+    # (the action's 3 planes are models/muzero.py's ACTION_PLANES). On a
+    # CUDA card mz_filters is a conv3x3 width (build_network)
+    mz_blocks: int = 16
+    mz_filters: int = 256
+    # the learner's unroll of the dynamics: K = 5 recurrent steps a sample
+    mz_unroll: int = 5
 
     # --- MCTS ---
     num_simulations: int = 400
@@ -112,8 +122,9 @@ class Config:
     def arch(self) -> dict:
         """The fields a checkpoint records, so that its net can be built
         from it alone (``with_arch``): the SE-ResNet's three sizes, or the
-        encoder body's or the nested-bottleneck body's."""
-        names = {"encoder": ENCODER_ARCH, "nbt": NBT_ARCH}.get(
+        encoder body's, the nested-bottleneck body's or MuZero's."""
+        names = {"encoder": ENCODER_ARCH, "nbt": NBT_ARCH,
+                 "muzero": MUZERO_ARCH}.get(
             self.body, ("num_blocks", "num_filters", "se_ratio"))
         return {k: getattr(self, k) for k in names}
 
@@ -123,7 +134,8 @@ class Config:
         arch = {"body": "se_resnet", **arch}
         return self.replace(**{k: arch[k] for k in
                                ("num_blocks", "num_filters", "se_ratio",
-                                *ENCODER_ARCH, *NBT_ARCH) if k in arch})
+                                *ENCODER_ARCH, *NBT_ARCH, *MUZERO_ARCH)
+                               if k in arch})
 
     def checkpoint_path(self, filename: str) -> str:
         return os.path.join(self.checkpoint_dir, filename)
@@ -137,6 +149,7 @@ ENCODER_ARCH = ("body", "enc_layers", "enc_embed", "enc_heads", "enc_ffn",
                 "enc_policy_embed")
 NBT_ARCH = ("body", "nbt_blocks", "nbt_trunk", "nbt_mid", "nbt_gpool",
             "nbt_head", "nbt_value_hidden")
+MUZERO_ARCH = ("body", "mz_blocks", "mz_filters")
 
 
 def tiny_config(**kw) -> Config:
@@ -163,5 +176,13 @@ def tiny_nbt_config(**kw) -> Config:
     heads of 8 and a value hidden layer of 16."""
     base = dict(body="nbt", nbt_blocks=3, nbt_trunk=32, nbt_mid=16,
                 nbt_gpool=8, nbt_head=8, nbt_value_hidden=16)
+    base.update(kw)
+    return tiny_config(**base)
+
+
+def tiny_muzero_config(**kw) -> Config:
+    """``tiny_config`` with small MuZero nets for tests: 2 blocks of 32 in
+    each tower, an unroll of 3 steps."""
+    base = dict(body="muzero", mz_blocks=2, mz_filters=32, mz_unroll=3)
     base.update(kw)
     return tiny_config(**base)

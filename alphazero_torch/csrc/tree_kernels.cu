@@ -173,6 +173,30 @@
 //   the legal mask is three shifts and masks of the whole set; one barrier
 //   a block, for one atomic add of its games' depths.
 //
+// MuZero's search (no JAX counterpart; search/mcts.py:_simulate_latent)
+// walks the same rows over stored hidden states instead of boards:
+//   descend_kernel<false>: descend without the env, a compile-time variant,
+//   so the real-position search's kernel (<true>) is the code it was; no
+//   board is gathered, stepped or written and no final position stops a
+//   walk (below the root every action is open).
+//   gather_latent: each game's leaf parent state, latent[b, path_nodes[b,
+//   depth - 1]], copied to a contiguous map for the dynamics net (16-byte
+//   vectors, a block a game; 16.8 MB read and written at 512 games and C
+//   256, some 10 us), and the walk's last action.
+//   expand_latent: expand's row write with every action UNALLOCATED (no
+//   mask and no final position inside the tree), the slot's reward, the
+//   root's visit and node count and the depth sum; the leaf's value is a
+//   final ROOT's result where the walk had depth 0, else the evaluator's.
+//   commit_rewards: the backup with the stored rewards, a thread a game
+//   walking its path up from the leaf: G = value; at each edge d (deepest
+//   first) the child pointer of the allocating edge gains slot + 1, G =
+//   reward[child] - G, the visit gains 1 and the value sum -G (kept for
+//   the child's mover, as commit_path keeps it, so the descent's rule is
+//   unchanged); the root's value sum gains the last G. With every reward
+//   0 it is commit_path's sign flip bit for bit. Bound: as commit_path's,
+//   the launch and a chain of dependent loads a level.
+// Each is bit-equal to its plain version (search/kernels.py).
+//
 // A simulation is one descend launch, encode_planes, the evaluator, one
 // expand launch, one commit_path launch and the slot's increment, none of
 // which the host has to read for: the search captures it once as a CUDA
@@ -313,6 +337,11 @@ __device__ __forceinline__ bool has_move(uint64_t white, uint64_t black,
           (((black & kNotFileH) >> 7) & ~black)) != 0;
 }
 
+// kStepEnv: the real-position search, which steps each game's board
+// along the walk and stops at a final position; without it (MuZero's
+// search over stored hidden states) the walk reads the tree alone, and
+// nothing of the board is loaded, stepped or written.
+template <bool kStepEnv>
 __global__ void __launch_bounds__(kDescendThreads)
 descend_kernel(const DescendArgs p) {
   __shared__ Pick s_pick[2][kDescendWarps];     // double-buffered by level
@@ -338,22 +367,27 @@ descend_kernel(const DescendArgs p) {
   // The game's state, whole in every thread (all threads take the same
   // branches): the scalars, and the board as White's and Black's sets of
   // squares, gathered once from one square a thread.
-  int turn = p.turn[b];
-  int winner = p.winner[b];
-  bool done = p.done[b] != 0;
-  int move_count = p.move_count[b];
-  if (t < kSquares) {
-    const int square = p.board[(int64_t)b * kSquares + t];
-    const uint32_t w = __ballot_sync(0xffffffffu, square > 0);
-    const uint32_t k = __ballot_sync(0xffffffffu, square < 0);
-    if (lane == 0) {
-      s_squares[warp] = w;
-      s_squares[2 + warp] = k;
+  int turn = 0, winner = 0, move_count = 0;
+  bool done = false;
+  uint64_t white = 0, black = 0;
+  if constexpr (kStepEnv) {
+    turn = p.turn[b];
+    winner = p.winner[b];
+    done = p.done[b] != 0;
+    move_count = p.move_count[b];
+    if (t < kSquares) {
+      const int square = p.board[(int64_t)b * kSquares + t];
+      const uint32_t w = __ballot_sync(0xffffffffu, square > 0);
+      const uint32_t k = __ballot_sync(0xffffffffu, square < 0);
+      if (lane == 0) {
+        s_squares[warp] = w;
+        s_squares[2 + warp] = k;
+      }
     }
+    __syncthreads();
+    white = (uint64_t)s_squares[1] << 32 | s_squares[0];
+    black = (uint64_t)s_squares[3] << 32 | s_squares[2];
   }
-  __syncthreads();
-  uint64_t white = (uint64_t)s_squares[1] << 32 | s_squares[0];
-  uint64_t black = (uint64_t)s_squares[3] << 32 | s_squares[2];
 
   const int root_visit = p.root_visit[b];
   float n_cur = (float)root_visit;
@@ -423,7 +457,7 @@ descend_kernel(const DescendArgs p) {
     // action = (row*8 + col)*3 + dir in the mover's frame (dir 0 forward,
     // 1 diagonal left, 2 diagonal right); Black's frame is the board
     // turned by 180 degrees, square s at 63 - s.
-    if (!done) {
+    if (kStepEnv && !done) {
       const int sq = a / 3, dir = a - 3 * sq;
       const int to = sq + 8 + (dir == 2) - (dir == 1);
       const bool black_moves = turn == -1;
@@ -457,14 +491,18 @@ descend_kernel(const DescendArgs p) {
   if (t == 0) {
     p.depth[b] = depth;
     p.needs_alloc[b] = needs_alloc;
-    p.leaf_turn[b] = (int8_t)turn;
-    p.leaf_winner[b] = (int8_t)winner;
-    p.leaf_done[b] = done;
-    p.leaf_move_count[b] = move_count;
   }
-  if (t < kSquares) {
-    p.leaf_board[(int64_t)b * kSquares + t] =
-        (int8_t)((int)((white >> t) & 1) - (int)((black >> t) & 1));
+  if constexpr (kStepEnv) {
+    if (t == 0) {
+      p.leaf_turn[b] = (int8_t)turn;
+      p.leaf_winner[b] = (int8_t)winner;
+      p.leaf_done[b] = done;
+      p.leaf_move_count[b] = move_count;
+    }
+    if (t < kSquares) {
+      p.leaf_board[(int64_t)b * kSquares + t] =
+          (int8_t)((int)((white >> t) & 1) - (int)((black >> t) & 1));
+    }
   }
 }
 
@@ -617,6 +655,145 @@ expand_kernel(const ExpandArgs p) {
   }
 }
 
+// ---- MuZero's search: the latent store and the backup with rewards -------
+
+constexpr int kGatherThreads = 256;
+constexpr int kRewardGames = 128;     // games a commit_rewards block
+
+__global__ void __launch_bounds__(kGatherThreads)
+gather_latent_kernel(const uint4* __restrict__ latent,
+                     const int32_t* __restrict__ depth,
+                     const int32_t* __restrict__ path_nodes,
+                     const int32_t* __restrict__ path_actions,
+                     uint4* __restrict__ out, int32_t* __restrict__ act_out,
+                     int64_t slots, int N, int vectors) {
+  const int64_t b = blockIdx.x;
+  const int d = depth[b];
+  const bool walked = d > 0 && d <= N;
+  int node = walked ? path_nodes[b * N + d - 1] : 0;
+  if ((uint64_t)(int64_t)node >= (uint64_t)slots) node = 0;
+  if (threadIdx.x == 0) act_out[b] = walked ? path_actions[b * N + d - 1] : 0;
+  const uint4* src = latent + (b * slots + node) * vectors;
+  uint4* dst = out + b * vectors;
+  for (int i = threadIdx.x; i < vectors; i += kGatherThreads) dst[i] = src[i];
+}
+
+struct ExpandLatentArgs {
+  float* rows;                  // (B, M, R); the row at the slot is written
+  float* reward;                // (B, M); the slot's entry is written
+  int32_t* root_visit;          // (B,)
+  int32_t* node_count;
+  const int32_t* slot;          // the simulation's fresh slot
+  const int8_t* turn;           // the ROOT state (a walk of depth 0 stops
+  const int8_t* winner;         // only at a final root)
+  const uint8_t* done;
+  const uint8_t* needs_alloc;   // descend's results
+  const int32_t* depth;
+  const float* policy;          // (B, 192) the evaluator's probabilities
+  const float* value;           // (B,) its values
+  const float* reward_in;       // (B,) g's rewards
+  float* value_out;             // (B,) the leaf values commit_rewards adds
+  unsigned long long* depth_sum;
+  int64_t M, R;
+  int B;
+};
+
+__global__ void __launch_bounds__(kExpandGames * 32)
+expand_latent_kernel(const ExpandLatentArgs p) {
+  __shared__ int s_depth[kExpandGames];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kExpandGames + warp;
+  int depth = 0;
+  if (b < p.B) {                        // the whole warp or none of it
+    depth = p.depth[b];
+    const bool needs_alloc = p.needs_alloc[b] != 0;
+    // the leaf's value for the player to move: a final root's result (the
+    // only walk that stops without a new node), else the evaluator's
+    const int turn = p.turn[b], winner = p.winner[b];
+    const float white_value = __fsub_rn(winner == 1 ? 1.0f : 0.0f,
+                                        winner == -1 ? 1.0f : 0.0f);
+    const float v = depth == 0 && p.done[b] != 0
+        ? (turn == 1 ? white_value : -white_value) : p.value[b];
+    // every action is open below the root: the priors renormalised over
+    // all of them, the mass in expand_kernel's order
+    const float* policy = p.policy + (int64_t)b * kActions;
+    float prior[kPerLane];
+    float mass = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      prior[k] = policy[lane + 32 * k];
+      mass = k == 0 ? prior[k] : __fadd_rn(mass, prior[k]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mass = __fadd_rn(mass, __shfl_xor_sync(0xffffffffu, mass, off));
+    }
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      prior[k] = mass > 0.0f ? __fdiv_rn(prior[k], fmaxf(mass, 1e-30f))
+                             : __fdiv_rn(1.0f, (float)kActions);
+    }
+    const int64_t slot = p.slot[0];
+    if (slot >= 0 && slot < p.M) {      // no well-formed tree has another
+      float* row = p.rows + ((int64_t)b * p.M + slot) * p.R;
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int a = lane + 32 * k;
+        row[a] = needs_alloc ? -1.0f : -2.0f;
+        row[kActions + a] = needs_alloc ? prior[k] : 0.0f;
+      }
+      if (lane == 0) {
+        p.reward[(int64_t)b * p.M + slot] = needs_alloc ? p.reward_in[b]
+                                                        : 0.0f;
+      }
+    }
+    if (lane == 0) {
+      p.value_out[b] = v;
+      p.root_visit[b] += 1;
+      p.node_count[b] += needs_alloc;
+    }
+  }
+  if (lane == 0) s_depth[warp] = depth;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long sum = 0;
+#pragma unroll
+    for (int w = 0; w < kExpandGames; ++w) sum += s_depth[w];
+    if (sum != 0) atomicAdd(p.depth_sum, sum);
+  }
+}
+
+__global__ void __launch_bounds__(kRewardGames)
+commit_rewards_kernel(float* rows, const float* __restrict__ reward,
+                      const int32_t* __restrict__ path_nodes,
+                      const int32_t* __restrict__ path_actions,
+                      const int32_t* __restrict__ depth,
+                      const uint8_t* __restrict__ needs_alloc,
+                      const float* __restrict__ value,
+                      const int32_t* __restrict__ slot, float* root_vsum,
+                      int B, int N, Offsets off, int64_t M, int64_t R) {
+  const int b = blockIdx.x * kRewardGames + threadIdx.x;
+  if (b >= B) return;
+  const int D = min(depth[b], N);
+  const float alloc = needs_alloc[b] ? (float)(slot[0] + 1) : 0.0f;
+  float* game = rows + (int64_t)b * M * R;
+  const float* game_reward = reward + (int64_t)b * M;
+  // G: the return of the edge's mover, from the leaf's value up
+  float G = value[b];
+  for (int d = D - 1; d >= 0; --d) {
+    const int64_t i = (int64_t)b * N + d;
+    float* x = game + (int64_t)path_nodes[i] * R + path_actions[i];
+    if (d == D - 1) x[off.v[0]] = __fadd_rn(x[off.v[0]], alloc);
+    const int child = (int)x[off.v[0]];
+    const float r = child > 0 && child < M ? game_reward[child] : 0.0f;
+    G = __fsub_rn(r, G);
+    x[off.v[1]] = __fadd_rn(x[off.v[1]], 1.0f);
+    // stored for the child's mover, as the descent reads it (q = -vsum/n)
+    x[off.v[2]] = __fadd_rn(x[off.v[2]], -G);
+  }
+  root_vsum[b] = __fadd_rn(root_vsum[b], G);
+}
+
 __global__ void empty_kernel() {}
 
 }  // namespace
@@ -707,7 +884,110 @@ int descend_f32(const void* rows, long long M, int R, int A,
         (uint8_t*)needs_alloc, (int8_t*)leaf_board, (int8_t*)leaf_turn,
         (int8_t*)leaf_winner, (uint8_t*)leaf_done,
         (int32_t*)leaf_move_count};
-    descend_kernel<<<B, kDescendThreads, 0, (cudaStream_t)stream>>>(args);
+    descend_kernel<true><<<B, kDescendThreads, 0, (cudaStream_t)stream>>>(
+        args);
+  }
+  return (int)cudaGetLastError();
+}
+
+// MuZero's descent: descend_f32 without the board (nothing of the state is
+// read or written).
+int descend_latent_f32(const void* rows, long long M, int R, int A,
+                       const void* root_visit, const void* root_vsum,
+                       float c_puct, float fpu_reduction, int use_fpu, int B,
+                       int N, void* path_nodes, void* path_actions,
+                       void* depth, void* needs_alloc, void* stream) {
+  if (A < 1 || A > kDescendThreads || 4 * A > R || M < 1 || N < 0 || B < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B > 0) {
+    DescendArgs args = {};
+    args.rows = (const float*)rows;
+    args.M = (int64_t)M;
+    args.R = (int64_t)R;
+    args.A = A;
+    args.N = N;
+    args.root_visit = (const int32_t*)root_visit;
+    args.root_vsum = (const float*)root_vsum;
+    args.c_puct = c_puct;
+    args.fpu_reduction = fpu_reduction;
+    args.use_fpu = use_fpu;
+    args.path_nodes = (int32_t*)path_nodes;
+    args.path_actions = (int32_t*)path_actions;
+    args.depth = (int32_t*)depth;
+    args.needs_alloc = (uint8_t*)needs_alloc;
+    descend_kernel<false><<<B, kDescendThreads, 0, (cudaStream_t)stream>>>(
+        args);
+  }
+  return (int)cudaGetLastError();
+}
+
+// latent: (B, slots, vectors) 16-byte vectors, read at each game's leaf
+// parent (path_nodes[b, depth - 1], slot 0 where depth is 0); out: (B,
+// vectors); act_out (B,) int32: the walk's last action (0 where depth is 0).
+int gather_latent(const void* latent, const void* depth,
+                  const void* path_nodes, const void* path_actions, void* out,
+                  void* act_out, long long slots, int B, int N, int vectors,
+                  void* stream) {
+  if (B < 0 || N < 0 || slots < 1 || vectors < 1)
+    return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    gather_latent_kernel<<<B, kGatherThreads, 0, (cudaStream_t)stream>>>(
+        (const uint4*)latent, (const int32_t*)depth,
+        (const int32_t*)path_nodes, (const int32_t*)path_actions,
+        (uint4*)out, (int32_t*)act_out, (int64_t)slots, N, vectors);
+  }
+  return (int)cudaGetLastError();
+}
+
+// MuZero's expansion, one warp a game: expand_f32's row write with every
+// action UNALLOCATED, the slot's reward, the root's visit and node count and
+// the depth sum; the root's value sum is commit_rewards_f32's. rows (B, M,
+// R) float32, R >= 384; reward (B, M) float32; the root state's turn,
+// winner (B,) int8 and done (B,) one byte; policy (B, 192), value and
+// reward_in (B,) float32.
+int expand_latent_f32(void* rows, void* reward, void* root_visit,
+                      void* node_count, const void* slot, const void* turn,
+                      const void* winner, const void* done,
+                      const void* needs_alloc, const void* depth,
+                      const void* policy, const void* value,
+                      const void* reward_in, void* value_out, void* depth_sum,
+                      long long M, int R, int B, void* stream) {
+  if (B < 0 || M < 1 || R < 2 * kActions) return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    const ExpandLatentArgs args = {
+        (float*)rows, (float*)reward, (int32_t*)root_visit,
+        (int32_t*)node_count, (const int32_t*)slot, (const int8_t*)turn,
+        (const int8_t*)winner, (const uint8_t*)done,
+        (const uint8_t*)needs_alloc, (const int32_t*)depth,
+        (const float*)policy, (const float*)value, (const float*)reward_in,
+        (float*)value_out, (unsigned long long*)depth_sum, (int64_t)M,
+        (int64_t)R, B};
+    expand_latent_kernel<<<(B + kExpandGames - 1) / kExpandGames,
+                           kExpandGames * 32, 0, (cudaStream_t)stream>>>(args);
+  }
+  return (int)cudaGetLastError();
+}
+
+// MuZero's backup, a thread a game: commit_path_f32's edge updates with
+// the stored rewards, G <- reward(child) - G from the leaf's value up, each
+// edge's value sum adding -G, and the root's value sum G.
+int commit_rewards_f32(void* rows, const void* reward, const void* path_nodes,
+                       const void* path_actions, const void* depth,
+                       const void* needs_alloc, const void* value,
+                       const void* slot, void* root_vsum, int B, int N,
+                       int o0, int o1, int o2, long long M, int R,
+                       void* stream) {
+  if (B < 0 || N < 0) return (int)cudaErrorInvalidValue;
+  const Offsets off = {{o0, o1, o2, 0}};
+  if (B > 0) {
+    commit_rewards_kernel<<<(B + kRewardGames - 1) / kRewardGames,
+                            kRewardGames, 0, (cudaStream_t)stream>>>(
+        (float*)rows, (const float*)reward, (const int32_t*)path_nodes,
+        (const int32_t*)path_actions, (const int32_t*)depth,
+        (const uint8_t*)needs_alloc, (const float*)value,
+        (const int32_t*)slot, (float*)root_vsum, B, N, off, (int64_t)M,
+        (int64_t)R);
   }
   return (int)cudaGetLastError();
 }

@@ -23,16 +23,17 @@ from alphazero_torch.config import Config
 def add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--body", default=None,
-                   choices=["se_resnet", "encoder", "nbt"],
+                   choices=["se_resnet", "encoder", "nbt", "muzero"],
                    help="the net: the SE-ResNet, Leela Chess Zero's BT4 "
-                        "attention body or KataGo's nested-bottleneck "
-                        "body (the last two by default at their published "
-                        "widths)")
+                        "attention body, KataGo's nested-bottleneck body "
+                        "or MuZero's board-game nets (the last three by "
+                        "default at their published widths)")
     p.add_argument("--blocks", type=int, default=None,
-                   help="residual blocks, the encoder's layers or the "
-                        "nested-bottleneck body's blocks")
+                   help="residual blocks, the encoder's layers, the "
+                        "nested-bottleneck body's blocks or each MuZero "
+                        "tower's blocks")
     p.add_argument("--filters", type=int, default=None,
-                   help="the SE-ResNet's filters")
+                   help="the SE-ResNet's or MuZero's filters")
     p.add_argument("--sims", type=int, default=None)
     p.add_argument("--games", type=int, default=None)
     p.add_argument("--cpu", action="store_true",
@@ -69,13 +70,15 @@ def build_config(args) -> Config:
     if args.body is not None:
         over["body"] = args.body
     if args.blocks is not None:
-        over[{"encoder": "enc_layers", "nbt": "nbt_blocks"}.get(
-            args.body, "num_blocks")] = args.blocks
+        over[{"encoder": "enc_layers", "nbt": "nbt_blocks",
+              "muzero": "mz_blocks"}.get(args.body, "num_blocks")] = \
+            args.blocks
     if args.filters is not None:
         if args.body in ("encoder", "nbt"):
-            raise SystemExit(f"--filters sizes the SE-ResNet; the "
+            raise SystemExit(f"--filters sizes the SE-ResNet or MuZero; the "
                              f"{args.body} body takes its published widths")
-        over["num_filters"] = args.filters
+        over["mz_filters" if args.body == "muzero" else "num_filters"] = \
+            args.filters
     if args.sims is not None:
         over["num_simulations"] = args.sims
         over["num_simulations_inference"] = max(1, args.sims // 2)

@@ -190,17 +190,25 @@ def build_network(cfg: Config, device="cuda",
                   generator: torch.Generator | None = None) -> nn.Module:
     """A randomly initialised net of ``cfg.body`` in eval mode on
     ``device``: the SE-ResNet (``AlphaZeroNet``), the encoder body
-    (``models/encoder.py:EncoderNet``) or the nested-bottleneck body
-    (``models/nbt.py:NbtNet``).
+    (``models/encoder.py:EncoderNet``), the nested-bottleneck body
+    (``models/nbt.py:NbtNet``) or MuZero's nets
+    (``models/muzero.py:MuZeroNet``).
 
     Weights are drawn on the CPU from ``generator`` (the modules' own
     initialisers, run under a seeded RNG fork) and then moved, so a seed
     gives the same net on every device.
     """
-    if cfg.body not in ("se_resnet", "encoder", "nbt"):
+    if cfg.body not in ("se_resnet", "encoder", "nbt", "muzero"):
         raise ValueError(f"body={cfg.body!r}: expected 'se_resnet', "
-                         "'encoder' or 'nbt'")
+                         "'encoder', 'nbt' or 'muzero'")
     dev = resolve_device(device)
+    if cfg.body == "muzero" and dev.type == "cuda":
+        from alphazero_torch.models import conv
+
+        if cfg.mz_filters not in conv.CHANNELS:
+            raise ValueError(
+                f"on a CUDA card MuZero's width is one that conv3x3 is "
+                f"compiled for, {conv.CHANNELS}, got {cfg.mz_filters}")
     if cfg.body == "nbt" and dev.type == "cuda":
         from alphazero_torch.models import conv
 
@@ -233,6 +241,10 @@ def build_network(cfg: Config, device="cuda",
             from alphazero_torch.models.nbt import nbt_from_config
 
             net = nbt_from_config(cfg)
+        elif cfg.body == "muzero":
+            from alphazero_torch.models.muzero import muzero_from_config
+
+            net = muzero_from_config(cfg)
         else:
             net = AlphaZeroNet(cfg.num_blocks, cfg.num_filters,
                                cfg.se_ratio, cfg.num_actions,

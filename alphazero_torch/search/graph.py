@@ -14,8 +14,9 @@ evaluators, bf16 or int8-static).
 What a replay reads must lie where the capture found it:
 
 - the tree's tensors (rows, parents, root visit and vsum, node count, the
-  slot and the root state), which ``init_tree(..., tree=)`` and
-  ``advance_root`` update in place and never rebind;
+  slot and the root state, and MuZero's latent and reward stores), which
+  ``init_tree(..., tree=)`` and ``advance_root`` update in place and never
+  rebind;
 - the descent's results (``out``), made by the warm-up;
 - a context buffer, into which every search copies its ``eval_ctx``;
 - the evaluator's weights (held by the evaluator, kept alive here) and the
@@ -84,7 +85,8 @@ def _state_tensors(state: env.EnvState) -> tuple:
 
 def _tree_tensors(tree) -> tuple:
     return (tree.rows, tree.parents, tree.root_visit, tree.root_vsum,
-            tree.node_count, tree.next_slot, *_state_tensors(tree.root_state))
+            tree.node_count, tree.next_slot, *_state_tensors(tree.root_state),
+            *(t for t in (tree.latent, tree.reward) if t is not None))
 
 
 def _key(tree, eval_fn, spec, eval_ctx) -> tuple:
@@ -134,7 +136,8 @@ def _capture(tree, eval_fn, spec, eval_ctx, warmup: int):
         for _ in range(warmup):
             out = mcts._simulate_once(tree, eval_fn, spec, out, ctx)
     cur.wait_stream(side)
-    for t in (*_state_tensors(out[0]), *out[1:5]):
+    leaf = () if out[0] is None else _state_tensors(out[0])
+    for t in (*leaf, *out[1:5]):
         t.record_stream(cur)
 
     counters = list(cuda_build.COUNTED)

@@ -16,6 +16,13 @@ JAX package's jitted simulation: ``encode_planes``, the leaves' network
 input, and ``expand``, the evaluation's tail, the fresh row at the slot
 and the root's stats.
 
+MuZero's search (no JAX counterpart) walks the same rows without a board:
+``descend_latent`` is ``descend`` without the env (a compile-time variant
+of its kernel), ``gather_latent`` reads each leaf's parent state from the
+tree's latent store, ``expand_latent`` writes the fresh row with every
+action open and the slot's reward, and ``commit_rewards`` is the backup
+with the stored rewards.
+
 On a CUDA tensor each public function launches its hand-written kernel
 from ``csrc/tree_kernels.cu`` (float32 trees only) or raises; it never
 falls back. On a CPU tensor it runs the plain version beside it. Each
@@ -38,6 +45,10 @@ LIB = cuda_build.Library(
     descend_f32=[P, LL, I, I] + [P] * 7 + [F32, F32, I, I, I] + [P] * 10,
     encode_planes_f32=[P, P, P, I, P],
     expand_f32=[P] * 17 + [LL, I, I, I, I, P],
+    descend_latent_f32=[P, LL, I, I, P, P, F32, F32, I, I, I] + [P] * 5,
+    gather_latent=[P] * 6 + [LL, I, I, I, P],
+    expand_latent_f32=[P] * 15 + [LL, I, I, P],
+    commit_rewards_f32=[P] * 9 + [I] * 5 + [LL, I, P],
     launch_floor=[P])
 
 # Child-pointer sentinels (stored as floats; slots <= capacity are exactly
@@ -273,7 +284,7 @@ def commit_path(rows: torch.Tensor, path_nodes: torch.Tensor,
 # descend: the PUCT walk of one simulation, root to leaf, for every game
 # -----------------------------------------------------------------------------
 
-def _descend_plain(rows: torch.Tensor, root_state: env.EnvState,
+def _descend_plain(rows: torch.Tensor, root_state: env.EnvState | None,
                    root_visit: torch.Tensor, root_vsum: torch.Tensor,
                    num_actions: int, c_puct: float, fpu_reduction: float,
                    out=None):
@@ -282,7 +293,9 @@ def _descend_plain(rows: torch.Tensor, root_state: env.EnvState,
     # the host. Returns ``descend``'s six results, the last the number of
     # levels run. Every level writes its column of the path buffers for
     # every game, so stopped games record garbage at d >= depth. Of ``out``
-    # only the path buffers are recorded into; the rest is made anew.
+    # only the path buffers are recorded into; the rest is made anew. With
+    # no ``root_state`` (``descend_latent``) nothing is stepped and the
+    # leaf state is None.
     B = root_visit.shape[0]
     N = rows.shape[1] - 1
     A = num_actions
@@ -342,7 +355,8 @@ def _descend_plain(rows: torch.Tensor, root_state: env.EnvState,
         path_nodes[:, d] = cur
         path_actions[:, d] = a.int()
 
-        state = env.select_state(live, env.step(state, a), state)
+        if state is not None:
+            state = env.select_state(live, env.step(state, a), state)
 
         cur = torch.where(descend, child_a.int(), cur)
         n_cur = torch.where(descend, ev_a, n_cur)
@@ -375,16 +389,18 @@ def _check_descend_operands(rows, root_state, root_visit, root_vsum,
         raise ValueError(f"num_actions={num_actions} must be in [1, "
                          f"{env.NUM_ACTIONS}] with four blocks in a row of "
                          f"{RS * L}")
+    # no root state: descend_latent's walk, which reads no board
+    states = _STATE_DTYPES if root_state is not None else ()
     operands = [(f"root_state.{name}", getattr(root_state, name), dtype,
                  (B, 8, 8) if name == "board" else (B,))
-                for name, dtype in _STATE_DTYPES]
+                for name, dtype in states]
     operands += [("root_visit", root_visit, torch.int32, (B,)),
                  ("root_vsum", root_vsum, torch.float32, (B,))]
     if out is not None:
         leaf, needs_alloc, depth, path_nodes, path_actions = out[:5]
         operands += [(f"out leaf_state.{name}", getattr(leaf, name), dtype,
                       (B, 8, 8) if name == "board" else (B,))
-                     for name, dtype in _STATE_DTYPES]
+                     for name, dtype in states]
         operands += [("out needs_alloc", needs_alloc, torch.bool, (B,)),
                      ("out depth", depth, torch.int32, (B,)),
                      ("out path_nodes", path_nodes, torch.int32, (B, M - 1)),
@@ -657,3 +673,256 @@ def expand(tree, leaf_state: env.EnvState, needs_alloc: torch.Tensor,
         M, RS * L, B, M - 1, int(bool(tree_reuse)),
         torch.cuda.current_stream(rows.device).cuda_stream)
     return value_out
+
+
+# -----------------------------------------------------------------------------
+# MuZero's search: descend_latent, gather_latent, expand_latent,
+# commit_rewards
+# -----------------------------------------------------------------------------
+
+@cuda_build.counted
+def descend_latent(rows: torch.Tensor, root_visit: torch.Tensor,
+                   root_vsum: torch.Tensor, num_actions: int, c_puct: float,
+                   fpu_reduction: float = 0.0, out=None):
+    """``descend`` over the tree alone: the same walk and scores, with no
+    board, so no final position stops it (every action below the root is
+    open). Returns ``(None, needs_alloc, depth, path_nodes, path_actions,
+    levels)``, ``descend``'s results without the leaf state.
+
+    On a CUDA tree one launch of ``descend_kernel<false>``, the
+    compile-time variant that loads, steps and writes nothing of the
+    board; on a CPU tree the plain per-level loop."""
+    if rows.device.type == "cpu":
+        return _descend_plain(rows, None, root_visit, root_vsum,
+                              num_actions, c_puct, fpu_reduction, out)
+    _check_descend_operands(rows, None, root_visit, root_vsum, num_actions,
+                            out)
+    B, M, RS, L = rows.shape
+    N = M - 1
+    dev = rows.device
+    if out is not None:
+        _, needs_alloc, depth, path_nodes, path_actions = out[:5]
+    else:
+        path_nodes, path_actions = (
+            torch.zeros((B, N), dtype=torch.int32, device=dev),
+            torch.zeros((B, N), dtype=torch.int32, device=dev))
+        depth = torch.empty((B,), dtype=torch.int32, device=dev)
+        needs_alloc = torch.empty((B,), dtype=torch.bool, device=dev)
+    cuda_build.launch(
+        descend_latent, LIB.descend_latent_f32, rows.data_ptr(), M, RS * L,
+        num_actions, root_visit.data_ptr(), root_vsum.data_ptr(), c_puct,
+        fpu_reduction, int(bool(fpu_reduction)), B, N, path_nodes.data_ptr(),
+        path_actions.data_ptr(), depth.data_ptr(), needs_alloc.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    return None, needs_alloc, depth, path_nodes, path_actions, None
+
+
+def _last_edge(depth: torch.Tensor, path: torch.Tensor) -> torch.Tensor:
+    """(B,) ``path[b, depth[b] - 1]``, 0 where the depth is 0."""
+    d = (depth.long() - 1).clamp_min(0)[:, None]
+    return torch.where(depth > 0, path.gather(1, d)[:, 0], 0)
+
+
+@cuda_build.counted
+def gather_latent(latent: torch.Tensor, depth: torch.Tensor,
+                  path_nodes: torch.Tensor, path_actions: torch.Tensor):
+    """The state a simulation's leaf is reached from, and the action: of
+    the (B, slots, 64, C) store, ``latent[b, p]`` as (B*64, C) rows with
+    ``p = path_nodes[b, depth[b] - 1]``, and ``path_actions[b, depth[b] -
+    1]`` as (B,) int32 (slot 0 and action 0 where the depth is 0). On a
+    CUDA store one launch of ``gather_latent_kernel`` (any dtype; a row of
+    a multiple of 16 bytes), which reads the depths and the path where they
+    lie; on a CPU store the plain gather."""
+    B, slots, S, C = latent.shape
+    N = path_nodes.shape[1]
+    _check_tensors((("depth", depth, torch.int32, (B,)),
+                    ("path_nodes", path_nodes, torch.int32, (B, N)),
+                    ("path_actions", path_actions, torch.int32, (B, N))),
+                   latent.device)
+    if latent.device.type == "cpu":
+        node = _last_edge(depth, path_nodes).long()
+        act = _last_edge(depth, path_actions).int()
+        rows = latent[torch.arange(B), node]
+        return rows.reshape(B * S, C), act
+    row_bytes = S * C * latent.element_size()
+    if row_bytes % 16 or not latent.is_contiguous() \
+            or latent.data_ptr() % 16:
+        raise ValueError("gather_latent takes a contiguous, 16-byte aligned "
+                         "store whose rows are whole 16-byte vectors")
+    cuda_build.check_device(latent.device)
+    out = torch.empty((B * S, C), dtype=latent.dtype, device=latent.device)
+    act = torch.empty((B,), dtype=torch.int32, device=latent.device)
+    cuda_build.launch(
+        gather_latent, LIB.gather_latent, latent.data_ptr(), depth.data_ptr(),
+        path_nodes.data_ptr(), path_actions.data_ptr(), out.data_ptr(),
+        act.data_ptr(), slots, B, N, row_bytes // 16,
+        torch.cuda.current_stream(latent.device).cuda_stream)
+    return out, act
+
+
+def _expand_latent_plain(tree, needs_alloc, depth, policy, value, reward,
+                         depth_sum):
+    rows = tree.rows
+    B, M = rows.shape[:2]
+    A = env.NUM_ACTIONS
+    dev = rows.device
+    root = tree.root_state
+    final_root = (depth == 0) & root.done
+    value = torch.where(final_root,
+                        env.terminal_value_for_player_to_move(root),
+                        value.float()).float()
+    everything = torch.ones((B, A), dtype=torch.bool, device=dev)
+    priors = renorm_priors(policy, everything, torch.float32)
+    alloc = needs_alloc[:, None]
+    child_row = torch.where(alloc, UNALLOCATED, ILLEGAL).to(
+        torch.float32).expand(B, A)
+    prior_row = torch.where(alloc, priors, 0.0)
+    at = tree.next_slot.view(1).long()
+    rows.view(B, M, -1)[:, :, :2 * A].index_copy_(
+        1, at, torch.cat([child_row, prior_row], dim=-1)[:, None])
+    tree.reward.index_copy_(
+        1, at, torch.where(needs_alloc, reward.float(), 0.0)[:, None])
+    tree.root_visit += 1
+    tree.node_count += needs_alloc.int()
+    depth_sum += depth.sum()
+    return value
+
+
+@cuda_build.counted
+def expand_latent(tree, needs_alloc: torch.Tensor, depth: torch.Tensor,
+                  policy: torch.Tensor, value: torch.Tensor,
+                  reward: torch.Tensor, depth_sum: torch.Tensor
+                  ) -> torch.Tensor:
+    """MuZero's ``expand``: returns the (B,) leaf values that
+    ``commit_rewards`` backs up. The fresh row at the slot is ``[UNALLOCATED
+    | prior]`` on every action where the game allocated (no mask and no
+    final position below the root; the priors renormalised over all
+    actions), else ``[ILLEGAL | 0]``; ``tree.reward`` at the slot takes
+    g's reward (0 where nothing was allocated); the root's visit count
+    gains one, the node count ``needs_alloc`` and ``depth_sum`` the depths.
+    The root's value sum is the backup's. A walk of depth 0 stops only at a
+    final root, whose result is its value.
+
+    On a CUDA tree (float32) one launch of ``expand_latent_kernel``;
+    otherwise the plain version, bit-equal (the legal mass in
+    ``legal_mass``'s order)."""
+    rows = tree.rows
+    if rows.device.type == "cpu":
+        return _expand_latent_plain(tree, needs_alloc, depth, policy, value,
+                                    reward, depth_sum)
+    if rows.dtype != torch.float32 or rows.dim() != 4 \
+            or not rows.is_contiguous():
+        raise ValueError("the CUDA tree kernels take a contiguous float32 "
+                         "(B, M, RS, 128) tree")
+    B, M, RS, L = rows.shape
+    A = env.NUM_ACTIONS
+    policy, value = policy.float().contiguous(), value.float().contiguous()
+    reward = reward.float().contiguous()
+    root = tree.root_state
+    _check_tensors((
+        ("reward store", tree.reward, torch.float32, (B, M)),
+        ("root_visit", tree.root_visit, torch.int32, (B,)),
+        ("node_count", tree.node_count, torch.int32, (B,)),
+        ("next_slot", tree.next_slot, torch.int32, ()),
+        ("root_state.turn", root.turn, torch.int8, (B,)),
+        ("root_state.winner", root.winner, torch.int8, (B,)),
+        ("root_state.done", root.done, torch.bool, (B,)),
+        ("needs_alloc", needs_alloc, torch.bool, (B,)),
+        ("depth", depth, torch.int32, (B,)),
+        ("policy", policy, torch.float32, (B, A)),
+        ("value", value, torch.float32, (B,)),
+        ("reward", reward, torch.float32, (B,)),
+        ("depth_sum", depth_sum, torch.int64, ())), rows.device)
+    cuda_build.check_device(rows.device)
+    value_out = torch.empty((B,), dtype=torch.float32, device=rows.device)
+    cuda_build.launch(
+        expand_latent, LIB.expand_latent_f32, rows.data_ptr(),
+        tree.reward.data_ptr(), tree.root_visit.data_ptr(),
+        tree.node_count.data_ptr(), tree.next_slot.data_ptr(),
+        root.turn.data_ptr(), root.winner.data_ptr(), root.done.data_ptr(),
+        needs_alloc.data_ptr(), depth.data_ptr(), policy.data_ptr(),
+        value.data_ptr(), reward.data_ptr(), value_out.data_ptr(),
+        depth_sum.data_ptr(), M, RS * L, B,
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    return value_out
+
+
+def _commit_rewards_plain(rows, reward, path_nodes, path_actions, depth,
+                          needs_alloc, value, slot, root_vsum, offsets):
+    # The kernel's walk for every game at once, a level at a time from the
+    # deepest (one read of the largest depth by the host).
+    B, M = rows.shape[:2]
+    flat = rows.view(B, M, -1)
+    b = torch.arange(B, device=rows.device)
+    o0, o1, o2 = offsets
+    G = value.float().clone()
+    alloc = torch.where(needs_alloc, (slot + 1).float(), 0.0)
+    for d in range(int(depth.max()) - 1, -1, -1):
+        on = d < depth
+        node = path_nodes[:, d].long()
+        a = path_actions[:, d].long()
+        ptr = flat[b, node, o0 + a]
+        ptr = torch.where(on & (d == depth - 1), ptr + alloc, ptr)
+        flat[b, node, o0 + a] = torch.where(on, ptr, flat[b, node, o0 + a])
+        child = ptr.long()
+        ok = (child > 0) & (child < M)
+        r = torch.where(ok, reward[b, child.clamp(0, M - 1)], 0.0)
+        G = torch.where(on, r - G, G)
+        visit = flat[b, node, o1 + a]
+        flat[b, node, o1 + a] = torch.where(on, visit + 1.0, visit)
+        vsum = flat[b, node, o2 + a]
+        flat[b, node, o2 + a] = torch.where(on, vsum + (-G), vsum)
+    root_vsum += G
+    return rows
+
+
+@cuda_build.counted
+def commit_rewards(rows: torch.Tensor, reward: torch.Tensor,
+                   path_nodes: torch.Tensor, path_actions: torch.Tensor,
+                   depth: torch.Tensor, needs_alloc: torch.Tensor,
+                   value: torch.Tensor, slot: torch.Tensor,
+                   root_vsum: torch.Tensor, offsets: tuple, num_actions: int
+                   ) -> torch.Tensor:
+    """MuZero's backup of a simulation, in place; returns ``rows``. From
+    the leaf's value ``G`` (the player to move there), each walked edge d
+    from the deepest up takes its child pointer (``slot + 1`` added on the
+    last edge where ``needs_alloc``), reads its child's reward r from the
+    (B, M) ``reward`` store (the player who took the edge's), sets ``G = r
+    - G``, gains a visit and adds ``-G`` to its value sum, the sum kept for
+    the child's mover as ``commit_path`` keeps it, so the descent's rule
+    is unchanged; the root's value sum gains the last ``G``. With every
+    reward 0 this is ``commit_path``'s sign flip, bit for bit.
+
+    On a CUDA tree one launch of ``commit_rewards_kernel``, a thread a
+    game, which reads the slot and the depths where they lie; on a CPU tree
+    the plain version (float32 trees), bit-equal."""
+    B, M, RS, L = rows.shape
+    if len(offsets) != 3:
+        raise ValueError(f"commit_rewards takes the three offsets (child "
+                         f"ptr, visit, vsum), got {tuple(offsets)}")
+    _check_offsets(offsets, num_actions, RS * L)
+    if rows.dtype != torch.float32:
+        raise TypeError(f"MuZero's search keeps a float32 tree, got "
+                        f"{rows.dtype}")
+    N = M - 1
+    _check_tensors((("reward", reward, torch.float32, (B, M)),
+                    ("path_nodes", path_nodes, torch.int32, (B, N)),
+                    ("path_actions", path_actions, torch.int32, (B, N)),
+                    ("depth", depth, torch.int32, (B,)),
+                    ("needs_alloc", needs_alloc, torch.bool, (B,)),
+                    ("value", value, torch.float32, (B,)),
+                    ("slot", slot, torch.int32, ()),
+                    ("root_vsum", root_vsum, torch.float32, (B,))),
+                   rows.device)
+    if rows.device.type == "cpu":
+        return _commit_rewards_plain(rows, reward, path_nodes, path_actions,
+                                     depth, needs_alloc, value, slot,
+                                     root_vsum, tuple(offsets))
+    _check_tree(rows)
+    cuda_build.launch(
+        commit_rewards, LIB.commit_rewards_f32, rows.data_ptr(),
+        reward.data_ptr(), path_nodes.data_ptr(), path_actions.data_ptr(),
+        depth.data_ptr(), needs_alloc.data_ptr(), value.data_ptr(),
+        slot.data_ptr(), root_vsum.data_ptr(), B, N, *offsets, M, RS * L,
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    return rows

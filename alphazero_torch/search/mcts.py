@@ -17,10 +17,21 @@ that trees compare row for row with the JAX package's:
 - child pointers are additive: -1 (UNALLOCATED) becomes the slot index
   when the backprop update of the allocating edge adds ``s+1``;
 - the descent path is recorded in (B, N) buffers and backprop walks it;
-- no per-node game state is stored: the descent steps the root state
-  along the walked edges, so the final state is the leaf state.
+- what a node holds besides its row depends on the evaluator. With a
+  function of real positions (the SE-ResNet, encoder and nested-bottleneck
+  bodies) no per-node game state is stored: the descent steps the root
+  state along the walked edges, so the final state is the leaf state, and
+  the evaluator maps its planes to (priors, value). With MuZero's
+  recurrent evaluator (``models/muzero_inference.py``) the env is stepped
+  nowhere below the root: each node keeps its hidden state in the tree's
+  latent store (``Tree.latent``, (B, slots, 64, C)) and the reward of the
+  transition into it (``Tree.reward``); a simulation reads its leaf's
+  parent state, runs the dynamics and prediction on it and the edge's
+  action, stores the new state, reward and priors at the fresh slot, and
+  backs up with the rewards (``_simulate_latent``).
 
-The search semantics are the JAX package's: FPU disabled by default
+The search semantics are the JAX package's (MuZero's departures are in
+``_simulate_latent``): FPU disabled by default
 (unvisited q = 0), u = c_puct * prior * sqrt(max(1, N_parent)) /
 (1 + N_child), priors renormalised over legal actions with a uniform
 fallback, the value sign flips every ply, root expansion does not count a
@@ -56,14 +67,30 @@ from torch.profiler import record_function
 
 from alphazero_torch import tracing
 from alphazero_torch.env import breakthrough as env
-from alphazero_torch.models import encoder_inference, inference, nbt_inference
+from alphazero_torch.models import (encoder_inference, inference,
+                                    muzero_inference, nbt_inference)
 from alphazero_torch.models.encoder import EncoderNet
+from alphazero_torch.models.muzero import MuZeroNet
 from alphazero_torch.models.nbt import NbtNet
 from alphazero_torch.models.network import policy_value_apply, wl_to_value
 from alphazero_torch.search import kernels
 
 Evaluator = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 # eval_fn(planes (B,3,8,8) f32) -> (policy_probs (B,192) f32, value (B,) f32)
+#
+# A recurrent evaluator (MuZero's, ``muzero_inference.Evaluator``; it sets
+# ``recurrent_evaluator``) is an object with two methods instead, each
+# writing the new hidden state into the latent store at ``store[:, slot]``:
+#   initial(planes, store, slot) -> (policy_probs, value, state (B*64, C))
+#   recurrent(state (B*64, C), action (B,) int32, store, slot)
+#       -> (policy_probs, value, reward (B,) f32, next state (B*64, C))
+# and its ``latent_shape`` (64, C) and ``dtype`` size the store.
+
+
+def is_recurrent(eval_fn) -> bool:
+    """Whether ``eval_fn`` is a recurrent (MuZero) evaluator."""
+    return bool(getattr(eval_fn, "recurrent_evaluator", False))
+
 
 # Child-pointer sentinels: ILLEGAL, an action illegal at this node, and
 # UNALLOCATED, a legal action whose child node does not exist yet.
@@ -126,6 +153,12 @@ class Tree:
                  check of ``search``; it is never read from the card
     captured:    the simulation ``search/graph.py`` captured on this tree's
                  buffers, or None
+    latent:      (B, N, 64, C) the hidden state at each slot, in the
+                 recurrent evaluator's dtype, or None (real-position
+                 searches); made by the first search with a recurrent
+                 evaluator and kept across ``init_tree(..., tree=)``
+    reward:      (B, N+1) float32 the reward of the transition into each
+                 slot (MuZero's), or None
 
     The tree owns its root state (contiguous copies); every field's tensor
     keeps its address for the tree's life, which a captured simulation
@@ -143,6 +176,10 @@ class Tree:
     slot_bound: int = 1
     captured: object = dataclasses.field(default=None, repr=False,
                                          compare=False)
+    latent: torch.Tensor | None = dataclasses.field(default=None, repr=False,
+                                                    compare=False)
+    reward: torch.Tensor | None = dataclasses.field(default=None, repr=False,
+                                                    compare=False)
 
     @property
     def num_actions(self) -> int:
@@ -234,7 +271,7 @@ class SearchStats:
     per-level descent ran (CPU trees only: on a CUDA tree no one reads how
     deep a descent went), the host's reads of a device value inside
     simulations (one per level of the CPU's descent; none on a CUDA
-    tree), and the per-game edge depth summed over games and simulations
+    tree), the per-game edge depth summed over games and simulations
     (``depth_sum``, read from one accumulator per device that the
     simulation adds to in place, so that a captured simulation adds to it
     on every replay)."""
@@ -312,6 +349,8 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec,
     lives on the device): it is what ``search/graph.py`` captures. Every
     tensor it writes outside ``out`` is a field of the tree, in place, or
     the depth accumulator of ``STATS``."""
+    if tree.latent is not None:
+        return _simulate_latent(tree, eval_fn, spec, out, eval_ctx)
     A = spec.num_actions
     rows = tree.rows
 
@@ -350,6 +389,66 @@ def _simulate_once(tree: Tree, eval_fn: Evaluator, spec: SearchSpec,
     return out
 
 
+def _simulate_latent(tree: Tree, eval_fn, spec: SearchSpec, out=None,
+                     eval_ctx=None):
+    """MuZero's simulation for every game, in place, as the paper's
+    pseudocode runs it (``run_mcts``): the PUCT walk over the tree alone,
+    no mask and no final position below the root; the dynamics and the
+    prediction on the leaf's parent state and the edge's action; the new
+    state, reward and priors at the fresh slot; the backup with the
+    rewards, ``G <- r - G`` an edge from the leaf's value up (a two-player
+    form of the pseudocode's ``backpropagate`` at discount 1). The PUCT
+    rule is the port's (c_puct, unvisited q = 0), not the pseudocode's
+    pb_c schedule with MinMaxStats: with values bounded in [-1, 1] the
+    normalisation is a fixed affine map, and pb_c's log term moves under 4%
+    over 800 visits. Nothing is read by the host on a CUDA tree: it is what
+    ``search/graph.py`` captures, as ``_simulate_once``."""
+    A = spec.num_actions
+    rows = tree.rows
+    with record_function("mcts.descend"):
+        out = kernels.descend_latent(rows, tree.root_visit, tree.root_vsum,
+                                     A, spec.c_puct, spec.fpu_reduction, out)
+        _, needs_alloc, depth, path_nodes, path_actions, levels = out
+        if levels is not None:
+            STATS.levels += levels
+            STATS.host_syncs += levels
+    with record_function("mcts.evaluate"):
+        state, action = kernels.gather_latent(tree.latent, depth, path_nodes,
+                                              path_actions)
+        policy, value, reward, _ = (
+            eval_fn.recurrent(state, action, tree.latent, tree.next_slot)
+            if eval_ctx is None else
+            eval_fn.recurrent(state, action, tree.latent, tree.next_slot,
+                              ctx=eval_ctx))
+    with record_function("mcts.expand"):
+        value = kernels.expand_latent(tree, needs_alloc, depth, policy, value,
+                                      reward,
+                                      STATS.depth_accumulator(rows.device))
+    with record_function("mcts.backprop"):
+        kernels.commit_rewards(rows, tree.reward, path_nodes, path_actions,
+                               depth, needs_alloc, value, tree.next_slot,
+                               tree.root_vsum, (0, 2 * A, 3 * A), A)
+    tree.next_slot += 1
+    STATS.simulations += 1
+    return out
+
+
+def _latent_store(tree: Tree, eval_fn, spec: SearchSpec) -> None:
+    """Gives ``tree`` the latent and reward stores that ``eval_fn`` (a
+    recurrent evaluator) needs, unless it has them at that shape."""
+    if spec.value_dtype != torch.float32:
+        raise ValueError(f"MuZero's search keeps a float32 tree, got "
+                         f"{spec.value_dtype}")
+    B, M = tree.rows.shape[:2]
+    shape = (B, M - 1, *eval_fn.latent_shape)
+    dev = tree.rows.device
+    if tree.latent is None or tuple(tree.latent.shape) != shape \
+            or tree.latent.dtype != eval_fn.dtype:
+        tree.latent = torch.zeros(shape, dtype=eval_fn.dtype, device=dev)
+        tree.reward = torch.zeros((B, M), dtype=torch.float32, device=dev)
+        tree.captured = None
+
+
 # -----------------------------------------------------------------------------
 # Top-level search
 # -----------------------------------------------------------------------------
@@ -386,12 +485,24 @@ def search(
     to); ``capture=True`` on a CPU tree raises, as a failed capture does:
     nothing falls back.
 
+    A recurrent (MuZero) evaluator runs its representation on the root's
+    planes (the span ``search.represent``, inside ``search.root``) into
+    slot 0 of the tree's latent store, which the first such search makes;
+    the root's priors are masked to the legal moves as for any evaluator,
+    and the simulations are ``_simulate_latent``'s.
+
     The root expansion, the noise and the simulations are the spans
     ``search.root``, ``search.noise`` and ``search.simulations``
     (``alphazero_torch.tracing``), the last with its device time.
     """
     if tree is None:
         tree = init_tree(root_states, spec)
+    recurrent = is_recurrent(eval_fn)
+    if recurrent:
+        _latent_store(tree, eval_fn, spec)
+    elif tree.latent is not None:
+        tree.latent = tree.reward = None
+        tree.captured = None
     on_card = tree.rows.device.type == "cuda"
     if capture and not on_card:
         raise ValueError(f"capture=True needs a CUDA tree; this one is on "
@@ -407,8 +518,18 @@ def search(
     # Root expansion (does not count a visit).
     with tracing.span("search.root"):
         root_planes = env.encoded_state(tree.root_state)
-        policy, _ = (eval_fn(root_planes) if eval_ctx is None
-                     else eval_fn(root_planes, eval_ctx))
+        if recurrent:
+            with tracing.span("search.represent"):
+                slot0 = torch.zeros((), dtype=torch.int32,
+                                    device=tree.rows.device)
+                policy, _, _ = (
+                    eval_fn.initial(root_planes, tree.latent, slot0)
+                    if eval_ctx is None else
+                    eval_fn.initial(root_planes, tree.latent, slot0,
+                                    ctx=eval_ctx))
+        else:
+            policy, _ = (eval_fn(root_planes) if eval_ctx is None
+                         else eval_fn(root_planes, eval_ctx))
         legal = env.legal_action_mask(tree.root_state)
         root_flat = _root_flat(tree)
         root_child = root_flat[:, :A]
@@ -471,6 +592,11 @@ def advance_root(
     """
     if not spec.tree_reuse:
         raise ValueError("advance_root requires spec.tree_reuse")
+    if tree.latent is not None:
+        raise ValueError(
+            "advance_root does not carry MuZero's latent store: a tree "
+            "searched with a recurrent evaluator restarts from fresh roots "
+            "every move (tree_reuse off)")
     vdt = spec.value_dtype
     A = spec.num_actions
     B, M = tree.rows.shape[:2]
@@ -665,8 +791,13 @@ def make_net_evaluator(net, dtype=torch.float32) -> Evaluator:
     call, so a search can capture it. An ``EncoderNet`` (the encoder
     body) and an ``NbtNet`` (the nested-bottleneck body) take their own
     routes in any dtype but float32, ``models/encoder_inference.py`` and
-    ``models/nbt_inference.py``, chosen here once by the net's type.
+    ``models/nbt_inference.py``, chosen here once by the net's type. A
+    ``MuZeroNet`` gives its recurrent evaluator in any dtype
+    (``muzero_inference.Evaluator``: the module's functions in float32,
+    its bf16 route otherwise).
     """
+    if isinstance(net, MuZeroNet):
+        return muzero_inference.Evaluator(net, dtype)
     if dtype == torch.float32:
         net.eval()
 

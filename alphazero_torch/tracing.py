@@ -44,6 +44,8 @@ NAMES = (
     "selfplay.autoreset",
     # a search (search/mcts.py:search)
     "search.root", "search.noise", "search.simulations",
+    # MuZero's representation of the roots, inside search.root
+    "search.represent",
     # the web server (web/server.py)
     "web.request", "bot.search",
     # a learner step (train/learner.py:train_step)

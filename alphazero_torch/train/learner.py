@@ -13,6 +13,13 @@ contract:
 - horizontal-mirror augmentation: a per-sample random mirror on the
   device (state column flip + a constant 192-permutation of the policy)
 
+MuZero's net (``models/muzero.py``) trains on the unrolled loss of the
+paper's ``update_weights`` (``muzero_loss_fn``): from each sampled
+position, h then f, and K times g then f along the game's later actions,
+against the policy, win/loss and reward targets of ``ReplayBuffer.unroll``;
+the mirror flips the planes and maps the actions and policies through the
+same permutation.
+
 The optimizer is ``torch.optim.Adam(weight_decay=...)``, which adds
 ``weight_decay * param`` to the gradient before the moments, after a clip
 written out here: ``clip_grad_norm_`` scales by ``clip / (norm + 1e-6)``,
@@ -33,6 +40,7 @@ import torch
 
 from alphazero_torch import resolve_device, tracing
 from alphazero_torch.config import Config
+from alphazero_torch.models.muzero import MuZeroNet
 from alphazero_torch.models.network import AlphaZeroNet
 from alphazero_torch.parallel.mesh import all_reduce_mean_
 
@@ -106,6 +114,47 @@ def loss_fn(net: AlphaZeroNet, states, target_pi, target_wl):
     return loss_pi + loss_wl, loss_pi, loss_wl
 
 
+def scale_gradient(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """The value of ``x`` with its gradient times ``scale`` (the paper's
+    ``scale_gradient``)."""
+    return x * scale + x.detach() * (1.0 - scale)
+
+
+def muzero_loss_fn(net, states, actions, target_pi, target_wl, target_r,
+                   pi_mask):
+    """MuZero's unrolled loss over a batch of B positions and K steps:
+    ``actions`` (B, K), ``target_pi`` (B, K+1, A), ``target_wl`` (B, K+1,
+    2), ``target_r`` (B, K), ``pi_mask`` (B, K+1), as
+    ``ReplayBuffer.unroll`` gives them. Each step's loss is the policy's
+    soft cross-entropy (masked on absorbing steps), the win/loss
+    cross-entropy and, past step 0, the reward's squared error (the
+    pseudocode's ``scalar_loss`` for board games), each a batch mean; a
+    recurrent step's gradient is scaled by 1/K and the state after each g
+    by 1/2. Returns (loss, loss_pi, loss_wl, loss_r), the parts summed over
+    the steps."""
+    K = actions.shape[1]
+    s = net.represent(states)
+    loss = loss_pi = loss_wl = loss_r = 0.0
+    for k in range(K + 1):
+        if k:
+            s, r = net.dynamics(s, actions[:, k - 1])
+        policy_logits, wl_logits = net.predict(s)
+        l_pi = -(pi_mask[:, k] * (target_pi[:, k] * torch.log_softmax(
+            policy_logits, dim=-1)).sum(-1)).mean()
+        l_wl = -(target_wl[:, k] * torch.log_softmax(
+            wl_logits, dim=-1)).sum(-1).mean()
+        step = l_pi + l_wl
+        if k:
+            l_r = ((r - target_r[:, k - 1]) ** 2).mean()
+            step = scale_gradient(step + l_r, 1.0 / K)
+            loss_r = loss_r + l_r.detach()
+            s = scale_gradient(s, 0.5)
+        loss = loss + step
+        loss_pi = loss_pi + l_pi.detach()
+        loss_wl = loss_wl + l_wl.detach()
+    return loss, loss_pi, loss_wl, loss_r
+
+
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     """Scale the gradients in place to a global norm of at most
     ``max_norm``, as optax does: untouched under the limit, ``g / norm *
@@ -132,13 +181,28 @@ def train_step(state: TrainState, batch: Batch, mirror_bits: torch.Tensor,
     global batch's (``parallel.sharded_train_step``). The forward, the
     backward (with the gradients' average) and the clip with the optimizer
     are the spans ``learn.forward``, ``learn.backward`` and
-    ``learn.optimizer`` (``alphazero_torch.tracing``)."""
-    states, target_pi, target_wl = batch
+    ``learn.optimizer`` (``alphazero_torch.tracing``).
+
+    MuZero's net takes ``ReplayBuffer.unroll``'s six tensors (planes,
+    actions, target_pi, target_wl, target_r, pi_mask) as its ``batch`` and
+    the unrolled loss (``muzero_loss_fn``); its metrics add ``loss_r``."""
+    muzero = isinstance(state.net, MuZeroNet)
+    if muzero:
+        states, actions, target_pi, target_wl, target_r, pi_mask = batch
+        # the mirror is an involution: its gather maps actions as well
+        actions = torch.where(mirror_bits[:, None],
+                              state.mirror_gather[actions], actions)
+    else:
+        states, target_pi, target_wl = batch
     states = states.float()
 
     m = mirror_bits[:, None]
-    target_pi = torch.where(m, target_pi[:, state.mirror_gather], target_pi)
-    states = torch.where(m[..., None, None], states.flip(-1), states)
+    if muzero:
+        m = m[..., None]
+    target_pi = torch.where(m, target_pi[..., state.mirror_gather],
+                            target_pi)
+    states = torch.where(mirror_bits[:, None, None, None], states.flip(-1),
+                         states)
 
     lr = cosine_lr(cfg, state.learn_calls)
     for group in state.opt.param_groups:
@@ -147,8 +211,13 @@ def train_step(state: TrainState, batch: Batch, mirror_bits: torch.Tensor,
     state.net.train()
     state.opt.zero_grad(set_to_none=True)
     with tracing.span("learn.forward"):
-        loss, loss_pi, loss_wl = loss_fn(state.net, states, target_pi,
-                                         target_wl)
+        if muzero:
+            loss, loss_pi, loss_wl, loss_r = muzero_loss_fn(
+                state.net, states, actions, target_pi, target_wl, target_r,
+                pi_mask)
+        else:
+            loss, loss_pi, loss_wl = loss_fn(state.net, states, target_pi,
+                                             target_wl)
     params = list(state.net.parameters())
     with tracing.span("learn.backward"):
         loss.backward()
@@ -162,8 +231,11 @@ def train_step(state: TrainState, batch: Batch, mirror_bits: torch.Tensor,
     with tracing.span("learn.optimizer"):
         clip_by_global_norm_(params, cfg.grad_clip_norm)
         state.opt.step()
-    return {"loss": loss.detach(), "loss_pi": loss_pi.detach(),
-            "loss_wl": loss_wl.detach(), "lr": lr}
+    out = {"loss": loss.detach(), "loss_pi": loss_pi.detach(),
+           "loss_wl": loss_wl.detach(), "lr": lr}
+    if muzero:
+        out["loss_r"] = loss_r
+    return out
 
 
 def update_rows(states, policies, wls, s_upd, p_upd, w_upd, start: int):

@@ -130,15 +130,23 @@ def selfplay_move_tree(states: env.EnvState, tree: Tree,
         return new_states, planes, probs, actions, values, new_tree
 
 
-def _emit_examples(planes_all, probs_all, mover_all, m_idx, g_idx, winners):
+def _emit_examples(planes_all, probs_all, mover_all, m_idx, g_idx, winners,
+                   actions_all=None, left=None):
     """(state, pi, WL-from-mover) examples for the selected (move, game)
-    pairs."""
+    pairs. With ``actions_all`` (M, B) and ``left`` (the moves of its
+    game after each pair) each example is a trajectory's ply, (state, pi,
+    WL, action played, moves left), and the pairs must come game by game
+    in move order."""
     white_won = (winners == env.WHITE).astype(np.float32)
     mover_is_white = (mover_all[m_idx, g_idx] == env.WHITE)
     win = np.where(mover_is_white, white_won, 1.0 - white_won)
     wls = np.stack([win, 1.0 - win], axis=-1).astype(np.float32)
     sel_planes = planes_all[m_idx, g_idx]
     sel_probs = probs_all[m_idx, g_idx]
+    if actions_all is not None:
+        acts = actions_all[m_idx, g_idx]
+        return [(sel_planes[j], sel_probs[j], wls[j], int(acts[j]),
+                 int(left[j])) for j in range(len(m_idx))]
     return [(sel_planes[j], sel_probs[j], wls[j]) for j in range(len(m_idx))]
 
 
@@ -156,12 +164,15 @@ def selfplay_games(
     num_games: int | None = None,
     max_moves: int | None = None,
     device="cuda",
+    trajectory: bool = False,
 ) -> Tuple[List[Tuple[np.ndarray, np.ndarray, np.ndarray]], dict]:
     """Play ``num_games`` lockstep self-play games to completion.
 
     Returns (examples, stats): examples are (planes (3,8,8) uint8 0/1,
     probs (192,) f32, wl (2,) f32) tuples; stats carries counters.
-    ``generator`` must live on ``device``.
+    ``generator`` must live on ``device``. With ``trajectory`` (MuZero's
+    learner) each example also holds the action played and the moves left
+    in its game, and the examples come game by game in move order.
     """
     dev = resolve_device(device)
     num_games = num_games or cfg.parallel_games
@@ -172,18 +183,20 @@ def selfplay_games(
     tree = init_tree(states, spec)
 
     rec_planes, rec_probs, rec_mover, rec_active = [], [], [], []
+    rec_actions = []
     moves_played = 0
     for m in range(max_moves):
         pre_turn = states.turn
         pre_active = ~states.done
         if spec.tree_reuse:
-            states, planes, probs, _, _, tree = selfplay_move_tree(
+            states, planes, probs, actions, _, tree = selfplay_move_tree(
                 states, tree, generator, eval_fn, spec,
                 cfg.temperature_threshold)
         else:
-            states, planes, probs, _, _ = selfplay_move(
+            states, planes, probs, actions, _ = selfplay_move(
                 states, generator, eval_fn, spec, cfg.temperature_threshold,
                 tree)
+        rec_actions.append(actions)
         rec_planes.append(planes)
         rec_probs.append(probs)
         rec_mover.append(pre_turn)
@@ -203,8 +216,18 @@ def selfplay_games(
     # discarded, like the reference).
     emit = active_all & finished[None, :]               # (M, B)
     m_idx, g_idx = np.nonzero(emit)
-    examples = _emit_examples(planes_all, probs_all, mover_all,
-                              m_idx, g_idx, winner[g_idx])
+    if trajectory:
+        # game by game, in move order; a game's active moves are its first
+        order = np.lexsort((m_idx, g_idx))
+        m_idx, g_idx = m_idx[order], g_idx[order]
+        plies = emit.sum(0)
+        examples = _emit_examples(planes_all, probs_all, mover_all,
+                                  m_idx, g_idx, winner[g_idx],
+                                  _to_numpy(rec_actions),
+                                  plies[g_idx] - 1 - m_idx)
+    else:
+        examples = _emit_examples(planes_all, probs_all, mover_all,
+                                  m_idx, g_idx, winner[g_idx])
 
     stats = {
         "games": int(finished.sum()),
@@ -235,12 +258,21 @@ def selfplay_move_autoreset(states: env.EnvState, generator: torch.Generator,
     lanes whose episode completed ON this move, with ``winner`` its
     result; new_states holds fresh games for those lanes. ``tree`` as in
     ``selfplay_move``."""
+    return _autoreset_move(states, generator, eval_fn, spec,
+                           temperature_threshold, tree)[:5]
+
+
+def _autoreset_move(states, generator, eval_fn, spec, temperature_threshold,
+                    tree):
+    """``selfplay_move_autoreset``'s move, with the actions played as a
+    sixth result."""
     with tracing.span("selfplay.move"):
-        _, planes, probs, _, new_states = _fresh_move(
+        _, planes, probs, actions, new_states = _fresh_move(
             states, tree, generator, eval_fn, spec, temperature_threshold)
         ended = new_states.done
         winner = new_states.winner
-        return _reset_ended(new_states, ended), planes, probs, ended, winner
+        return (_reset_ended(new_states, ended), planes, probs, ended, winner,
+                actions)
 
 
 def selfplay_move_autoreset_tree(states: env.EnvState, tree: Tree,
@@ -268,10 +300,12 @@ def selfplay_games_continuous(
     num_games: int | None = None,
     max_moves: int | None = None,
     device="cuda",
+    trajectory: bool = False,
 ) -> Tuple[List[Tuple[np.ndarray, np.ndarray, np.ndarray]], dict]:
     """Play AT LEAST ``num_games`` self-play games with auto-resetting
     lanes. Every completed episode contributes all of its moves; episodes
-    still in flight when the target is reached are discarded."""
+    still in flight when the target is reached are discarded.
+    ``trajectory`` as in ``selfplay_games``."""
     dev = resolve_device(device)
     num_games = num_games or cfg.parallel_games
     max_moves = max_moves or cfg.max_game_length
@@ -283,6 +317,7 @@ def selfplay_games_continuous(
 
     rec_planes, rec_probs, rec_mover, rec_ended, rec_winner = \
         [], [], [], [], []
+    rec_actions = []
     # generous cap: resets keep lanes busy, so num_games episodes need
     # about (num_games / B) * avg_game_length lockstep moves
     move_cap = max_moves * (num_games // B + 2)
@@ -296,9 +331,10 @@ def selfplay_games_continuous(
                 states, tree, generator, eval_fn, spec,
                 cfg.temperature_threshold)
         else:
-            states, planes, probs, ended, winner = selfplay_move_autoreset(
-                states, generator, eval_fn, spec, cfg.temperature_threshold,
-                tree)
+            (states, planes, probs, ended, winner,
+             actions) = _autoreset_move(states, generator, eval_fn, spec,
+                                        cfg.temperature_threshold, tree)
+            rec_actions.append(actions)
         rec_planes.append(planes)
         rec_probs.append(probs)
         rec_mover.append(pre_turn)
@@ -332,9 +368,22 @@ def selfplay_games_continuous(
     lane = np.broadcast_to(np.arange(B)[None, :], (M, B))
     emit = ended_flag[lane, ep_id]
     m_idx, g_idx = np.nonzero(emit)
-    winners = winner_of[g_idx, ep_id[m_idx, g_idx]]
-    examples = _emit_examples(planes_all, probs_all, mover_all,
-                              m_idx, g_idx, winners)
+    if trajectory:
+        if spec.tree_reuse:
+            raise ValueError("trajectories are recorded without tree reuse")
+        # game by game (lane, then episode), in move order
+        order = np.lexsort((m_idx, g_idx))
+        m_idx, g_idx = m_idx[order], g_idx[order]
+        last = np.zeros((B, max_eps + 1), np.int64)
+        last[eb, ep_id[em, eb]] = em
+        winners = winner_of[g_idx, ep_id[m_idx, g_idx]]
+        examples = _emit_examples(
+            planes_all, probs_all, mover_all, m_idx, g_idx, winners,
+            _to_numpy(rec_actions), last[g_idx, ep_id[m_idx, g_idx]] - m_idx)
+    else:
+        winners = winner_of[g_idx, ep_id[m_idx, g_idx]]
+        examples = _emit_examples(planes_all, probs_all, mover_all,
+                                  m_idx, g_idx, winners)
 
     stats = {
         "games": int(n_eps.sum()),

@@ -76,6 +76,9 @@ class Trainer:
                              f"int8 evaluator is the SE-ResNet's; the "
                              f"{cfg.body} body searches in "
                              f"{cfg.inference_dtype}")
+        if cfg.body == "muzero" and cfg.tree_reuse:
+            raise ValueError("tree_reuse: MuZero's search does not carry its "
+                             "latent store across moves (advance_root)")
         self.cfg = cfg
         self.mesh = mesh
         self.rank, self.world = (mesh.rank, mesh.world) if mesh else (0, 1)
@@ -101,8 +104,11 @@ class Trainer:
         self.state = state
         if mesh is not None:
             replicate(mesh, self.state)
+        # MuZero's learner unrolls each game's trajectory
+        self.muzero = cfg.body == "muzero"
         self.buffer = ReplayBuffer(cfg.buffer_size,
-                                   num_actions=cfg.num_actions)
+                                   num_actions=cfg.num_actions,
+                                   trajectory=self.muzero)
         # explicit streams, one set per rank (every rank plays different
         # games): self-play noise and sampling on the device, epoch
         # shuffling on the host; rank 0's are the single-process ones.
@@ -171,7 +177,8 @@ class Trainer:
                 else selfplay_games)
         with self._maybe_profile("selfplay"):
             examples, stats = play(eval_fn, self.cfg, self.gen,
-                                   num_games=num_games, device=self.device)
+                                   num_games=num_games, device=self.device,
+                                   trajectory=self.muzero)
         return examples, stats
 
     # -- learning ----------------------------------------------------------
@@ -212,6 +219,8 @@ class Trainer:
                 "rank on its own data with no all-reduce (silent parameter "
                 "divergence)")
         local_bs = batch_size // self.world
+        if self.muzero and self.world > 1:
+            raise ValueError("MuZero's learner runs on one process")
         steps = None
         if self.world > 1:
             # collectives are lockstep: every rank runs rank 0's count
@@ -228,7 +237,7 @@ class Trainer:
                 # once, shuffled (see epoch_batches)
                 base_idx, mirrors = epoch_batches(
                     self.np_rng, len(self.buffer), local_bs, steps=steps)
-                if self.cfg.device_replay:
+                if self.cfg.device_replay and not self.muzero:
                     step_metrics.append(train_epoch(
                         self.state, self._device_replay(),
                         torch.from_numpy(base_idx).to(self.device),
@@ -236,8 +245,12 @@ class Trainer:
                         self.cfg, mesh=self.mesh))
                     continue
                 for bi, mirror in zip(base_idx, mirrors):
+                    # MuZero's batches are unrolled on the host
+                    rows = (self.buffer.unroll(bi, self.cfg.mz_unroll,
+                                               self.np_rng)
+                            if self.muzero else self.buffer.get(bi))
                     batch = tuple(torch.from_numpy(x).to(self.device)
-                                  for x in self.buffer.get(bi))
+                                  for x in rows)
                     m = train_step(
                         self.state, batch,
                         torch.from_numpy(mirror).to(self.device), self.cfg,
@@ -276,6 +289,13 @@ class Trainer:
         self.state = create_train_state(cfg, net, device=self.device)
         if self.mesh is not None:
             replicate(self.mesh, self.state)
+        if (cfg.body == "muzero") != self.muzero:
+            # the replay's kind follows the body: MuZero's keeps games
+            self.muzero = cfg.body == "muzero"
+            self.buffer = ReplayBuffer(cfg.buffer_size,
+                                       num_actions=cfg.num_actions,
+                                       trajectory=self.muzero)
+            self._dev_replay = None
 
     def resume(self) -> int:
         """Load the latest checkpoint + replay tail; returns iteration.
@@ -339,9 +359,8 @@ class Trainer:
 
         if new_examples:
             self.buffer.add_arrays(
-                np.stack([e[0] for e in new_examples]),
-                np.stack([e[1] for e in new_examples]),
-                np.stack([e[2] for e in new_examples]))
+                *(np.stack([e[i] for e in new_examples])
+                  for i in range(len(new_examples[0]))))
         t1 = time.time()
         metrics = self.learn()
         learn_s = time.time() - t1

@@ -126,6 +126,19 @@ launches of the replays.
   ``residual_act``, 10 ``gpool_bias``, 30 ``bn_act`` and 112 ``conv3x3``
   a forward, no capture, no host read), and a profile of the captured
   search for both kernels' device time inside the replays;
+- phase 21 (``muzero``): MuZero's board-game nets at the paper's widths
+  (16 + 16 blocks of 256, the norms set to one batch's statistics): its
+  two kernels at 512 boards, ``action_term`` over every action and
+  ``latent_scale`` with its store write, bit-equal to their plain versions
+  and timed beside their bounds; the four tree kernels of its search
+  (``descend_latent``, ``gather_latent``, ``expand_latent``,
+  ``commit_rewards``) on a searched tree bit-equal to their plain
+  versions on the CPU; a captured 512 x 800 self-play move against the
+  eager one from the same state (trees, stores and launches equal), with
+  the launch counters zeroed before it (34 ``conv3x3``, 16
+  ``residual_act``, one ``action_term`` and one ``latent_scale`` a
+  simulation, no capture in the counted move, no host read), and a
+  profile of the captured search;
 - phase 5: continuous self-play (128 lanes x 16 simulations);
 - phase 7: the fused path at full width (512 positions, 800 evaluations
   in a row) beside the layer-by-layer bf16 net;
@@ -4050,10 +4063,233 @@ def phase_distributed(card, single_step_ms):
     return launches
 
 
+MZ_SIMS = 800                      # MuZero's board-game simulations
+
+
+def muzero_bound_ms(kind, B, C):
+    """(least ms, what binds it, bytes, operations) of one launch of
+    MuZero's kernels at B boards of width C: ``action_term`` reads y and
+    writes its output (bf16), a few operations an element;
+    ``latent_scale`` reads x and writes it twice."""
+    n = B * 64 * C
+    moved = (2 if kind == "action_term" else 3) * n * 2
+    ops = (6 if kind == "action_term" else 4) * n
+    ms = max(moved / 3.35e12, ops / 989e12) * 1e3
+    return ms, "bytes" if moved / 3.35e12 >= ops / 989e12 else "ops", \
+        moved, ops
+
+
+@phase("phase 21 muzero")
+def phase_muzero(dev, card):
+    """MuZero at the paper's widths: its kernels against their plain
+    versions and timed, its tree kernels against theirs, and a captured
+    512 x 800 move against the eager one (phase list above)."""
+    from alphazero_torch.config import Config
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import conv
+    from alphazero_torch.models import muzero_inference as mi
+    from alphazero_torch.models.nbt_epilogue import residual_act
+    from alphazero_torch.models.network import BatchNorm2d, build_network
+    from alphazero_torch.search import graph, kernels, mcts
+    from alphazero_torch.train import selfplay
+
+    cfg = Config(body="muzero", num_simulations=MZ_SIMS,
+                 parallel_games=GAMES)
+    net = build_network(cfg, dev, torch.Generator().manual_seed(21))
+    planes = env.encoded_state(random_positions(GAMES, 21)).to(dev)
+    acts = torch.randint(0, 192, (GAMES,), device=dev,
+                         generator=torch.Generator(dev).manual_seed(21))
+    norms = [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.momentum = 1.0
+    net.train()
+    with torch.no_grad():
+        s = net.represent(planes)
+        net.predict(s)
+        net.dynamics(s, acts)
+    net.eval()
+    for m in norms:
+        m.momentum = 0.01
+    prep = mi.prepare(net)
+    C = cfg.mz_filters
+    out = {"checks": {}, "times": {}}
+
+    # the kernels against their plain versions: action_term over all 192
+    # actions (every edge and corner of the padding), latent_scale with
+    # its store write at a slot
+    x = torch.rand((GAMES * 64, C), device=dev).to(torch.bfloat16) * 4 - 2
+    every = torch.arange(GAMES, device=dev, dtype=torch.int32) % 192
+    t = prep["dynamics"]
+    args = (x, every, t["taps"], t["ones"], t["bn"])
+    got = mi.action_term(*args)
+    want = mi.action_term_plain(*(a.cpu() for a in args[:4]),
+                                tuple(b.cpu() for b in args[4]))
+    out["checks"]["action_term"] = {
+        "unequal": int((got.cpu() != want).sum()),
+        "max_abs_err": float((got.cpu().float() - want.float()).abs().max())}
+    store = torch.zeros((GAMES, 3, 64, C), dtype=torch.bfloat16, device=dev)
+    slot = torch.full((), 2, dtype=torch.int32, device=dev)
+    got = mi.latent_scale(x, store, slot)
+    cpu_store = torch.zeros(store.shape, dtype=torch.bfloat16)
+    want = mi.latent_scale_plain(x.cpu(), cpu_store, slot.cpu())
+    out["checks"]["latent_scale"] = {
+        "unequal": int((got.cpu() != want).sum())
+        + int((store.cpu() != cpu_store).sum()),
+        "max_abs_err": float((got.cpu().float() - want.float()).abs().max())}
+    for k, r in out["checks"].items():
+        check(r["unequal"] == 0, f"{k} against its plain version: {r}")
+    print("muzero kernels against their plain versions at "
+          f"{GAMES} boards " + json.dumps(out["checks"]), flush=True)
+    for kind, kern in (
+            ("action_term", lambda i: mi.action_term(*args)),
+            ("latent_scale", lambda i: mi.latent_scale(x, store, slot)),
+            ("residual_act", lambda i: residual_act(x, prep["identity"], x))):
+        turns = [cuda_ms(kern, iters=20, warmup=3, sleep_ms=200, what=kind)
+                 for _ in range(2)]
+        bound = muzero_bound_ms(kind, GAMES, C)
+        tm = {"ms": sum(turns) / 2, "turns_ms": turns, "bound_ms": bound[0],
+              "bound_by": bound[1], "bytes": bound[2], "ops": bound[3]}
+        tm["roofline_pct"] = 100 * tm["bound_ms"] / tm["ms"]
+        out["times"][kind] = tm
+    print(f"muzero kernels at {GAMES} boards: " + json.dumps(out["times"]),
+          flush=True)
+
+    # the main path: a warm-up move captures the simulation; the counted
+    # move replays it
+    eval_fn = mcts.make_net_evaluator(net, torch.bfloat16)
+    spec = selfplay.search_spec(cfg)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    states = env.initial_state((GAMES,), device=dev)
+    tree = mcts.init_tree(states, spec)
+    graph.STATS.reset()
+    _, _, _, _, states = selfplay._searched_move(
+        states, tree, gen, eval_fn, spec, cfg.temperature_threshold)
+    torch.cuda.synchronize()
+    check(graph.STATS.captures == 1,
+          f"the first muzero move made {graph.STATS.captures} captures")
+    counted = {"conv3x3": conv.conv3x3, "residual_act": residual_act,
+               "action_term": mi.action_term,
+               "latent_scale": mi.latent_scale,
+               "descend_latent": kernels.descend_latent,
+               "gather_latent": kernels.gather_latent,
+               "expand_latent": kernels.expand_latent,
+               "commit_rewards": kernels.commit_rewards}
+    graph.STATS.reset()
+    mcts.STATS.reset()
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    states, _, probs, _, values = selfplay.selfplay_move(
+        states, gen, eval_fn, spec, cfg.temperature_threshold, tree)
+    torch.cuda.synchronize()
+    move_s = time.time() - t0
+    got = {k: fn.launches for k, fn in counted.items()}
+    blocks = cfg.mz_blocks
+    per_sim = {"conv3x3": 2 * blocks + 2, "residual_act": blocks,
+               "action_term": 1, "latent_scale": 1, "descend_latent": 1,
+               "gather_latent": 1, "expand_latent": 1, "commit_rewards": 1}
+    root = {"conv3x3": 2 * blocks + 2, "residual_act": blocks,
+            "latent_scale": 1}
+    want = {k: n * MZ_SIMS + root.get(k, 0) for k, n in per_sim.items()}
+    check(got == want and graph.STATS.captures == 0
+          and graph.STATS.replays == MZ_SIMS
+          and mcts.STATS.host_syncs == 0,
+          f"a captured muzero move of {MZ_SIMS} simulations: launches "
+          f"{got} (want {want}), {graph.STATS.captures} captures, "
+          f"{graph.STATS.replays} replays, {mcts.STATS.host_syncs} host "
+          "syncs")
+    check(bool(((probs.sum(-1) - 1).abs() < 1e-5).all())
+          and bool(torch.isfinite(values).all()), "muzero move's outputs")
+    out["move"] = {"games": GAMES, "sims": MZ_SIMS, "move_s": move_s,
+                   "launches": got, "sims_per_s": GAMES * MZ_SIMS / move_s,
+                   "memory_peak_bytes": torch.cuda.max_memory_allocated(),
+                   "latent_bytes": tree.latent.numel() * 2}
+
+    # the tree kernels against their plain versions on this searched tree:
+    # one more simulation's steps, card against CPU copies
+    cpu_tree = mcts.Tree(
+        rows=tree.rows.cpu(), root_state=env.EnvState(*(
+            getattr(tree.root_state, f).cpu() for f in
+            ("board", "turn", "winner", "done", "move_count"))),
+        root_visit=tree.root_visit.cpu(), root_vsum=tree.root_vsum.cpu(),
+        node_count=tree.node_count.cpu(), next_slot=tree.next_slot.cpu(),
+        parents=tree.parents.cpu(), n_actions=192)
+    cpu_tree.latent, cpu_tree.reward = tree.latent.cpu(), tree.reward.cpu()
+    # the tree is full after the move: run the step at its last slot
+    tree.next_slot.fill_(MZ_SIMS)
+    cpu_tree.next_slot.fill_(MZ_SIMS)
+    A = 192
+    d_card = kernels.descend_latent(tree.rows, tree.root_visit,
+                                    tree.root_vsum, A, spec.c_puct)
+    d_cpu = kernels.descend_latent(cpu_tree.rows, cpu_tree.root_visit,
+                                   cpu_tree.root_vsum, A, spec.c_puct)
+    # the path past a game's depth is unspecified (the plain loop writes
+    # every level of every game)
+    walked = (torch.arange(d_cpu[3].shape[1])[None] < d_cpu[2][:, None])
+    diffs = {"descend_latent": sum(int((a.cpu() != b).sum())
+                                   for a, b in zip(d_card[1:3], d_cpu[1:3]))
+             + sum(int(((a.cpu() != b) & walked).sum())
+                   for a, b in zip(d_card[3:5], d_cpu[3:5]))}
+    g_card = kernels.gather_latent(tree.latent, *d_card[2:5])
+    g_cpu = kernels.gather_latent(cpu_tree.latent, *d_cpu[2:5])
+    diffs["gather_latent"] = sum(int((a.cpu() != b).sum())
+                                 for a, b in zip(g_card, g_cpu))
+    pol, val, rew, _ = eval_fn.recurrent(*g_card)
+    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    v_card = kernels.expand_latent(tree, d_card[1], d_card[2], pol, val,
+                                   rew, acc)
+    v_cpu = kernels.expand_latent(cpu_tree, d_cpu[1], d_cpu[2], pol.cpu(),
+                                  val.cpu(), rew.cpu(),
+                                  torch.zeros((), dtype=torch.int64))
+    diffs["expand_latent"] = (int((v_card.cpu() != v_cpu).sum())
+                              + int((tree.rows.cpu() != cpu_tree.rows).sum())
+                              + int((tree.reward.cpu()
+                                     != cpu_tree.reward).sum()))
+    for tr, d, v in ((tree, d_card, v_card), (cpu_tree, d_cpu, v_cpu)):
+        kernels.commit_rewards(tr.rows, tr.reward, d[3], d[4], d[2], d[1], v,
+                               tr.next_slot, tr.root_vsum, (0, 2 * A, 3 * A),
+                               A)
+    diffs["commit_rewards"] = (
+        int((tree.rows.cpu() != cpu_tree.rows).sum())
+        + int((tree.root_vsum.cpu() != cpu_tree.root_vsum).sum()))
+    check(all(v == 0 for v in diffs.values()),
+          f"muzero tree kernels against their plain versions: {diffs}")
+    out["tree_kernels_unequal"] = diffs
+    del cpu_tree
+
+    # the captured move against the eager one, from the same roots and
+    # noise: trees and stores equal
+    trees = {}
+    for capture in (None, False):
+        g = torch.Generator(device=dev).manual_seed(2121)
+        tr = mcts.init_tree(states, spec, tree=tree if capture is None
+                            else None)
+        mcts.search(states, eval_fn, spec, generator=g, add_noise=True,
+                    tree=tr, capture=capture)
+        trees[capture] = (tr.rows.clone(), tr.root_vsum.clone(),
+                          tr.latent[:, :MZ_SIMS // 8].clone())
+        del tr
+        torch.cuda.empty_cache()
+    same = [int((a != b).sum()) for a, b in zip(trees[None], trees[False])]
+    check(all(v == 0 for v in same),
+          f"captured muzero search against the eager one: {same} unequal")
+    del trees
+    out["card"] = card
+    print("muzero main path " + json.dumps(out["move"])
+          + "; tree kernels unequal " + json.dumps(diffs), flush=True)
+    prof = profile_search(states, eval_fn, tag=f"muzero_{GAMES}_captured")
+    out["profile"] = {k: prof[k] for k in ("wall_s", "busy_s",
+                                           "idle_share")}
+    del eval_fn, net, prep, tree
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     """Runs every phase; ``python3 chip_smoke.py tower fused`` (any of
     kernels, tower, epilogue, conv, search, cpu, graph, glue, smolgen, nbt,
-    continuous, fused, trainer, qconv, quant, arena, bench, web, dist) runs
+    muzero, continuous, fused, trainer, qconv, quant, arena, bench, web, dist) runs
     only those, for
     work on one of them, and then
     prints no ``kernels`` line (quant and arena run the qconv phase first,
@@ -4107,6 +4343,8 @@ def main(argv=None) -> int:
         smolgen = phase_smolgen(dev, card)
     if want("nbt"):
         nbt = phase_nbt(dev, card)
+    if want("muzero"):
+        muzero = phase_muzero(dev, card)
     if want("continuous"):
         phase_continuous(dev, net, card)
     if want("fused"):
@@ -4321,6 +4559,18 @@ def main(argv=None) -> int:
                 "library_ms": None, "in_graph": nbt["in_graph"][name],
                 "by_site": {k: v for k, v in nbt["times"].items()
                             if k.startswith(name)}, **t})
+        # MuZero's dynamics input and scale (no kernel of the JAX
+        # package); launches are phase 21's captured 512 x 800 move
+        for name in ("action_term", "latent_scale"):
+            t = dict(muzero["times"][name])
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "alphazero_torch/csrc/muzero_kernels.cu",
+                "replaces": None, "launches": muzero["move"]["launches"][name],
+                "tolerance": "bit-equal",
+                "max_abs_err": muzero["checks"][name]["max_abs_err"],
+                "ms": t.pop("ms"), "bound_ms": t.pop("bound_ms"),
+                "bound_by": t.pop("bound_by"), "library_ms": None, **t})
         print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
