@@ -38,7 +38,8 @@
 // first shape, in a measured order, that fills at most one wave: at one
 // board eight blocks of 16 channels, so that a board's chain runs on eight
 // SMs at once, each with a short epilogue; two boards a block at 32; one
-// board and a whole tile at 128; three boards at 384, four at 512. A block
+// board and a whole tile at 128; three boards at 384, four at 512 (at C 256
+// from 397 boards the persistent path below takes over). A block
 // takes a run of consecutive pieces, so the tiles of one group of boards
 // share the boards' rows. Whatever the piece, the products are one
 // wgmma.mma_async m64nNk16 a k-step with N = NP into the f32 accumulators
@@ -108,8 +109,50 @@
 // C 128 with the affine and ReLU, in turns with cuDNN's conv alone;
 // PERF.md has the runs): 0.0195 ms at 512 boards (cuDNN 0.0255), 0.0102
 // at 128 (0.0106), 0.0071 at 32 (0.0077), 0.0061 at one (0.0074). At one
-// board 4.9 us of it is the chain; at 512 the four boards of a block still
-// load, multiply and store in lockstep.
+// board 4.9 us of it is the chain.
+//
+// The persistent path (persistent_conv3x3_kernel): C 256 wherever it gives
+// a block no more products than the pieces above (models/conv.py:
+// conv_launch_shape: 397 to 528 boards on 132 SMs, and batches whose runs
+// of pieces are as long, such as 1,031). A block takes a group of four
+// boards, a consumer warpgroup each, and both tiles, tile after tile; the
+// blocks walk the groups in rounds. Its timeline at 512 boards
+// (scripts/conv_timeline.py; PERF.md) showed where the four-board shape's
+// 0.064 ms went: 4 us loading the four boards' rows after the wait, some
+// 28 us of products a tile (no chunk waited on its copy), and 3.5 and 2.5 us
+// of epilogue a tile, in which every block's warpgroups reach their stores
+// together and the tensor cores idle. Measured against it variant by
+// variant (one NVIDIA H100 80GB HBM3, 700 W; PERF.md has the runs), what
+// this path changes: the rows unpadded, their 16-byte pieces swizzled by
+// the row (j ^ (m % 8)) in place of the 16-byte pad, which leaves room for
+// a fifth stage beside the BatchNorm constants (read from device memory in
+// the epilogue instead they cost 4 us); the rows copied asynchronously, all
+// in flight at once; the second pair of warpgroups loading its rows only
+// once the first pair's are in, so that the first pair starts sooner and
+// the pairs reach their epilogues apart (0.7 us); each tap's row and
+// swizzle worked out once a tap, the taps and a tap's chunks unrolled
+// (some 5.5 us: the zero row's and a chunk's address arithmetic); and the
+// epilogue's conversions halved (finish2: two sums rounded by one packed
+// conversion) and its transposition made by stmatrix through a warp's
+// 512-byte scratch (together 0.7 us). The products, their k order and the
+// values stored are the four-board shape's, so the path is bit-equal to
+// it: 0.0545-0.0553 ms against 0.0635-0.0655 at 512 boards.
+//   Where the rest goes (each by a variant that leaves one part out): the
+// two epilogues some 5.5 us (either one alone 3.3 us; their stores but
+// 0.5 us of it: the epilogue is bound by its own latency, some 560
+// instructions a thread, and the pairs' epilogues still overlap, the
+// shared ring keeping the pairs within five chunks of each other), the
+// rows' load 2 us, the weights' traffic from L2 0.7 us; one pair alone
+// keeps the tensor cores 90% as busy as both. Tried and not kept: blocks
+// paired in clusters sharing each chunk by multicast (0.084 ms: a stage is
+// refilled only once both blocks have read it), the second pair held back
+// one to three chunks more (slower by 0.4-1.2 us: the leading pair then
+// waits on the ring), a sixth stage with the constants read from device
+// memory (4 us slower), the rows loaded in four slices of channels for the
+// first chunks (1.3 us slower), the epilogue specialised by its kind (2.7
+// us slower), four k-steps a commit group (ptxas serialises the wgmma,
+// C7512), half of the first tile's outputs kept in registers to be stored
+// during the second tile (spills at 120 registers).
 //
 // The entry point launches on the given stream (cudaLaunchKernelEx) and
 // returns the launch's error; it never synchronises, allocates nothing and
@@ -185,8 +228,13 @@ struct Args {
 // Built with -DCONV_TIMELINE (scripts/conv_timeline.py), a block writes
 // %globaltimer (ns) and clock64 (SM cycles) at the points it names, into
 // slot k of its row of a.trace; otherwise the stamps are not compiled.
+// Slots: 0-6 the first piece's phases, 8 + c its chunk c landed, 48 + c
+// its copy issued, 96 + c the last piece's chunk c landed, 140-142 the
+// last piece's start, products and stores; on the persistent path a piece
+// is a tile, and 143-149 are the second pair's: its rows in, then for each
+// tile its first chunk landed, its products and its stores.
 #ifdef CONV_TIMELINE
-constexpr int kSlots = 96;
+constexpr int kSlots = 160;
 __device__ __forceinline__ void stamp(unsigned long long* trace, int k) {
   unsigned long long g;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g) :: "memory");
@@ -237,6 +285,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// A consumer's wait for a weight chunk. In the -DCONV_TIMELINE build the
+// SM cycles thread 0 spends in it, and the waits past 100 cycles, add up
+// in slot 150 of its block's row.
+#ifdef CONV_TIMELINE
+__device__ __forceinline__ void chunk_wait(unsigned long long* trace,
+                                           uint32_t bar, uint32_t parity) {
+  if (threadIdx.x != 0) return mbar_wait(bar, parity);
+  const unsigned long long c0 = clock64();
+  mbar_wait(bar, parity);
+  const unsigned long long d = clock64() - c0;
+  trace[(blockIdx.x * kSlots + 150) * 2] += d;
+  trace[(blockIdx.x * kSlots + 150) * 2 + 1] += d > 100;
+}
+#define CHUNK_WAIT(bar, parity) chunk_wait(a.trace, (bar), (parity))
+#else
+#define CHUNK_WAIT(bar, parity) mbar_wait((bar), (parity))
+#endif
+
 // One contiguous block from device memory into shared memory; its bytes
 // count against the mbarrier's expected transactions.
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
@@ -249,6 +315,25 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
 
 __device__ __forceinline__ void warpgroup_barrier(int id) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+// 16 bytes from device memory into shared memory, asynchronously.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A named barrier of `n` threads: some wait for it, the others arrive.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -670,7 +755,9 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
       held = group;
     }
     const bool stamped = tid == 0 && piece == first;
+    const bool stamped_last = tid == 0 && piece == last - 1 && piece != first;
     if (stamped) STAMP(2);
+    if (stamped_last) STAMP(140);
 
     for (int c = 0; c < S::kChunks; ++c, ++q) {
       // this lane's A address for k-step m of the chunk, K values
@@ -685,8 +772,9 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
         r1 = tap_row(2 * c + 1);
       }
       const int stage = q % kStages;
-      mbar_wait(smem_addr(&s.full[stage]), (q / kStages) & 1);
+      CHUNK_WAIT(smem_addr(&s.full[stage]), (q / kStages) & 1);
       if (stamped) STAMP(8 + c);
+      if (stamped_last) STAMP(96 + c);
       // the stage's NP rows: 1024 bytes an eight rows
       const uint64_t desc = swizzled_kmajor_desc(smem_addr(s.w[stage]));
 
@@ -713,6 +801,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
     }
     wgmma_wait<0>();
     if (stamped) STAMP(3);
+    if (stamped_last) STAMP(141);
     if (lane == 0) mbar_arrive(smem_addr(&s.empty[(q - 1) % kStages]));
     fence_accumulators(acc);
 
@@ -723,6 +812,334 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const Args a) {
     store_rows<C, kN>(a.out + ((size_t)board * 64 + c_row) * C + col0, acc,
                       t, s.mean + col0, s.mul + col0, s.beta + col0, a.epi);
     if (stamped) STAMP(5);
+    if (stamped_last) STAMP(142);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The persistent path: C 256 at large batches
+// ---------------------------------------------------------------------------
+
+// finish() of two neighbouring columns, packed: both sums rounded to bf16 by
+// one conversion (cvt.rn.bf16x2.f32 rounds each as cvt.rn.bf16.f32 does),
+// then the BatchNorm and ReLU in f32 and the pair rounded again. The
+// epilogue is bound by its conversions and their latency, so this halves
+// the first rounding's conversions at no change of a bit.
+__device__ __forceinline__ uint32_t finish2(float s0, float s1, float2 m,
+                                            float2 k, float2 b, int epi) {
+  const __nv_bfloat162 y = __floats2bfloat162_rn(s0, s1);
+  if (epi == kNone) return *reinterpret_cast<const uint32_t*>(&y);
+  float v0 = __fadd_rn(__fmul_rn(__fsub_rn(__low2float(y), m.x), k.x), b.x);
+  float v1 = __fadd_rn(__fmul_rn(__fsub_rn(__high2float(y), m.y), k.y), b.y);
+  if (epi == kAffineRelu) {
+    v0 = v0 < 0.0f ? 0.0f : v0;
+    v1 = v1 < 0.0f ? 0.0f : v1;
+  }
+  const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8 x 8 bf16 matrices into shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8, and holds columns 2 (l % 4), + 1 of row l / 4
+// of each (the layout of a wgmma's accumulator).
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      :: "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
+}
+
+// store_rows<C, 128> for a warp's 16 rows by way of its 512-byte scratch:
+// each group of 32 columns of eight rows goes in by one stmatrix and comes
+// back as 16 bytes a lane (row lane / 4, columns 8 (lane % 4) on), the
+// transposition store_rows makes by shuffles and selects; the 16-byte
+// pieces of a scratch row are swizzled by (row / 2) % 4 so that neither
+// side meets a bank twice. The same values to the same addresses.
+template <int C>
+__device__ __forceinline__ void store_rows_staged(
+    __nv_bfloat16* out, const float (&acc)[64], int t, const float* mean,
+    const float* mul, const float* beta, int epi, uint32_t scratch) {
+  const int lane = threadIdx.x & 31;
+  const int wr = lane & 7, wj = lane >> 3;
+  const uint32_t waddr = scratch + wr * 64 + (((wj ^ (wr >> 1)) & 3) << 4);
+  const int rr = lane >> 2;
+  const uint32_t raddr = scratch + rr * 64 + (((t ^ (rr >> 1)) & 3) << 4);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t p[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int nt = 4 * q + j, col = nt * 8 + 2 * t;
+      float2 m = {0.f, 0.f}, k = {0.f, 0.f}, b = {0.f, 0.f};
+      if (epi != kNone) {               // col is even: 8-byte aligned
+        m = *reinterpret_cast<const float2*>(mean + col);
+        k = *reinterpret_cast<const float2*>(mul + col);
+        b = *reinterpret_cast<const float2*>(beta + col);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        p[half][j] = finish2(acc[nt * 4 + half * 2],
+                             acc[nt * 4 + half * 2 + 1], m, k, b, epi);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      __syncwarp();                     // the lanes have read the last group
+      stmatrix_x4(waddr, p[half][0], p[half][1], p[half][2], p[half][3]);
+      __syncwarp();
+      uint4 v;
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(raddr) : "memory");
+      *reinterpret_cast<uint4*>(out + half * 8 * C + (4 * q + t) * 8) = v;
+    }
+    compiler_barrier();
+  }
+}
+
+constexpr int kPC = 256;                          // the width it takes
+constexpr int kPTiles = 2;                        // tiles of 128 channels
+constexpr int kPChunks = Shape<kPC>::kChunks;     // a tile's, 36
+constexpr int kPChunkBytes = Shape<kPC>::kChunkBytes;   // 16 KB
+constexpr int kPRowBytes = kPC * 2;               // a board row, unpadded
+constexpr int kPBoardBytes = 64 * kPRowBytes;     // 32 KB
+constexpr int kRowsBar = 5;             // named barrier: the first pair's
+                                        // rows are in
+
+constexpr int kPScratch = 512;           // a consumer warp's, bytes
+
+// Stages of the persistent path's ring: as many as fit beside four boards'
+// rows, the zero row, the BatchNorm constants, the consumer warps' scratch
+// and the mbarriers (models/conv.py:persistent_stages counts the same).
+constexpr int persistent_stages() {
+  return (kSmemOptIn - 1024 - kMaxBoards * kPBoardBytes - kPRowBytes
+          - 3 * kPC * 4 - kMaxBoards * 4 * kPScratch - 8)
+         / (kPChunkBytes + 16);
+}
+constexpr int kPStages = persistent_stages();
+
+struct PSmem {
+  unsigned char w[kPStages][kPChunkBytes];        // 1024-byte aligned
+  unsigned char rows[kMaxBoards][kPBoardBytes];   // a board each, swizzled
+  unsigned char zero[kPRowBytes];                 // the off-board source row
+  float mean[kPC], mul[kPC], beta[kPC];           // the BatchNorm, if any
+  unsigned char scratch[kMaxBoards * 4][kPScratch];  // a consumer warp's
+  uint64_t consts;                      // mbarrier: the constants are in
+  uint64_t full[kPStages];              // mbarriers: chunk has landed
+  uint64_t empty[kPStages];             // mbarriers: chunk has been read
+};
+constexpr int kPSmemBytes = (int)sizeof(PSmem) + 1024;
+static_assert(kPSmemBytes <= kSmemOptIn, "layout too large");
+
+// C 256 from some 400 boards up (models/conv.py:conv_launch_shape). A block
+// takes a group of four boards, a consumer warpgroup each, and both tiles
+// of their outputs, tile after tile; the blocks walk the groups in rounds
+// (group r * grid + block in round r).
+__global__ void __launch_bounds__(kThreads, 1)
+    persistent_conv3x3_kernel(const Args a) {
+  constexpr int S = kPStages;
+  constexpr int kConsumers = kMaxBoards * 128;
+  constexpr int kSegs = kPRowBytes / 16;          // 16-byte pieces a row
+  constexpr int kPerTap = kPC / kChunkK;          // chunks a tap
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle is a function of the address: the ring must start on a
+  // 1024-byte boundary (the launch asks for 1024 bytes of slack)
+  PSmem& s = *reinterpret_cast<PSmem*>(
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid == 0) STAMP(0);
+  launch_dependents();
+  // a block's rounds, worked out in each role once its registers are set
+  // (a value held across setmaxnreg spills)
+  auto rounds = [&a]() {
+    const int groups = (a.boards + kMaxBoards - 1) / kMaxBoards;
+    return (groups - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(smem_addr(&s.full[i]), 1);                // the producer
+      mbar_init(smem_addr(&s.empty[i]), kConsumers / 32);  // every warp
+    }
+    mbar_init(smem_addr(&s.consts), 32);                  // a warp's lanes
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < kSegs; i += blockDim.x)
+    reinterpret_cast<uint4*>(s.zero)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();                      // the only block-wide barrier
+  if (tid == 0) STAMP(1);
+
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    const int pwarp = (tid - kConsumers) >> 5;
+    if (pwarp == 0 && lane == 0) {
+      // every chunk of both tiles, round after round, as far ahead as the
+      // consumers have freed stages; the weights are constants, so the
+      // first stages fill before the wait
+      const int n = rounds();
+      int q = 0;
+      for (int r = 0; r < n; ++r)
+        for (int c = 0; c < kPTiles * kPChunks; ++c, ++q) {
+          const int stage = q % S;
+          if (q >= S)
+            mbar_wait(smem_addr(&s.empty[stage]), ((q / S) - 1) & 1);
+          const uint32_t full = smem_addr(&s.full[stage]);
+          mbar_arrive_expect_tx(full, kPChunkBytes);
+          bulk_copy(smem_addr(s.w[stage]),
+                    a.image + (size_t)c * kPChunkBytes, kPChunkBytes, full);
+          if (r == 0 && c < kPChunks) STAMP(48 + c);
+        }
+    } else if (pwarp == 1) {
+      // the BatchNorm constants, while the first products run
+      wait_for_predecessor();
+      if (a.epi != kNone)
+        for (int c = lane; c < kPC; c += 32) {
+          s.mean[c] = a.mean[c];
+          s.mul[c] = a.mul[c];
+          s.beta[c] = a.beta[c];
+        }
+      mbar_arrive(smem_addr(&s.consts));
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg takes board group * 4 + wg of each round. The
+  // second pair of warpgroups loads its rows once the first pair's are in,
+  // so that the first pair starts its products sooner and the two pairs
+  // reach their epilogues apart.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kConsumerRegs));
+  const int wg = tid >> 7;
+  const int ch = tid & 127;
+  const int warp = ch >> 5;
+  const int bar_id = wg + 1;            // named barrier of this warpgroup
+  const bool follows = wg >= kMaxBoards / 2;
+  const uint32_t src = smem_addr(s.rows[wg]);
+  // ldmatrix lane roles for A: lane -> row (lane % 16) of the warp's 16
+  // rows and the 8-channel half (lane / 16) of a k-step
+  const int a_m = warp * 16 + (lane & 15);
+  const int half = lane >> 4;
+
+  wait_for_predecessor();               // x is the kernel ahead's output
+  if (tid == 0) STAMP(6);
+  float acc[64];
+  uint32_t frag[2][2][4];               // two sets of two k-steps
+  int q = 0;                            // running weight chunk
+  const int n = rounds();
+  for (int r = 0; r < n; ++r) {
+    const int group = r * gridDim.x + blockIdx.x;
+    const int board = group * kMaxBoards + wg;
+    const bool has = board < a.boards;
+    if (r == 0 && follows) named_sync(kRowsBar, kConsumers);
+    if (has) {
+      // the board's rows into the warpgroup's buffer by asynchronous
+      // copies, all in flight at once (its products of the last round have
+      // completed), the 16-byte piece j of row m at piece j ^ (m % 8), so
+      // that the eight rows of an ldmatrix fall in distinct banks
+      warpgroup_barrier(bar_id);
+      const uint4* xb = reinterpret_cast<const uint4*>(
+          a.x + (size_t)board * 64 * kPC);
+      constexpr int kPer = 64 * kSegs / 128;        // pieces a thread
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int p = i * 128 + ch;
+        const int m = p / kSegs, j = p % kSegs;
+        cp_async16(src + m * kPRowBytes + ((j ^ (m & 7)) << 4), xb + p);
+      }
+      cp_async_wait_all();
+      warpgroup_barrier(bar_id);
+    }
+    if (r == 0 && !follows) named_arrive(kRowsBar, kConsumers);
+    if (tid == 0 && r == 0) STAMP(2);
+    const bool stamped_b = tid == 2 * 128 && r == 0;   // the second pair's
+    if (stamped_b) STAMP(143);
+
+    for (int tile = 0; tile < kPTiles; ++tile) {
+      const bool stamped = tid == 0 && r == 0 && tile == 0;
+      const bool stamped_last = tid == 0 && r == 0 && tile == 1;
+      if (stamped_last) STAMP(140);
+      if (!has) {
+        // no board for this warpgroup: free each chunk as it lands
+        for (int c = 0; c < kPChunks; ++c, ++q) {
+          const int stage = q % S;
+          mbar_wait(smem_addr(&s.full[stage]), (q / S) & 1);
+          if (lane == 0) mbar_arrive(smem_addr(&s.empty[stage]));
+        }
+        continue;
+      }
+      // The taps unrolled, so that a tap's shift is a constant and this
+      // lane's row for it, (h+dy, w+dx) or the zero row off the board, and
+      // the row's swizzle are worked out once a tap, not a chunk (a chunk's
+      // products took 7% longer with them worked out from its index).
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        // (at the tap, not hoisted above the taps before it: nine rows
+        // held at once spill)
+        int am = a_m;
+        asm volatile("" : "+r"(am));
+        const int hs = (am >> 3) + tap / 3 - 1, ws = (am & 7) + tap % 3 - 1;
+        const bool on = hs >= 0 && hs < 8 && ws >= 0 && ws < 8;
+        const int m = hs * 8 + ws;
+        const uint32_t row = on ? src + m * kPRowBytes : smem_addr(s.zero);
+        const int sw = on ? (m & 7) : 0;
+#pragma unroll
+        for (int cs = 0; cs < kPerTap; ++cs, ++q) {
+          // the chunk's 64 channels: k-step j reads this lane's 16-byte
+          // piece 2j + half of them
+          const int c = tap * 4 + cs;
+          const uint32_t base = row + cs * (kChunkK * 2);
+          const int stage = q % S;
+          CHUNK_WAIT(smem_addr(&s.full[stage]), (q / S) & 1);
+          if (stamped) STAMP(8 + c);
+          if (stamped_last) STAMP(96 + c);
+          if (stamped_b && c == 0) STAMP(144 + 3 * tile);
+          const uint64_t desc = swizzled_kmajor_desc(smem_addr(s.w[stage]));
+
+          // k-steps 0 and 1; the group before the last has completed, so its
+          // fragments (set 0) are free
+          ldmatrix_x4(frag[0][0], base + (((0 + half) ^ sw) << 4));
+          ldmatrix_x4(frag[0][1], base + (((2 + half) ^ sw) << 4));
+          wgmma_fence();
+          wgmma_bf16<128>(acc, frag[0][0], desc, c != 0);
+          wgmma_bf16<128>(acc, frag[0][1], desc + 2, 1);
+          wgmma_commit();
+          wgmma_wait<1>();                // the previous chunk has been read
+          if (c > 0 && lane == 0)
+            mbar_arrive(smem_addr(&s.empty[(q - 1) % S]));
+
+          // k-steps 2 and 3
+          ldmatrix_x4(frag[1][0], base + (((4 + half) ^ sw) << 4));
+          ldmatrix_x4(frag[1][1], base + (((6 + half) ^ sw) << 4));
+          wgmma_fence();
+          wgmma_bf16<128>(acc, frag[1][0], desc + 4, 1);
+          wgmma_bf16<128>(acc, frag[1][1], desc + 6, 1);
+          wgmma_commit();
+          wgmma_wait<1>();
+        }
+      }
+      wgmma_wait<0>();
+      if (stamped) STAMP(3);
+      if (stamped_last) STAMP(141);
+      if (stamped_b) STAMP(145 + 3 * tile);
+      if (lane == 0) mbar_arrive(smem_addr(&s.empty[(q - 1) % S]));
+      fence_accumulators(acc);
+
+      // accumulator element nt*4 + half*2 + e of a wgmma: row warp*16 +
+      // lane/4 + half*8, column nt*8 + (lane%4)*2 + e
+      mbar_wait(smem_addr(&s.consts), 0);
+      const int col0 = tile * 128;
+      store_rows_staged<kPC>(
+          a.out + ((size_t)board * 64 + warp * 16 + (lane >> 2)) * kPC
+              + col0,
+          acc, lane & 3, s.mean + col0, s.mul + col0, s.beta + col0, a.epi,
+          smem_addr(s.scratch[wg * 4 + warp]));
+      if (stamped) STAMP(5);
+      if (stamped_last) STAMP(142);
+      if (stamped_b) STAMP(146 + 3 * tile);
+    }
   }
 }
 
@@ -776,8 +1193,16 @@ int conv3x3_init(int* sms) {
   if (err == cudaSuccess) err = opt_in<C, NP, PER>();
   CONV_SHAPES(X)
 #undef X
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(persistent_conv3x3_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kPSmemBytes);
   return (int)err;
 }
+
+// The persistent path's shared memory a block (models/conv.py checks its
+// own count against it).
+int conv3x3_persistent_smem_bytes() { return kPSmemBytes; }
 
 // A block's dynamic shared memory for pieces of np channels and per boards
 // at width C (0 for a shape the kernel does not have): models/conv.py
@@ -825,6 +1250,45 @@ int conv3x3_bf16(const void* x, const void* image, const void* mean,
   CONV_SHAPES(X)
 #undef X
   return (int)cudaErrorInvalidValue;
+}
+
+// The persistent path (C 256): x, image, mean, mul, beta, out and epi as
+// conv3x3_bf16's; grid blocks, at most one an SM, as models/conv.py:
+// persistent_launch gives them.
+int conv3x3_persistent_bf16(const void* x, const void* image,
+                            const void* mean, const void* mul,
+                            const void* beta, void* out, int boards, int epi,
+                            int grid, void* stream
+#ifdef CONV_TIMELINE
+                            , void* trace
+#endif
+                            ) {
+  if (boards < 0 || grid <= 0 || epi < kNone || epi > kAffineRelu ||
+      (epi != kNone && (!mean || !mul || !beta)))
+    return (int)cudaErrorInvalidValue;
+  if (boards == 0) return (int)cudaGetLastError();
+  const Args a{static_cast<const __nv_bfloat16*>(x),
+               static_cast<const unsigned char*>(image),
+               static_cast<const float*>(mean), static_cast<const float*>(mul),
+               static_cast<const float*>(beta),
+               static_cast<__nv_bfloat16*>(out), boards, epi
+#ifdef CONV_TIMELINE
+               , static_cast<unsigned long long*>(trace)
+#endif
+  };
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kPSmemBytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, persistent_conv3x3_kernel,
+                                             a);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

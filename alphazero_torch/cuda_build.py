@@ -24,6 +24,7 @@ import os
 import re
 import shutil
 import subprocess
+import types
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List
 
@@ -167,15 +168,28 @@ def counted(fn: Callable) -> Callable:
     return fn
 
 
-def launch(wrapper: Callable, entry, *args) -> None:
+def count_path(wrapper: Callable, name: str) -> None:
+    """Gives the counted ``wrapper`` a count of the launches that take one
+    path of its kernel, ``wrapper.<name>.launches``, which ``launch(...,
+    path=wrapper.<name>)`` adds to; it is in ``COUNTED`` beside the
+    wrappers, so that replays add to it too."""
+    counter = types.SimpleNamespace(launches=0)
+    setattr(wrapper, name, counter)
+    COUNTED.append(counter)
+
+
+def launch(wrapper: Callable, entry, *args, path=None) -> None:
     """Calls the C ``entry`` with ``args``; counts one launch of the
-    counted ``wrapper``, or raises if the entry returns a CUDA error,
-    naming the kernel (the entry's name less its type suffix)."""
+    counted ``wrapper`` (and of its ``path``, if given), or raises if the
+    entry returns a CUDA error, naming the kernel (the entry's name less
+    its type suffix)."""
     rc = entry(*args)
     if rc:
         raise RuntimeError(f"{entry.__name__.rsplit('_', 1)[0]} kernel "
                            f"launch failed: CUDA error {rc}")
     wrapper.launches += 1
+    if path is not None:
+        path.launches += 1
 
 
 def check_operand(name: str, t: torch.Tensor, device: torch.device,

@@ -23,7 +23,10 @@ Every launch is a programmatic dependent one: the kernel fetches its
 weights before the kernel ahead of it on the stream has finished, so the
 image must be complete before the launch, as ``weight_image`` makes it.
 ``conv_launch_shape`` picks its pieces (channels and boards) from the
-batch; every shape gives the same bits.
+batch, or at C 256 from some 400 boards a second kernel of the same
+products, persistent over groups of four boards with both tiles a block
+(``persistent_launch``; ``conv3x3.persistent.launches`` counts its
+launches); every launch gives the same bits.
 
 How far the kernel may be from its plain version: with the BatchNorm,
 not at all from ``bn_act_plain`` of its own conv (the epilogue rounds the
@@ -56,7 +59,9 @@ from alphazero_torch.models.epilogue import BN
 # conv3x3_init opts the kernel in to its shared memory
 LIB = cuda_build.Library("conv_kernels", init="conv3x3_init",
                          conv3x3_smem_bytes=[I] * 3,
-                         conv3x3_bf16=[P] * 6 + [I] * 6 + [P])
+                         conv3x3_bf16=[P] * 6 + [I] * 6 + [P],
+                         conv3x3_persistent_smem_bytes=[],
+                         conv3x3_persistent_bf16=[P] * 6 + [I] * 3 + [P])
 # what the kernel takes: cin = cout = C
 CHANNELS = (32, 128, 256)
 # K values (bf16) in a row of the weight image: 128 bytes, one row of the
@@ -77,6 +82,14 @@ SHAPES = {32: ((32, 1), (32, 2), (32, 3), (32, 4)), 128: _WIDE, 256: _WIDE}
 # (conv3x3_kernel_order; scripts/conv_unequal_share.py), whichever is
 # larger.
 CONV_UNEQUAL_SHARE = 1e-4
+# The persistent path (conv_kernels.cu: persistent_conv3x3_kernel) takes
+# C PERSISTENT_C in groups of four boards a block, a consumer warpgroup
+# each, and both tiles of their outputs
+PERSISTENT_C = 256
+_BOARDS_A_BLOCK = 4
+# a consumer warp's scratch on the persistent path, for its epilogue's
+# transposition (four warps a warpgroup)
+_SCRATCH_BYTES = 512
 # the kernel's epilogues, in its numbering: (BatchNorm, ReLU)
 EPILOGUES = {"none": (False, False), "affine": (True, False),
              "affine_relu": (True, True)}
@@ -270,19 +283,80 @@ def conv_smem_bytes(C: int, np_: int, per: int) -> int:
     return align(size, 8) + 1024
 
 
+def persistent_stages() -> int:
+    """Stages of the persistent path's weight ring (``conv_kernels.cu:
+    persistent_stages``): as many 16 KB chunks as fit beside four boards'
+    unpadded rows (32 KB each), the zero row, the BatchNorm constants, the
+    consumer warps' scratch and the mbarriers."""
+    return (_SMEM_OPT_IN - 1024 - _persistent_fixed()) // (
+        128 * CHUNK_K * 2 + 16)
+
+
+def _persistent_fixed() -> int:
+    """The persistent path's shared memory besides the ring's stages."""
+    C = PERSISTENT_C
+    return (_BOARDS_A_BLOCK * 64 * C * 2 + C * 2 + 3 * C * 4
+            + _BOARDS_A_BLOCK * 4 * _SCRATCH_BYTES + 8)
+
+
+def persistent_smem_bytes() -> int:
+    """A block's shared memory on the persistent path (``conv_kernels.cu:
+    PSmem``): the ring, four boards' rows, the zero row, the BatchNorm
+    constants, the consumer warps' scratch, the mbarriers and 1024 bytes of
+    slack to align the ring."""
+    size = (persistent_stages() * (128 * CHUNK_K * 2 + 16)
+            + _persistent_fixed())
+    return align(size, 8) + 1024
+
+
+def persistent_launch(B: int, sms: int) -> Dict[str, int]:
+    """The persistent path's launch for B boards on a card of ``sms``
+    multiprocessors: groups of four boards, walked by a ``grid`` of at most
+    one block an SM in ``rounds`` (block b takes group r * grid + b in
+    round r), as few blocks as give the fewest rounds."""
+    groups = -(-B // _BOARDS_A_BLOCK)
+    rounds = -(-groups // sms)
+    return {"path": "persistent", "grid": -(-groups // rounds),
+            "groups": groups, "rounds": rounds,
+            "smem": persistent_smem_bytes(), "stages": persistent_stages()}
+
+
+def block_work(shape: Dict[str, int]) -> int:
+    """A launch's most work a block: output channels times boards (the
+    products of one block, whose chain sets the launch's time)."""
+    if shape["path"] == "persistent":
+        return shape["rounds"] * _BOARDS_A_BLOCK * PERSISTENT_C
+    run = -(-shape["pieces"] // shape["grid"])
+    return run * shape["per"] * shape["np"]
+
+
 def conv_launch_shape(B: int, C: int, sms: int) -> Dict[str, int]:
     """The kernel's launch for B boards at width C on a card of ``sms``
-    multiprocessors: ``pieces`` of work, each ``per`` boards (one a
-    consumer warpgroup) and ``np`` output channels of a tile; a ``grid``
+    multiprocessors. At C ``PERSISTENT_C`` the persistent path
+    (``persistent_launch``) wherever it gives a block no more products than
+    the pieces below: from 397 boards on 132 multiprocessors up to 528, and
+    at batches whose runs of pieces are as long (1,031 boards, not 600).
+    Otherwise ``wave_shape``: ``pieces`` of work, each ``per`` boards (one
+    a consumer warpgroup) and ``np`` output channels of a tile; a ``grid``
     of at most one block an SM, each taking a run of consecutive pieces;
-    the ``smem`` bytes a block. The shape is the first of ``SHAPES[C]``
-    whose pieces take the fewest waves (one, up to 528 boards at C 128 on
-    132 multiprocessors): a block's work as small as the card allows,
-    since one board's chain of products is bound by its latency, not by
-    the tensor cores; at one board eight blocks of 16 channels each, at
-    512 four boards and a whole tile (``scripts/conv_launch_sweep.py``
-    times every shape). Every shape runs the same products in the same
-    order on a board's elements, so the shape changes no bit."""
+    the ``smem`` bytes a block. Every shape and either path runs the same
+    products in the same order on a board's elements, so the launch changes
+    no bit (``scripts/conv_launch_sweep.py`` times them all)."""
+    shape = wave_shape(B, C, sms)
+    if C == PERSISTENT_C:
+        persistent = persistent_launch(B, sms)
+        if block_work(persistent) <= block_work(shape):
+            return persistent
+    return shape
+
+
+def wave_shape(B: int, C: int, sms: int) -> Dict[str, int]:
+    """The launch of ``conv3x3_kernel<C, NP, PER>`` for B boards: the first
+    shape of ``SHAPES[C]`` whose pieces take the fewest waves (one, up to
+    528 boards at C 128 on 132 multiprocessors): a block's work as small as
+    the card allows, since one board's chain of products is bound by its
+    latency, not by the tensor cores; at one board eight blocks of 16
+    channels each, at 512 four boards and a whole tile."""
     def waves(shape):
         np_, per = shape
         return -(-(-(-B // per) * (C // np_)) // sms)
@@ -299,8 +373,9 @@ def launch_in_shape(B: int, C: int, np_: int, per: int, sms: int
     give the shortest run."""
     pieces = -(-B // per) * (C // np_)
     run = -(-pieces // sms)
-    return {"grid": max(1, -(-pieces // run)), "pieces": pieces,
-            "np": np_, "per": per, "smem": conv_smem_bytes(C, np_, per),
+    return {"path": "waves", "grid": max(1, -(-pieces // run)),
+            "pieces": pieces, "np": np_, "per": per,
+            "smem": conv_smem_bytes(C, np_, per),
             "stages": conv_stages(C, np_, per)}
 
 
@@ -350,8 +425,20 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bn: BN | None = None,
     shape = conv_launch_shape(B, C, LIB.multiprocessors(dev))
     consts = (None, None, None) if bn is None else \
         tuple(t.data_ptr() for t in bn)
-    cuda_build.launch(
-        conv3x3, LIB.conv3x3_bf16, x.data_ptr(), image.data_ptr(), *consts,
-        out.data_ptr(), B, C, _EPI[(bn is not None, relu)], shape["grid"],
-        shape["np"], shape["per"], torch.cuda.current_stream(dev).cuda_stream)
+    epi = _EPI[(bn is not None, relu)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if shape["path"] == "persistent":
+        cuda_build.launch(
+            conv3x3, LIB.conv3x3_persistent_bf16, x.data_ptr(),
+            image.data_ptr(), *consts, out.data_ptr(), B, epi, shape["grid"],
+            stream, path=conv3x3.persistent)
+    else:
+        cuda_build.launch(
+            conv3x3, LIB.conv3x3_bf16, x.data_ptr(), image.data_ptr(),
+            *consts, out.data_ptr(), B, C, epi, shape["grid"], shape["np"],
+            shape["per"], stream)
     return out
+
+
+# the launches that took the persistent path (C 256 at large batches)
+cuda_build.count_path(conv3x3, "persistent")

@@ -60,7 +60,13 @@ launches of the replays.
   at C 32 and 256 on random maps and weights; its ``ptxas`` report (no
   spill, no C75xx remark); its times at 512, 128, 32 and one boards, each
   in turns with ``F.conv2d`` (cuDNN, channels-last bf16) and beside its
-  bound, and its plain version and the launch floor;
+  bound, and its plain version and the launch floor; then at C 256 every
+  site of one 512-board forward of each C 256 net (the 20 x 256
+  SE-ResNet, b28c512nbt, MuZero's h, g and f) on the persistent path,
+  bit-equal in each epilogue to ``conv3x3_kernel<256, 128, 4>`` and each
+  net's first site within ``conv.card_check``, and random maps at 512,
+  384 and 268 boards timed in turns with cuDNN (at 512 also with the
+  four-board launch) beside the bound;
 - phase 3: the self-play search at full width (512 games x 800
   simulations) through ``selfplay_move`` on one tree: a warm-up move that
   captures the simulation, then one counted and timed move of 800
@@ -124,7 +130,8 @@ launches of the replays.
   version beside its bound; a captured self-play move at 512 games x 400
   simulations with the launch counters zeroed just before it (84
   ``residual_act``, 10 ``gpool_bias``, 30 ``bn_act`` and 112 ``conv3x3``
-  a forward, no capture, no host read), and a profile of the captured
+  a forward, every ``conv3x3`` on its persistent path, no capture, no
+  host read), and a profile of the captured
   search for both kernels' device time inside the replays;
 - phase 21 (``muzero``): MuZero's board-game nets at the paper's widths
   (16 + 16 blocks of 256, the norms set to one batch's statistics): its
@@ -135,9 +142,10 @@ launches of the replays.
   ``commit_rewards``) on a searched tree bit-equal to their plain
   versions on the CPU; a captured 512 x 800 self-play move against the
   eager one from the same state (trees, stores and launches equal), with
-  the launch counters zeroed before it (34 ``conv3x3``, 16
-  ``residual_act``, one ``action_term`` and one ``latent_scale`` a
-  simulation, no capture in the counted move, no host read), and a
+  the launch counters zeroed before it (34 ``conv3x3``, all on its
+  persistent path, 16 ``residual_act``, one ``action_term`` and one
+  ``latent_scale`` a simulation, no capture in the counted move, no host
+  read), and a
   profile of the captured search;
 - phase 5: continuous self-play (128 lanes x 16 simulations);
 - phase 7: the fused path at full width (512 positions, 800 evaluations
@@ -916,6 +924,7 @@ def phase_search(dev, net, card):
     K.encode_planes.launches = 0
     K.expand.launches = 0
     conv.conv3x3.launches = 0
+    conv.conv3x3.persistent.launches = 0
     epilogue.bn_act.launches = 0
     epilogue.se_residual.launches = 0
     fused.tower_forward.launches = 0
@@ -942,9 +951,12 @@ def phase_search(dev, net, card):
                 "encode_planes": K.encode_planes.launches,
                 "expand": K.expand.launches,
                 "conv3x3": conv.conv3x3.launches,
+                "conv3x3_persistent": conv.conv3x3.persistent.launches,
                 "bn_act": epilogue.bn_act.launches,
                 "se_residual": epilogue.se_residual.launches,
                 "tower_forward": fused.tower_forward.launches}
+    check(launches["conv3x3_persistent"] == 0,
+          f"{launches}: a C 128 forward took conv3x3's persistent path")
     check(launches["descend"] > 0 and launches["commit_edges"] > 0,
           f"a kernel was not launched on the main path: {launches}")
     # the root's evaluation and one a simulation, replays counted
@@ -2356,7 +2368,205 @@ def phase_conv(dev, net):
           f"board; library: F.conv2d, cuDNN, in turns; wide: C 32 and 256 "
           f"at {GAMES} boards; batches: each of {CONV_TIMED} in turns): "
           f"{json.dumps(t)}", flush=True)
+    t["c256"] = conv_c256(dev)
     return t
+
+
+CONV_C256_TIMED = (GAMES, 384, 268)    # C 256, timed in turns with cuDNN
+
+
+def c256_forwards(dev):
+    """One bf16 forward of GAMES random-play positions through each of the
+    port's C 256 nets at their widths, their norms set to one float32
+    batch's statistics: the SE-ResNet of 20 x 256 (``lc0-20x256-se``'s),
+    KataGo's b28c512nbt and MuZero's towers (h and f at the root, then g
+    and f on one random action a board); ``{name: (run, module)}``, the
+    module whose ``conv`` (``cv``) the forward calls ``conv3x3`` through."""
+    from alphazero_torch.config import Config
+    from alphazero_torch.env import breakthrough as env
+    from alphazero_torch.models import inference
+    from alphazero_torch.models import muzero_inference as mi
+    from alphazero_torch.models import nbt_inference as ni
+    from alphazero_torch.models.network import BatchNorm2d, build_network
+
+    planes = env.encoded_state(random_positions(GAMES, 27)).to(dev)
+    acts = torch.randint(0, 192, (GAMES,), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(dev).manual_seed(27))
+
+    def calibrated(cfg, seed, run):
+        net = build_network(cfg, dev, torch.Generator().manual_seed(seed))
+        norms = [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+        for m in norms:
+            m.momentum = 1.0
+        net.train()
+        with torch.no_grad():
+            run(net)
+        net.eval()
+        return net
+
+    se = calibrated(Config(num_blocks=20, num_filters=256), 27,
+                    lambda n: n(planes))
+    nbt = calibrated(Config(body="nbt"), 28, lambda n: n(planes))
+    def muzero_batch(n):
+        state = n.represent(planes)
+        n.predict(state)
+        n.dynamics(state, acts.long())
+
+    mz = calibrated(Config(body="muzero"), 29, muzero_batch)
+    se_prep = inference.prepare_inference(se, torch.bfloat16)
+    nbt_prep, mz_prep = ni.prepare(nbt), mi.prepare(mz)
+
+    def muzero():
+        _, _, s = mi.initial_apply(mz_prep, planes)
+        mi.recurrent_apply(mz_prep, s, acts)
+
+    return {"lc0-20x256-se": (
+                lambda: inference.inference_apply(se_prep, planes),
+                inference),
+            "katago-b28c512nbt": (lambda: ni.apply(nbt_prep, planes), ni),
+            "muzero-16x256-board": (muzero, mi)}
+
+
+def conv_c256(dev):
+    """conv3x3 at C 256: every site of one forward of each C 256 net
+    (``c256_forwards``) at GAMES boards, where the wrapper takes the
+    persistent path, against ``conv3x3_kernel<256, 128, 4>`` (the launch
+    below it, whose source the persistent path left unchanged) in each
+    epilogue, bit for bit (random BatchNorm constants where the site's
+    conv has none), every launch of the forward on the persistent path,
+    and each net's first site within ``conv.card_check`` and bit-equal to
+    each of its boards launched alone; then random maps at
+    ``CONV_C256_TIMED`` boards
+    timed in the wrapper's launch, in turns with cuDNN (and, at GAMES, with
+    the four-board launch), beside the bound."""
+    from alphazero_torch.models import conv
+
+    sms = conv.LIB.multiprocessors(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    waves = conv.launch_in_shape(GAMES, 256, 128, 4, sms)
+
+    def four_boards(x, image, bn, epi):
+        out = torch.empty_like(x)
+        consts = (None,) * 3 if bn is None else tuple(t.data_ptr()
+                                                      for t in bn)
+        rc = conv.LIB.conv3x3_bf16(
+            x.data_ptr(), image.data_ptr(), *consts, out.data_ptr(),
+            x.shape[0], 256, epi, waves["grid"], 128, 4, stream)
+        check(rc == 0, f"conv3x3 launch failed: CUDA error {rc}")
+        return out
+
+    check(conv.conv_launch_shape(GAMES, 256, sms)["path"] == "persistent",
+          f"conv3x3 at C 256 and {GAMES} boards is not on its persistent "
+          f"path")
+    real = conv.conv3x3
+    # the affine epilogues' constants at a site whose conv has no
+    # BatchNorm of its own (the nbt and MuZero convs hand theirs on)
+    g = torch.Generator().manual_seed(2561)
+    site_bn = tuple(t.to(dev) for t in (
+        torch.randn(256, generator=g) * 0.5,
+        torch.rand(256, generator=g) + 0.5, torch.randn(256, generator=g)))
+    out = {"nets": {}}
+    for name, (run, module) in c256_forwards(dev).items():
+        sites = []
+
+        def record(x, w, bn=None, relu=False, image=None):
+            sites.append((x, w, bn, relu, image))
+            return real(x, w, bn, relu, image)
+
+        attr = "cv" if hasattr(module, "cv") else "conv"
+        setattr(module, attr, types.SimpleNamespace(conv3x3=record))
+        before = real.persistent.launches
+        try:
+            with torch.no_grad():
+                run()
+        finally:
+            setattr(module, attr, conv)
+        torch.cuda.synchronize()
+        check(sites and all(x.shape == (GAMES, 8, 8, 256)
+                            for x, *_ in sites),
+              f"{name}: conv3x3 sites {[x.shape for x, *_ in sites]}")
+        check(real.persistent.launches - before == len(sites),
+              f"{name}: {real.persistent.launches - before} of "
+              f"{len(sites)} conv3x3 launches took the persistent path")
+        unequal, first = 0, None
+        for x, w, bn, _, image in sites:
+            bn = site_bn if bn is None else bn
+            before = real.persistent.launches
+            outs = {k: real(x, w, bn if affine else None, relu, image)
+                    for k, (affine, relu) in conv.EPILOGUES.items()}
+            torch.cuda.synchronize()
+            check(real.persistent.launches == before + 3,
+                  f"{name}: a C 256 launch at {GAMES} boards did not take "
+                  f"the persistent path")
+            for epi, k in enumerate(conv.EPILOGUES):
+                want = four_boards(x, image, bn if epi else None, epi)
+                torch.cuda.synchronize()
+                unequal += int((outs[k] != want).sum())
+            if first is None:
+                ref = conv.conv3x3_plain(x, w, f64_sums=True)
+                cudnn = torch.nn.functional.conv2d(
+                    x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+                limit = max(2 * float((cudnn != ref).float().mean()),
+                            conv.CONV_UNEQUAL_SHARE)
+                first = dict(conv.card_check(x, w, bn, outs, limit),
+                             limit=limit)
+                # each board alone (a launch of one board, not on the
+                # persistent path) as in the launch of GAMES
+                alone = torch.cat([real(x[b:b + 1].contiguous(), w, bn,
+                                        True, image)
+                                   for b in range(GAMES)])
+                check(torch.equal(alone, outs["affine_relu"]),
+                      f"{name}: a board of the {GAMES}-board launch differs "
+                      f"from the same board launched alone")
+        out["nets"][name] = {"sites": len(sites), "unequal": unequal,
+                             "first_site": first}
+        check(unequal == 0, f"{name}: the persistent path differs from "
+                            f"conv3x3_kernel<256, 128, 4> in {unequal} "
+                            f"elements over {len(sites)} sites")
+        check(first["ok"], f"{name}: the persistent path against float64 "
+                           f"sums at its first site: {first}")
+        print(f"conv3x3 at C 256, {name}: {len(sites)} sites at {GAMES} "
+              f"boards, three epilogues, the persistent path bit-equal to "
+              f"conv3x3_kernel<256, 128, 4>, the first site's boards to "
+              f"each board alone; first site {json.dumps(first)}",
+              flush=True)
+
+    g = torch.Generator().manual_seed(256)
+    out["batches"] = {}
+    for B in CONV_C256_TIMED:
+        x = torch.randn((B, 8, 8, 256), generator=g).to(dev, torch.bfloat16)
+        w = (torch.randn((256, 256, 3, 3), generator=g) / 48).to(
+            dev, torch.bfloat16, memory_format=torch.channels_last)
+        bn = tuple(t.to(dev) for t in (
+            torch.randn(256, generator=g) * 0.5,
+            torch.rand(256, generator=g) + 0.5,
+            torch.randn(256, generator=g)))
+        image = conv.weight_image(w)
+        x_cl = x.permute(0, 3, 1, 2)
+        kernel = lambda i: conv.conv3x3(x, w, bn, True, image)
+        library = lambda i: torch.nn.functional.conv2d(x_cl, w, padding=1)
+        turns = [cuda_ms(kernel, what=f"conv3x3 C 256 {B}"),
+                 cuda_ms(library, what=f"cuDNN C 256 {B}"),
+                 cuda_ms(library, what=f"cuDNN C 256 {B}"),
+                 cuda_ms(kernel, what=f"conv3x3 C 256 {B}")]
+        r = {"ms": (turns[0] + turns[3]) / 2, "ms_turns": turns,
+             "library_ms": (turns[1] + turns[2]) / 2,
+             "bound_ms": conv_bound_ms(B, 256)[0],
+             "shape": conv.conv_launch_shape(B, 256, sms)}
+        if B == GAMES:
+            old = lambda i: four_boards(x, image, bn, 2)
+            r["four_board_ms_turns"] = [
+                cuda_ms(old, what="conv3x3<256, 128, 4>"),
+                cuda_ms(kernel, what="conv3x3 persistent"),
+                cuda_ms(kernel, what="conv3x3 persistent"),
+                cuda_ms(old, what="conv3x3<256, 128, 4>")]
+            check(torch.equal(kernel(0), old(0)),
+                  "the persistent path differs from the four-board launch")
+        r["roofline_pct"] = 100 * r["bound_ms"] / r["ms"]
+        out["batches"][str(B)] = r
+        print(f"conv3x3 at C 256, {B} boards, affine and ReLU, in turns with "
+              f"cuDNN: {json.dumps(r)}", flush=True)
+    return out
 
 
 # -----------------------------------------------------------------------------
@@ -3660,7 +3870,8 @@ def phase_nbt(dev, card):
     check(graph.STATS.captures == 1,
           f"the first nbt move made {graph.STATS.captures} captures")
     counted = {"residual_act": ne.residual_act, "gpool_bias": ne.gpool_bias,
-               "bn_act": epilogue.bn_act, "conv3x3": conv.conv3x3}
+               "bn_act": epilogue.bn_act, "conv3x3": conv.conv3x3,
+               "conv3x3_persistent": conv.conv3x3.persistent}
     graph.STATS.reset()
     mcts.STATS.reset()
     for fn in counted.values():
@@ -3676,7 +3887,8 @@ def phase_nbt(dev, card):
     pooled = sum(is_gpool_block(b) for b in range(blocks))
     per_forward = {"residual_act": (INNER + 1) * blocks,
                    "gpool_bias": pooled + 1, "bn_act": 1 + blocks + 1,
-                   "conv3x3": 2 * INNER * blocks}
+                   "conv3x3": 2 * INNER * blocks,
+                   "conv3x3_persistent": 2 * INNER * blocks}
     check(all(got[k] == n * forwards for k, n in per_forward.items())
           and graph.STATS.captures == 0
           and graph.STATS.replays == NBT_SIMS
@@ -4167,7 +4379,9 @@ def phase_muzero(dev, card):
     torch.cuda.synchronize()
     check(graph.STATS.captures == 1,
           f"the first muzero move made {graph.STATS.captures} captures")
-    counted = {"conv3x3": conv.conv3x3, "residual_act": residual_act,
+    counted = {"conv3x3": conv.conv3x3,
+               "conv3x3_persistent": conv.conv3x3.persistent,
+               "residual_act": residual_act,
                "action_term": mi.action_term,
                "latent_scale": mi.latent_scale,
                "descend_latent": kernels.descend_latent,
@@ -4186,11 +4400,12 @@ def phase_muzero(dev, card):
     move_s = time.time() - t0
     got = {k: fn.launches for k, fn in counted.items()}
     blocks = cfg.mz_blocks
-    per_sim = {"conv3x3": 2 * blocks + 2, "residual_act": blocks,
+    per_sim = {"conv3x3": 2 * blocks + 2,
+               "conv3x3_persistent": 2 * blocks + 2, "residual_act": blocks,
                "action_term": 1, "latent_scale": 1, "descend_latent": 1,
                "gather_latent": 1, "expand_latent": 1, "commit_rewards": 1}
-    root = {"conv3x3": 2 * blocks + 2, "residual_act": blocks,
-            "latent_scale": 1}
+    root = {"conv3x3": 2 * blocks + 2, "conv3x3_persistent": 2 * blocks + 2,
+            "residual_act": blocks, "latent_scale": 1}
     want = {k: n * MZ_SIMS + root.get(k, 0) for k, n in per_sim.items()}
     check(got == want and graph.STATS.captures == 0
           and graph.STATS.replays == MZ_SIMS

@@ -11,9 +11,10 @@ the bound (``chip_smoke.conv_bound_ms``), the wrapper's launch (the shape
 ``conv.conv_launch_shape`` picks, ``rule``) and ``F.conv2d`` (cuDNN,
 channels-last bf16, the conv alone) timed in turns (kernel, cuDNN, cuDNN,
 kernel: ``kernel_turns``, ``cudnn_turns``), then every shape of
-``conv.SHAPES[C]`` once, ``n<channels a piece>p<boards a piece>``, in
-device ms (``chip_smoke.cuda_ms``). Fails if two shapes differ in a bit.
-Needs a CUDA card; about a minute.
+``conv.SHAPES[C]`` once, ``n<channels a piece>p<boards a piece>``, and at
+C 256 the persistent path (``persistent``), in device ms
+(``chip_smoke.cuda_ms``). Fails if two launches differ in a bit. Needs a
+CUDA card; about a minute.
 """
 
 import json
@@ -25,7 +26,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-BATCHES = (1, 2, 8, 16, 32, 64, 96, 128, 192, 256, 384, 512)
+BATCHES = (1, 2, 8, 16, 32, 64, 96, 128, 192, 256, 384, 396, 400, 512, 528,
+           600, 1031)
 
 
 def main():
@@ -58,8 +60,10 @@ def main():
                      cs.cuda_ms(cudnn, what="cuDNN"),
                      cs.cuda_ms(cudnn, what="cuDNN"),
                      cs.cuda_ms(kernel, what="conv3x3")]
+            rule = "persistent" if shape["path"] == "persistent" else \
+                f"n{shape['np']}p{shape['per']}"
             row = {"C": C, "B": B, "bound": cs.conv_bound_ms(B, C)[0],
-                   "rule": f"n{shape['np']}p{shape['per']}",
+                   "rule": rule,
                    "kernel": (turns[0] + turns[3]) / 2,
                    "cudnn": (turns[1] + turns[2]) / 2,
                    "kernel_turns": [turns[0], turns[3]],
@@ -80,8 +84,25 @@ def main():
                 torch.cuda.synchronize()
                 cs.check(torch.equal(out, ref),
                          f"C {C}, B {B}: shape n{np_}p{per} differs from "
-                         f"the rule's n{shape['np']}p{shape['per']}")
+                         f"the rule's {rule}")
                 row[f"n{np_}p{per}"] = cs.cuda_ms(run, what="conv3x3")
+            if C == conv.PERSISTENT_C:
+                out = torch.empty_like(xb)
+                s = conv.persistent_launch(B, sms)
+
+                def run(i):
+                    rc = lib.conv3x3_persistent_bf16(
+                        xb.data_ptr(), image.data_ptr(),
+                        *(t.data_ptr() for t in bn), out.data_ptr(), B, 2,
+                        s["grid"], stream)
+                    cs.check(rc == 0, f"launch failed: CUDA error {rc}")
+
+                run(0)
+                torch.cuda.synchronize()
+                cs.check(torch.equal(out, ref),
+                         f"C {C}, B {B}: the persistent path differs from "
+                         f"the rule's {rule}")
+                row["persistent"] = cs.cuda_ms(run, what="conv3x3")
             print(json.dumps(row), flush=True)
 
 

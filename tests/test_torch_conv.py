@@ -231,11 +231,12 @@ def test_card_check_rejects_sums_off_by_more_than_the_bound():
 # -----------------------------------------------------------------------------
 
 @pytest.mark.parametrize("B,C,want", [
-    # (grid, pieces, channels a piece, boards a piece)
+    # (grid, pieces, channels a piece, boards a piece), or on the
+    # persistent path ("persistent", grid, groups of four boards, rounds)
     (512, 128, (128, 128, 128, 4)), (1, 128, (8, 8, 16, 1)),
     (2, 32, (2, 2, 32, 1)), (37, 128, (74, 74, 64, 1)),
     (128, 128, (128, 128, 128, 1)), (264, 128, (132, 132, 128, 2)),
-    (268, 128, (90, 90, 128, 3)), (512, 256, (128, 256, 128, 4)),
+    (268, 128, (90, 90, 128, 3)), (512, 256, ("persistent", 128, 128, 1)),
     (1, 256, (16, 16, 16, 1)), (1031, 128, (129, 258, 128, 4)),
     (512, 32, (128, 128, 32, 4)),
     # the gates' 32 boards, the web bot's 2, a wave and one past it
@@ -246,6 +247,16 @@ def test_card_check_rejects_sums_off_by_more_than_the_bound():
     (384, 256, (128, 256, 128, 3)),
     (384, 128, (128, 128, 128, 3)), (33, 128, (66, 66, 64, 1)),
     (133, 32, (67, 67, 32, 2)), (256, 256, (128, 128, 128, 4)),
+    # C 256: the persistent path where it gives a block no more products
+    # than the pieces would (397 to 528 boards, and 1,031, whose runs are
+    # as long), else the pieces, as at C 32 and 128 at every batch
+    (268, 256, (90, 180, 128, 3)), (396, 256, (132, 264, 128, 3)),
+    (397, 256, ("persistent", 100, 100, 1)),
+    (400, 256, ("persistent", 100, 100, 1)),
+    (528, 256, ("persistent", 132, 132, 1)),
+    (529, 256, (118, 354, 128, 3)), (600, 256, (100, 300, 128, 4)),
+    (1031, 256, ("persistent", 129, 258, 2)), (2, 256, (32, 32, 16, 1)),
+    (396, 128, (132, 132, 128, 3)), (600, 32, (100, 200, 32, 3)),
 ])
 def test_conv_launch_shape(B, C, want):
     """A block's work as small as one wave allows, in ``SHAPES``'s order:
@@ -253,14 +264,27 @@ def test_conv_launch_shape(B, C, want):
     eighth at the gates' 32, one board and a whole tile at the trainer's
     128, three boards at 384, four at 512; past one wave, the first shape
     with the fewest waves, in runs of consecutive pieces, as few blocks as
-    give the shortest run (C 256 at 512 boards: both tiles of a group in
-    one block)."""
+    give the shortest run; at C 256 the persistent path (four boards and
+    both tiles a block) wherever a block's products are no more than
+    there."""
     shape = conv.conv_launch_shape(B, C, 132)
+    if want[0] == "persistent":
+        assert shape == conv.persistent_launch(B, 132)
+        assert (shape["path"], shape["grid"], shape["groups"],
+                shape["rounds"]) == want
+        assert shape["smem"] == conv.persistent_smem_bytes()
+        assert conv.block_work(shape) <= conv.block_work(
+            conv.wave_shape(B, C, 132))
+        return
+    assert shape["path"] == "waves"
     assert (shape["grid"], shape["pieces"], shape["np"],
             shape["per"]) == want
     assert (shape["np"], shape["per"]) in conv.SHAPES[C]
     assert shape["smem"] == conv.conv_smem_bytes(C, shape["np"],
                                                  shape["per"])
+    if C == conv.PERSISTENT_C:
+        assert conv.block_work(shape) < conv.block_work(
+            conv.persistent_launch(B, 132))
 
 
 @pytest.mark.parametrize("C", conv.CHANNELS)
@@ -277,6 +301,55 @@ def test_every_shape_covers_its_pieces_once(B, C):
         owners = [p // run for p in range(s["pieces"])]
         assert owners[-1] == s["grid"] - 1 and s["grid"] <= 132
         assert sorted(set(owners)) == list(range(s["grid"]))
+
+
+@pytest.mark.parametrize("sms", [132, 114, 7])
+@pytest.mark.parametrize("B", [1, 3, 397, 512, 528, 529, 1031, 2000])
+def test_the_persistent_schedule_covers_every_group_once(B, sms):
+    """The persistent path's blocks walk the groups of four boards in
+    rounds: every group in exactly one (block, round), no block without
+    one, no more blocks than multiprocessors, and each block's rounds the
+    kernel's count, ``ceil((groups - block) / grid)``, at most the
+    launch's."""
+    s = conv.persistent_launch(B, sms)
+    groups = -(-B // 4)
+    assert s["groups"] == groups and s["grid"] <= sms
+    # (block, round, group) as the kernel walks them
+    walked = [(b, r, r * s["grid"] + b) for b in range(s["grid"])
+              for r in range(-(-(groups - b) // s["grid"]))]
+    assert sorted(g for _, _, g in walked) == list(range(groups))
+    assert {b for b, _, _ in walked} == set(range(s["grid"]))
+    for b in range(s["grid"]):
+        rounds = [r for bb, r, _ in walked if bb == b]
+        assert rounds == list(range(-(-(groups - b) // s["grid"])))
+        assert len(rounds) <= s["rounds"]
+    assert s["rounds"] == -(-groups // sms)
+
+
+def test_the_persistent_layout_fits_the_shared_memory():
+    """The persistent path's layout (``conv_kernels.cu:PSmem``, counted by
+    hand): five 16 KB stages beside four boards' unpadded rows, the zero
+    row, the BatchNorm constants, sixteen warps' 512-byte scratch and the
+    mbarriers, within a block's opt-in shared memory; its width, boards,
+    scratch and stage count as the kernel's source states them."""
+    assert conv.persistent_stages() == 5
+    size = (5 * (16_384 + 16) + 4 * 32_768 + 512 + 3 * 1_024 + 16 * 512
+            + 8)
+    assert conv.persistent_smem_bytes() == size + 1024
+    assert conv.persistent_smem_bytes() <= epilogue.SMEM_PER_BLOCK
+    assert size + 16_400 + 1024 > conv._SMEM_OPT_IN    # no sixth stage
+    import re
+    from alphazero_torch.cuda_build import CSRC
+
+    src = (CSRC / "conv_kernels.cu").read_text()
+    found = lambda name: int(re.search(
+        rf"constexpr int {name} = (\d+);", src).group(1))
+    assert found("kPC") == conv.PERSISTENT_C
+    assert found("kMaxBoards") == 4
+    assert found("kSmemOptIn") == conv._SMEM_OPT_IN
+    assert found("kPScratch") == conv._SCRATCH_BYTES
+    assert ("- 3 * kPC * 4 - kMaxBoards * 4 * kPScratch - 8)\n"
+            "         / (kPChunkBytes + 16)") in src
 
 
 def test_conv_widths_fit_the_shared_memory():
@@ -457,7 +530,8 @@ def test_cuda_conv3x3_refuses_what_the_kernel_does_not_take(cuda):
 @pytest.mark.gpu
 def test_cuda_shared_memory_layout_is_the_kernels(cuda):
     """``conv_smem_bytes`` counts what the kernel's ``Smem`` takes, shape
-    by shape, and the kernel has no shape that ``SHAPES`` lacks."""
+    by shape, the kernel has no shape that ``SHAPES`` lacks, and
+    ``persistent_smem_bytes`` counts the persistent path's ``PSmem``."""
     lib = conv.LIB
     for C, shapes in conv.SHAPES.items():
         for np_, per in shapes:
@@ -465,6 +539,8 @@ def test_cuda_shared_memory_layout_is_the_kernels(cuda):
                 conv.conv_smem_bytes(C, np_, per)
     assert lib.conv3x3_smem_bytes(128, 32, 1) == 0
     assert lib.conv3x3_smem_bytes(32, 16, 1) == 0
+    assert lib.conv3x3_persistent_smem_bytes() == \
+        conv.persistent_smem_bytes()
 
 
 def _launch(x, image, bn, C, np_, per, epi=2):
@@ -506,6 +582,72 @@ def test_cuda_every_shape_against_plain_and_the_ring(cuda, B, C):
             want = _launch(x, image, bn if epi else None, C, *ring, epi)
             torch.cuda.synchronize()
             assert torch.equal(outs[k], want), (np_, per, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [397, 512, 1031])
+def test_cuda_persistent_path_against_plain_and_the_four_board_launch(
+        cuda, B):
+    """C 256 on the persistent path (one round of groups, a last group of
+    one board, two rounds with a last group of three): each epilogue one
+    counted launch of it, the conv within ``card_check``'s bounds of the
+    float64 sums, every output bit-equal to ``conv3x3_kernel<256, 128, 4>``,
+    and a board's output the same as that board launched alone."""
+    C = 256
+    assert conv.conv_launch_shape(
+        B, C, conv.LIB.multiprocessors(cuda))["path"] == "persistent"
+    x, w = _inputs(B, C, 5 * B, cuda)
+    bn = _bn(C, B, cuda)
+    image = conv.weight_image(w)
+    launches = (conv.conv3x3.launches, conv.conv3x3.persistent.launches)
+    outs = {k: conv.conv3x3(x, w, bn if affine else None, relu, image)
+            for k, (affine, relu) in EPILOGUES.items()}
+    torch.cuda.synchronize()
+    assert (conv.conv3x3.launches, conv.conv3x3.persistent.launches) == (
+        launches[0] + 3, launches[1] + 3)
+    limit = max(conv.CONV_UNEQUAL_SHARE, 2 * _cudnn_share(x, w))
+    r = conv.card_check(x, w, bn, outs, limit)
+    assert r["ok"], r
+    for epi, k in enumerate(EPILOGUES):
+        want = _launch(x, image, bn if epi else None, C, 128, 4, epi)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[k], want), k
+    # a board's output is the same launched alone (off the persistent path)
+    for b in (0, B // 2, B - 1):
+        alone = conv.conv3x3(x[b:b + 1].contiguous(), w, bn, True, image)
+        assert torch.equal(alone, outs["affine_relu"][b:b + 1]), b
+
+
+@pytest.mark.gpu
+def test_cuda_captured_c256_forward_counts_its_persistent_launches(cuda):
+    """The bf16 forward of a 2 x 256 net at 512 boards captured as a CUDA
+    graph and replayed, bit-equal to the eager forward; each of them counts
+    its 5 ``conv3x3`` launches on the persistent path; at 37 boards none
+    takes it."""
+    net = _net(2, 256, 22).to(cuda)
+    prep = inference.prepare_inference(net, torch.bfloat16)
+    path = conv.conv3x3.persistent
+    for B, n in ((512, 5), (37, 0)):
+        x = torch.from_numpy((np.random.default_rng(B).random(
+            (B, 3, 8, 8)) > 0.5).astype(np.float32)).to(cuda)
+        before = path.launches
+        want = inference.inference_apply(prep, x)
+        torch.cuda.synchronize()
+        assert path.launches == before + n
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            inference.inference_apply(prep, x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = path.launches
+        with torch.cuda.graph(graph):
+            got = inference.inference_apply(prep, x)
+        assert path.launches == before + n
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), B
 
 
 @pytest.mark.gpu

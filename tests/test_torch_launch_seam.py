@@ -188,3 +188,29 @@ def test_kernel_names_are_every_global_function_of_the_sources():
     assert all(re.fullmatch(r"\w+_kernel", n) for n in names), names
     assert {"conv3x3_kernel", "se_residual_kernel", "tower_kernel",
             "commit_path_kernel"} <= set(names)
+
+
+def test_a_path_count_is_in_the_seams_list_and_counts_with_its_wrapper():
+    """``count_path`` gives a wrapper a count of one path of its kernel,
+    which a replay adds to (it is in ``COUNTED``): ``launch(...,
+    path=...)`` counts a launch on both, a failed one on neither, and
+    names the path's kernel. ``conv3x3``'s persistent path is one."""
+    from alphazero_torch.models import conv
+
+    path = conv.conv3x3.persistent
+    assert any(c is path for c in cuda_build.COUNTED)
+    rcs = [0, 1]
+
+    def stand_in(*args):
+        return rcs.pop()
+
+    stand_in.__name__ = "conv3x3_persistent_bf16"
+    before = (conv.conv3x3.launches, path.launches)
+    with pytest.raises(RuntimeError, match="^conv3x3_persistent kernel "
+                                           "launch failed: CUDA error 1$"):
+        cuda_build.launch(conv.conv3x3, stand_in, 7, path=path)
+    assert (conv.conv3x3.launches, path.launches) == before
+    cuda_build.launch(conv.conv3x3, stand_in, 7, path=path)
+    assert (conv.conv3x3.launches, path.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    conv.conv3x3.launches, path.launches = before
