@@ -54,7 +54,7 @@ graph: on a CUDA tree ``search`` captures one simulation and replays it
 ``num_simulations`` times (``search/graph.py``), and ``capture=False``
 runs the same body eagerly. On a CPU tree the body runs eagerly through
 the kernels' plain versions; of those, the per-level descent reads "is any
-game still walking" once per level (``STATS.host_syncs``).
+game still walking" once per level (``STATS.levels``).
 """
 
 from __future__ import annotations
@@ -268,21 +268,19 @@ def init_tree(root_states: env.EnvState, spec: SearchSpec,
 class SearchStats:
     """Counters of the search loop, read by measurement scripts: simulations
     run (a replayed one counted by the host at its replay), the levels the
-    per-level descent ran (CPU trees only: on a CUDA tree no one reads how
-    deep a descent went), the host's reads of a device value inside
-    simulations (one per level of the CPU's descent; none on a CUDA
-    tree), the per-game edge depth summed over games and simulations
-    (``depth_sum``, read from one accumulator per device that the
-    simulation adds to in place, so that a captured simulation adds to it
-    on every replay)."""
+    per-level descent ran (CPU trees only, each one host read of a device
+    value inside a simulation: on a CUDA tree the descent reads nothing and
+    no one reads how deep it went), the per-game edge depth summed over
+    games and simulations (``depth_sum``, read from one accumulator per
+    device that the simulation adds to in place, so that a captured
+    simulation adds to it on every replay)."""
 
     simulations: int = 0
     levels: int = 0
-    host_syncs: int = 0
     depth: dict = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
-        self.simulations, self.levels, self.host_syncs = 0, 0, 0
+        self.simulations, self.levels = 0, 0
         for acc in self.depth.values():
             acc.zero_()
 
@@ -333,7 +331,6 @@ def _descend(rows: torch.Tensor, root_state: env.EnvState,
                                    spec.fpu_reduction, out)
     if levels is not None:
         STATS.levels += levels
-        STATS.host_syncs += levels
     return (*out, levels)
 
 
@@ -411,7 +408,6 @@ def _simulate_latent(tree: Tree, eval_fn, spec: SearchSpec, out=None,
         _, needs_alloc, depth, path_nodes, path_actions, levels = out
         if levels is not None:
             STATS.levels += levels
-            STATS.host_syncs += levels
     with record_function("mcts.evaluate"):
         state, action = kernels.gather_latent(tree.latent, depth, path_nodes,
                                               path_actions)
@@ -677,8 +673,8 @@ def sample_gamma(alpha: float, shape, generator: torch.Generator,
 
     Marsaglia-Tsang (2000) for Gamma(alpha+1), times U^(1/alpha) for
     alpha < 1. Each round draws 4 candidates per element and keeps the
-    first accepted; rounds repeat (one host sync each) until every
-    element has one, which at alpha=0.35 almost always takes one round.
+    first accepted; rounds repeat (one host read each, a ``host.wait``
+    span) until every element has one, which at alpha=0.35 almost always takes one round.
     """
     a = alpha + 1.0 if alpha < 1.0 else alpha
     d = a - 1.0 / 3.0
@@ -698,7 +694,9 @@ def sample_gamma(alpha: float, shape, generator: torch.Generator,
         take = ok.any(0) & ~done
         out = torch.where(take, cand, out)
         done = done | take
-        if bool(done.all()):
+        with tracing.span("host.wait"):
+            finished = bool(done.all())
+        if finished:
             break
     if alpha < 1.0:
         boost = torch.rand(shape, generator=generator, device=device)

@@ -14,9 +14,10 @@ Port of ``alphazero_tpu/train/selfplay.py``:
 Per-move outputs stay on the device; the host syncs a done flag every
 ``CHECK_EVERY`` moves and copies the recorded episodes once at the end.
 Randomness comes from one ``torch.Generator`` on the games' device.
-Each lockstep move is a ``selfplay.move`` span (``alphazero_torch.tracing``)
-holding the search's spans and the host's work around them:
-``selfplay.reset_tree``, ``selfplay.sample`` and ``selfplay.autoreset``.
+Each lockstep move is a move record (``alphazero_torch.tracing.move``), its
+body the span ``selfplay.move``, holding the search's spans and the host's
+work around them: ``selfplay.reset_tree``, ``selfplay.sample`` and
+``selfplay.autoreset``.
 
 A game loop keeps one tree for all its moves: a fresh-root move resets it
 in place (``init_tree(..., tree=)``) and tree reuse re-roots it in place
@@ -98,7 +99,7 @@ def selfplay_move(states: env.EnvState, generator: torch.Generator, eval_fn,
     searched (its buffers and captured simulation serve every move);
     None searches a new tree.
     """
-    with tracing.span("selfplay.move"):
+    with tracing.move():
         tree, planes, probs, actions, new_states = _fresh_move(
             states, tree, generator, eval_fn, spec, temperature_threshold)
         return new_states, planes, probs, actions, root_value(tree)
@@ -122,7 +123,7 @@ def selfplay_move_tree(states: env.EnvState, tree: Tree,
     tree (rooted at ``states``), then re-roots it at the chosen child, in
     place. Returns (new_states, planes, probs, actions, root_values,
     new_tree), ``new_tree`` being ``tree``."""
-    with tracing.span("selfplay.move"):
+    with tracing.move():
         stree, planes, probs, actions, new_states = _searched_move(
             states, tree, generator, eval_fn, spec, temperature_threshold)
         values = root_value(stree)
@@ -202,8 +203,11 @@ def selfplay_games(
         rec_mover.append(pre_turn)
         rec_active.append(pre_active)
         moves_played = m + 1
-        if (m + 1) % CHECK_EVERY == 0 and bool(states.done.all()):
-            break
+        if (m + 1) % CHECK_EVERY == 0:
+            with tracing.span("host.wait"):
+                finished = bool(states.done.all())
+            if finished:
+                break
 
     planes_all = _to_numpy(rec_planes, torch.uint8)     # (M, B, 3, 8, 8)
     probs_all = _to_numpy(rec_probs)                    # (M, B, A)
@@ -266,7 +270,7 @@ def _autoreset_move(states, generator, eval_fn, spec, temperature_threshold,
                     tree):
     """``selfplay_move_autoreset``'s move, with the actions played as a
     sixth result."""
-    with tracing.span("selfplay.move"):
+    with tracing.move():
         _, planes, probs, actions, new_states = _fresh_move(
             states, tree, generator, eval_fn, spec, temperature_threshold)
         ended = new_states.done
@@ -282,7 +286,7 @@ def selfplay_move_autoreset_tree(states: env.EnvState, tree: Tree,
     """Auto-reset move with tree reuse: lanes whose episode ended restart
     with an EMPTY root (force_fresh); other lanes keep the chosen child's
     subtree. Returns (new_states, planes, probs, ended, winner, tree)."""
-    with tracing.span("selfplay.move"):
+    with tracing.move():
         stree, planes, probs, actions, new_states = _searched_move(
             states, tree, generator, eval_fn, spec, temperature_threshold)
         ended = new_states.done
@@ -342,7 +346,8 @@ def selfplay_games_continuous(
         rec_winner.append(winner)
         moves_played = m + 1
         if (m + 1) % CHECK_EVERY == 0:
-            completed += int(torch.stack(rec_ended[-CHECK_EVERY:]).sum())
+            with tracing.span("host.wait"):
+                completed += int(torch.stack(rec_ended[-CHECK_EVERY:]).sum())
             if completed >= num_games:
                 break
 

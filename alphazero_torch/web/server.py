@@ -30,7 +30,8 @@ whole search.
 Each POST is a request record (``alphazero_torch.tracing.request``): the
 spans ``web.request`` (the whole handler), ``bot.search`` (a bot move, to
 the host's read of its action and value) and, inside it, the search's own
-spans.
+spans and the ``host.wait`` of the position's copy to the card and of
+the read.
 """
 
 from __future__ import annotations
@@ -133,14 +134,17 @@ class BotService:
         on_card = (torch.cuda.device(dev) if dev.type == "cuda"
                    else contextlib.nullcontext())
         with tracing.span("bot.search"), torch.inference_mode(), on_card:
-            states = live_states([game], dev)
+            with tracing.span("host.wait"):
+                # copies from pageable memory: each waits for the stream
+                states = live_states([game], dev)
             # one batch-1 tree, reset for every move: on the card every
             # move replays the simulation the first one captured (always
             # under inference mode, in which its tensors were made)
             self._tree = init_tree(states, self._spec, tree=self._tree)
             tree = search(states, self._eval_fn, self._spec, tree=self._tree)
-            action = int(root_action_probs(tree, 0.0).argmax(-1)[0])
-            ev = float(root_value(tree)[0])
+            with tracing.span("host.wait"):
+                action = int(root_action_probs(tree, 0.0).argmax(-1)[0])
+                ev = float(root_value(tree)[0])
         if game.turn == BLACK:
             ev = -ev
         return action, ev

@@ -971,9 +971,9 @@ def phase_search(dev, net, card):
     check(launches["descend"] == launches["commit_edges"] == moves * SIMS
           == launches["encode_planes"] == launches["expand"]
           == st.simulations == graph.STATS.replays
-          and graph.STATS.captures == 0 and st.host_syncs == 0
+          and graph.STATS.captures == 0 and st.levels == 0
           and launches["fetch_rows"] == 0,
-          f"{launches}, {st.host_syncs} host syncs, "
+          f"{launches}, {st.levels} host-read levels, "
           f"{graph.STATS.captures} captures and {graph.STATS.replays} "
           f"replays for {moves * SIMS} simulations: a simulation is one "
           f"replay, one descend, encode_planes, expand and commit_edges "
@@ -984,7 +984,7 @@ def phase_search(dev, net, card):
         "sims_per_s": live * SIMS / dt, "move_s": dt / moves,
         "mean_edge_depth": depth,
         "launches_per_move": {k: v / moves for k, v in launches.items()},
-        "host_syncs_per_sim": st.host_syncs / st.simulations,
+        "levels_per_sim": st.levels / st.simulations,
         "replays_per_move": graph.STATS.replays / moves,
         "first_move": first,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1297,11 +1297,11 @@ def phase_continuous(dev, net, card):
           "continuous self-play did not launch both kernels")
     check(K.descend.launches == K.commit_edges.launches == st.simulations
           == K.encode_planes.launches == K.expand.launches
-          and st.host_syncs == 0 and K.fetch_rows.launches == 0
+          and st.levels == 0 and K.fetch_rows.launches == 0
           and graph.STATS.captures == 1,
           f"{K.descend.launches} descend, {K.commit_edges.launches} "
           f"commit_edges, {K.fetch_rows.launches} fetch_rows launches, "
-          f"{st.host_syncs} host syncs and {graph.STATS.captures} captures "
+          f"{st.levels} host-read levels and {graph.STATS.captures} captures "
           f"for {st.simulations} simulations: a simulation is one descend, "
           f"encode_planes, expand and commit_edges launch each and no host "
           f"read, and the run's one tree is captured once")
@@ -1321,7 +1321,7 @@ def phase_continuous(dev, net, card):
            "sims_per_s": stats["simulations"] / dt,
            "ms_per_sim": dt / st.simulations * 1e3,
            "mean_edge_depth": st.depth_sum / (st.simulations * CONT_LANES),
-           "host_syncs_per_sim": st.host_syncs / st.simulations,
+           "levels_per_sim": st.levels / st.simulations,
            "captures": graph.STATS.captures,
            "capture_s": graph.STATS.capture_s,
            "replays": graph.STATS.replays,
@@ -1627,17 +1627,17 @@ def phase_trainer(dev, card):
               f"{launches}")
         check(launches["descend"] == launches["commit_edges"]
               == launches["encode_planes"] == launches["expand"]
-              == st.simulations and st.host_syncs == 0
+              == st.simulations and st.levels == 0
               and K.fetch_rows.launches == 0 and graph.STATS.captures == 2,
               f"{launches}, {K.fetch_rows.launches} fetch_rows launches, "
-              f"{st.host_syncs} host syncs and {graph.STATS.captures} "
+              f"{st.levels} host-read levels and {graph.STATS.captures} "
               f"captures for {st.simulations} simulations: a simulation is "
               f"one descend, encode_planes, expand and commit_edges launch "
               f"each and no host read, and each iteration's new evaluator "
               f"one capture")
         search_stats = {
             "simulations": st.simulations,
-            "host_syncs_per_sim": st.host_syncs / st.simulations,
+            "levels_per_sim": st.levels / st.simulations,
             "captures": graph.STATS.captures,
             "capture_s": graph.STATS.capture_s,
             "mean_edge_depth": st.depth_sum / (st.simulations
@@ -2667,10 +2667,10 @@ def phase_quant_search(dev, net, card, qp, act):
                   and conv.conv3x3.launches == 0
                   and launches["descend"] == launches["commit_edges"]
                   == launches["encode_planes"] == launches["expand"]
-                  == SIMS and mcts.STATS.host_syncs == 0,
+                  == SIMS and mcts.STATS.levels == 0,
                   f"int8 move: {launches}, {epilogue.bn_act.launches} "
                   f"bn_act, {conv.conv3x3.launches} conv3x3, "
-                  f"{mcts.STATS.host_syncs} syncs")
+                  f"{mcts.STATS.levels} host-read levels")
         else:
             check(quant.qconv3x3.launches == 0, "bf16 move ran an s8 conv")
             check(conv.conv3x3.launches == b_conv * (SIMS + 1)
@@ -3639,13 +3639,13 @@ def phase_smolgen(dev, card):
           and ln_launches == 2 * layers * forwards
           and graph.STATS.captures == 0
           and graph.STATS.replays == BT4_SIMS
-          and mcts.STATS.host_syncs == 0,
+          and mcts.STATS.levels == 0,
           f"a captured BT4 move of {BT4_SIMS} simulations: {launches} "
           f"smolgen_attention launches (want {layers} a forward, "
           f"{layers * forwards}), {ln_launches} deepnorm_ln (want "
           f"{2 * layers * forwards}), {graph.STATS.captures} captures, "
-          f"{graph.STATS.replays} replays, {mcts.STATS.host_syncs} host "
-          f"syncs")
+          f"{graph.STATS.replays} replays, {mcts.STATS.levels} host-read "
+          f"levels")
     check(bool(((probs.sum(-1) - 1).abs() < 1e-5).all())
           and bool(torch.isfinite(values).all()), "BT4 move's outputs")
     out["move"] = {"games": GAMES, "sims": BT4_SIMS, "move_s": move_s,
@@ -3892,11 +3892,11 @@ def phase_nbt(dev, card):
     check(all(got[k] == n * forwards for k, n in per_forward.items())
           and graph.STATS.captures == 0
           and graph.STATS.replays == NBT_SIMS
-          and mcts.STATS.host_syncs == 0,
+          and mcts.STATS.levels == 0,
           f"a captured nbt move of {NBT_SIMS} simulations: launches {got} "
           f"(want {per_forward} a forward, {forwards} forwards), "
           f"{graph.STATS.captures} captures, {graph.STATS.replays} replays, "
-          f"{mcts.STATS.host_syncs} host syncs")
+          f"{mcts.STATS.levels} host-read levels")
     check(bool(((probs.sum(-1) - 1).abs() < 1e-5).all())
           and bool(torch.isfinite(values).all()), "nbt move's outputs")
     out["move"] = {"games": GAMES, "sims": NBT_SIMS, "move_s": move_s,
@@ -4409,11 +4409,11 @@ def phase_muzero(dev, card):
     want = {k: n * MZ_SIMS + root.get(k, 0) for k, n in per_sim.items()}
     check(got == want and graph.STATS.captures == 0
           and graph.STATS.replays == MZ_SIMS
-          and mcts.STATS.host_syncs == 0,
+          and mcts.STATS.levels == 0,
           f"a captured muzero move of {MZ_SIMS} simulations: launches "
           f"{got} (want {want}), {graph.STATS.captures} captures, "
-          f"{graph.STATS.replays} replays, {mcts.STATS.host_syncs} host "
-          "syncs")
+          f"{graph.STATS.replays} replays, {mcts.STATS.levels} host-read "
+          "levels")
     check(bool(((probs.sum(-1) - 1).abs() < 1e-5).all())
           and bool(torch.isfinite(values).all()), "muzero move's outputs")
     out["move"] = {"games": GAMES, "sims": MZ_SIMS, "move_s": move_s,

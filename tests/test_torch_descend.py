@@ -239,11 +239,11 @@ def test_descend_records_into_given_path_buffers():
 
 def test_search_counts_levels_and_host_reads():
     """On a CPU tree every level of the plain descent is one read of a
-    device value by the host; ``STATS`` counts both."""
+    device value by the host; ``STATS`` counts the levels."""
     tmcts.STATS.reset()
     _grown_tree(13, 8, 16, F32, 0.0)
     st = tmcts.STATS
-    assert st.simulations == 16 and st.host_syncs == st.levels >= 16
+    assert st.simulations == 16 and st.levels >= 16
 
 
 # -----------------------------------------------------------------------------
@@ -697,7 +697,7 @@ def test_cuda_search_is_one_descend_launch_per_simulation(cuda):
     assert (K.descend.launches, K.fetch_rows.launches,
             K.commit_edges.launches) == (counts[0] + 32, counts[1],
                                          counts[2] + 32)
-    assert tmcts.STATS.simulations == 32 and tmcts.STATS.host_syncs == 0
+    assert tmcts.STATS.simulations == 32 and tmcts.STATS.levels == 0
     assert tree.captured is not None
     assert torch.equal(tree.rows.cpu(), cpu_tree.rows)
 

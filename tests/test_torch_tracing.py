@@ -9,10 +9,17 @@
 (c) ``span`` and ``request`` themselves: the names, the bound on
     ``REQUESTS``, a record per thread, a body that raises.
 (d) ``gpu``: on the card the bot's record holds the device time of its
-    simulations, from its events.
+    simulations, from its events; a steady-state captured move reads the
+    card nowhere outside ``host.wait``, and its record's pair and
+    allocations are read.
+(e) Move records: their schema and nesting, ``host.wait`` never inside
+    the simulations, the intervals on the profiler's clock, the pending
+    pairs resolved by a later close or ``settle``.
 """
 
 import collections
+import contextlib
+import json
 import threading
 import time
 import urllib.error
@@ -73,6 +80,10 @@ def test_a_selfplay_move_emits_its_spans_nested(tiny, reuse):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         move(states, tree, gen, eval_fn, spec, cfg.temperature_threshold)
     spans = _spans(prof)
+    # the noise's read of its rejection loop, once a round, inside the noise
+    waits = spans.pop("host.wait")
+    (n0, n1), = spans["search.noise"]
+    assert waits and all(n0 <= s <= e <= n1 for s, e in waits)
     order = ([] if reuse else ["selfplay.reset_tree"]) + [
         "search.root", "search.noise", "search.simulations",
         "selfplay.sample", "selfplay.autoreset"]
@@ -258,3 +269,278 @@ def test_cuda_bot_record_holds_the_simulations_device_time(
         d = rec["device"]["search.simulations"]
         assert d is not None and 0 < d <= rec["spans"]["bot.search"]
         assert rec["spans"]["bot.search"] >= rec["spans"]["search.root"]
+    # a steady-state bot move waits on the card in host.wait alone
+    with _reads_only_in_host_wait(monkeypatch):
+        with tracing.request("/api/move"):
+            bot.alphazero_move(OracleGame())
+    rec = tracing.REQUESTS[-1]
+    assert rec["device"]["search.simulations"] > 0
+    assert isinstance(rec["allocs"], int) and rec["allocs"] >= 0
+
+
+@contextlib.contextmanager
+def _reads_only_in_host_wait(monkeypatch):
+    """``set_sync_debug_mode("error")``, lifted inside ``host.wait`` alone:
+    any other wait of the host on the card raises."""
+    real = tracing.span
+
+    class lifted(real):
+        __slots__ = ()
+
+        def __enter__(self):
+            if self.name == "host.wait":
+                torch.cuda.set_sync_debug_mode(0)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            if self.name == "host.wait":
+                torch.cuda.set_sync_debug_mode("error")
+            return super().__exit__(*exc)
+
+    monkeypatch.setattr(tracing, "span", lifted)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        monkeypatch.setattr(tracing, "span", real)
+
+
+@pytest.mark.gpu
+def test_cuda_captured_move_reads_the_card_only_in_host_wait(
+        cuda, monkeypatch, tiny):
+    """A steady-state captured move under ``set_sync_debug_mode("error")``,
+    which ``host.wait`` alone lifts for its body: any other read of the
+    card by the host raises. Its record holds the replays' device time
+    once settled, and its allocations."""
+    cfg, _ = tiny
+    net = build_network(cfg, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    eval_fn = make_net_evaluator(net)
+    spec = tsp.search_spec(cfg)
+    states = tenv.initial_state((4,), device=cuda)
+    tree = init_tree(states, spec)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(3):                                # the first captures
+        states = tsp.selfplay_move_autoreset(
+            states, gen, eval_fn, spec, cfg.temperature_threshold, tree)[0]
+    torch.cuda.synchronize()
+    monkeypatch.setattr(tracing, "MOVES", collections.deque(maxlen=8))
+    with _reads_only_in_host_wait(monkeypatch):
+        for _ in range(3):
+            states = tsp.selfplay_move_autoreset(
+                states, gen, eval_fn, spec, cfg.temperature_threshold,
+                tree)[0]
+    torch.cuda.synchronize()
+    tracing.settle()
+    assert len(tracing.MOVES) == 3
+    for rec in tracing.MOVES:
+        d = rec["device"]["search.simulations"]
+        assert d is not None and d > 0
+        assert isinstance(rec["allocs"], int) and rec["allocs"] >= 0
+        assert rec["spans"]["host.wait"] > 0
+
+
+# -----------------------------------------------------------------------------
+# (e) move records
+# -----------------------------------------------------------------------------
+
+@pytest.fixture
+def moves(monkeypatch):
+    """Empty ``MOVES`` and ``REQUESTS`` for the test's own records."""
+    monkeypatch.setattr(tracing, "MOVES", collections.deque(maxlen=4096))
+    monkeypatch.setattr(tracing, "REQUESTS", collections.deque(maxlen=4096))
+
+
+def _cpu_move(tiny, reuse=False):
+    cfg, net = tiny
+    cfg = cfg.replace(tree_reuse=reuse)
+    spec = tsp.search_spec(cfg)
+    states = tenv.initial_state((4,), device="cpu")
+    tree = init_tree(states, spec)
+    gen = torch.Generator().manual_seed(0)
+    eval_fn = make_net_evaluator(net)
+    if reuse:
+        tsp.selfplay_move_autoreset_tree(states, tree, gen, eval_fn, spec,
+                                         cfg.temperature_threshold)
+    else:
+        tsp.selfplay_move_autoreset(states, gen, eval_fn, spec,
+                                    cfg.temperature_threshold, tree)
+
+
+@pytest.mark.parametrize("reuse", [False, True])
+def test_a_move_record_holds_its_spans_intervals_and_no_allocs(
+        tiny, moves, reuse):
+    _cpu_move(tiny, reuse)
+    rec, = tracing.MOVES
+    assert not tracing.REQUESTS
+    assert set(rec) == {"spans", "device", "allocs", "intervals", "t0", "t1"}
+    names = ([] if reuse else ["selfplay.reset_tree"]) + [
+        "selfplay.move", "search.root", "search.noise", "host.wait",
+        "search.simulations", "selfplay.sample", "selfplay.autoreset"]
+    assert sorted(rec["spans"]) == sorted(names)
+    assert rec["device"] == {"search.simulations": None}
+    assert rec["allocs"] is None                      # on the CPU
+    # the intervals, in the order they closed, inside the record and the
+    # move's body; each name's host time is the sum of its intervals
+    iv = rec["intervals"]
+    assert iv[-1][0] == "selfplay.move"
+    _, m0, m1 = iv[-1]
+    assert rec["t0"] <= m0 <= m1 <= rec["t1"]
+    assert all(m0 <= s <= e <= m1 for _, s, e in iv)
+    assert [e for _, _, e in iv] == sorted(e for _, _, e in iv)
+    for name, seconds in rec["spans"].items():
+        assert seconds * 1e9 == pytest.approx(
+            sum(e - s for n, s, e in iv if n == name))
+    assert rec["spans"]["selfplay.move"] >= sum(
+        rec["spans"][n] for n in names if n not in ("selfplay.move",
+                                                    "host.wait"))
+
+
+def test_records_inside_records_are_kept_apart(moves):
+    with tracing.move():
+        with tracing.span("search.root"):
+            pass
+        with tracing.request("/inner"):
+            with tracing.span("bot.search"):
+                pass
+            with tracing.move():
+                with tracing.span("host.wait"):
+                    pass
+        with tracing.span("selfplay.sample"):
+            pass
+    inner_move, outer = tracing.MOVES
+    request, = tracing.REQUESTS
+    assert set(outer["spans"]) == {"selfplay.move", "search.root",
+                                   "selfplay.sample"}
+    assert set(request["spans"]) == {"web.request", "bot.search"}
+    assert request["path"] == "/inner"
+    assert set(inner_move["spans"]) == {"selfplay.move", "host.wait"}
+    assert outer["t0"] < request["t0"] < inner_move["t0"] \
+        <= inner_move["t1"] < request["t1"] < outer["t1"]
+    assert all(r["allocs"] is None and r["device"] == {}
+               for r in (outer, request, inner_move))
+
+
+@pytest.mark.parametrize("name", ["host.wait", "search.noise"])
+def test_host_wait_is_a_name_of_names(name):
+    assert name in tracing.NAMES
+    with tracing.span(name):
+        pass
+    with pytest.raises(ValueError, match="NAMES"):
+        tracing.span(name + "s")
+
+
+@pytest.mark.parametrize("bot", [False, True])
+def test_no_host_wait_opens_inside_the_simulations(tiny, monkeypatch, bot):
+    """The CPU's eager search, which reads the card once a descent level
+    (unspanned), with a stub that records the spans open at each
+    ``host.wait``: the noise's waits lie in ``search.noise``, the bot's in
+    ``bot.search`` after the search, none in ``search.simulations``."""
+    real = tracing.span
+    stack, waits = [], []
+
+    class recording(real):
+        __slots__ = ()
+
+        def __enter__(self):
+            if self.name == "host.wait":
+                waits.append(tuple(stack))
+            stack.append(self.name)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            stack.pop()
+            return super().__exit__(*exc)
+
+    monkeypatch.setattr(tracing, "span", recording)
+    tmcts.STATS.reset()
+    if bot:
+        from alphazero_torch.env import OracleGame
+        from alphazero_torch.web import server as tserver
+
+        cfg, _ = tiny
+        monkeypatch.setattr(tmcts, "make_net_evaluator",
+                            lambda *a, **kw: dyadic_eval)
+        svc = tserver.BotService(cfg.replace(num_simulations_inference=8),
+                                 "cpu")
+        svc.alphazero_move(OracleGame())
+        # the position's copy to the card, and the read of the move
+        assert waits == [("bot.search",)] * 2
+    else:
+        _cpu_move(tiny)
+        assert waits and all(w[-1] == "search.noise" for w in waits)
+    assert tmcts.STATS.levels > 0                     # the unspanned reads
+    assert not any("search.simulations" in w for w in waits)
+
+
+def test_intervals_lie_on_the_profilers_clock(tiny, moves, tmp_path):
+    """Each record interval against the same span in a CPU profiler's
+    Chrome trace (``ts`` x 1000 + ``baseTimeNanoseconds``): within 1 ms
+    at both ends, after one warm-up span."""
+    path = str(tmp_path / "trace.json")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.span("learn.forward"):            # the warm-up
+            pass
+        _cpu_move(tiny)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    base = int(trace["baseTimeNanoseconds"])
+    traced = collections.defaultdict(list)
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "user_annotation" and e["name"] in tracing.NAMES:
+            s = float(e["ts"]) * 1e3 + base
+            traced[e["name"]].append((s, s + float(e["dur"]) * 1e3))
+    rec, = tracing.MOVES
+    seen = collections.Counter()
+    for name, s, e in sorted(rec["intervals"], key=lambda x: x[1]):
+        ts, te = sorted(traced[name])[seen[name]]
+        seen[name] += 1
+        assert abs(ts - s) < 1e6 and abs(te - e) < 1e6, (name, ts - s,
+                                                          te - e)
+    assert sum(seen.values()) == len(rec["intervals"]) >= 8
+
+
+class _Event:
+    """A stand-in for a CUDA event: complete or not, at a time in ms."""
+
+    def __init__(self, ms, done=True):
+        self.ms, self.done = ms, done
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        return end.ms - self.ms
+
+
+def test_a_pair_still_running_reads_none_until_it_completes(monkeypatch,
+                                                             moves):
+    """A closed record whose pair is still running waits in the pending
+    queue, oldest first: a later close resolves it once it completes,
+    and so does ``settle``; neither waits for it."""
+    monkeypatch.setattr(tracing, "_pending", collections.deque())
+    monkeypatch.setattr(tracing, "_free", collections.defaultdict(list))
+    first = {"device": {"search.simulations": None}}
+    second = {"device": {"search.simulations": None}}
+    end1, end2 = _Event(5.0, done=False), _Event(9.0, done=False)
+    tracing._pending.append(
+        (first, {"search.simulations": [(_Event(1.0), end1)]}, 0))
+    tracing._pending.append(
+        (second, {"search.simulations": [(_Event(2.0), end2),
+                                         (_Event(10.0), _Event(12.0))]},
+         0))
+    tracing.settle()
+    assert first["device"]["search.simulations"] is None
+    end2.done = True                                  # the older one runs
+    tracing.settle()
+    assert second["device"]["search.simulations"] is None
+    end1.done = True
+    with tracing.move():                              # a later close
+        pass
+    assert first["device"]["search.simulations"] == pytest.approx(4e-3)
+    assert second["device"]["search.simulations"] == pytest.approx(9e-3)
+    assert not tracing._pending
+    # their events serve later spans
+    assert len(tracing._free[0]) == 6 and end1 in tracing._free[0]
